@@ -504,3 +504,16 @@ RESERVED_FOR_MAX = 256
 #: queue label key shared claims must carry (ref common/constants
 #: DefaultQueueLabel)
 QUEUE_LABEL = "kai.scheduler/queue"
+
+
+@dataclasses.dataclass
+class Eviction:
+    """A victim eviction decision emitted by reclaim/preempt/consolidation
+    and stalegangeviction."""
+
+    pod_name: str
+    group: str
+    reason: str = ""
+    #: consolidation move target: the victim was verified to fit on this
+    #: node and gets a pipelined rebind there.  None = plain eviction.
+    move_to: str | None = None

@@ -3,11 +3,15 @@
 Port of ``kai_scheduler_tpu/framework/scheduler.py``, classic path: every
 cycle opens a session (snapshot + fair-share division), runs the
 configured actions over one commit set, gathers the packed commit with
-one device→host copy, and writes BindRequests back to the ``Cluster``.
-Actions register by name (ref ``actions/factory.go:31-37``); this slice
-registers ``allocate``.  The incremental, resident, analytics, repack,
-tracing, leader-election and usage-DB branches of the reference wait for
-later slices.
+one device→host copy, and writes BindRequests and evictions back to the
+``Cluster`` (a consolidation-moved victim also gets its pipelined
+rebind).  Actions register by name (ref ``actions/factory.go:31-37``):
+``allocate``, ``consolidation``, ``reclaim``, ``preempt`` and
+``stalegangeviction``.  The reference runs its built-in actions as one
+fused program; here each action is its own host-driven loop over the same
+commit set, in the configured order.  The incremental, resident,
+analytics, repack, tracing, decision-event, leader-election and usage-DB
+branches of the reference wait for later slices.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import numpy as np
 from ..apis import types as apis
 from ..device import resolve_device
 from ..ops.allocate import AllocationResult, allocate_counted, init_result
+from ..ops.stale import stale_gang_eviction
+from ..ops.victims import VictimStats, run_victim_action_counted
 from ..runtime.cluster import Cluster
 from .session import Session, SessionConfig
 
@@ -30,6 +36,11 @@ class CycleResult:
     """Everything one ``runOnce`` decided (the Statement commit set)."""
 
     bind_requests: list[apis.BindRequest] = dataclasses.field(
+        default_factory=list)
+    #: victims of reclaim / preempt / consolidation / stalegangeviction
+    evictions: list[apis.Eviction] = dataclasses.field(default_factory=list)
+    #: pipelined rebinds of consolidation-moved victims
+    move_bind_requests: list[apis.BindRequest] = dataclasses.field(
         default_factory=list)
     #: the commit set threaded through the action pipeline
     tensors: AllocationResult | None = None
@@ -53,6 +64,10 @@ class CycleResult:
     packed: "np.ndarray | None" = None
     #: allocate wavefront chunks run this cycle
     chunks: int = 0
+    #: victim action name -> preemptor steps, scenario attempts and host
+    #: syncs it made this cycle
+    victim_stats: dict[str, VictimStats] = dataclasses.field(
+        default_factory=dict)
 
 
 def cycle_seed_for(seed: int, cycle_index: int) -> int:
@@ -100,10 +115,65 @@ def _allocate_action() -> Action:
     return run
 
 
+def _victim_action(mode: str) -> Action:
+    def run(session: Session, result: CycleResult) -> None:
+        name = "consolidation" if mode == "consolidate" else mode
+        result.tensors, stats = run_victim_action_counted(
+            session.state, session.state.queues.fair_share, result.tensors,
+            num_levels=session.config.num_levels, mode=mode,
+            config=session.config.victims)
+        result.victim_stats[name] = stats
+    return run
+
+
+@register_action("reclaim")
+def _reclaim_action() -> Action:
+    """Cross-queue fairness enforcement — ref ``actions/reclaim``."""
+    return _victim_action("reclaim")
+
+
+@register_action("preempt")
+def _preempt_action() -> Action:
+    """Intra-queue priority preemption — ref ``actions/preempt``."""
+    return _victim_action("preempt")
+
+
+@register_action("consolidation")
+def _consolidation_action() -> Action:
+    """Evict-and-reallocate defragmentation — ref
+    ``actions/consolidation`` (every victim must be re-placed; see
+    ``victim_move``)."""
+    return _victim_action("consolidate")
+
+
+@register_action("stalegangeviction")
+def _stale_action() -> Action:
+    """Evict gangs below minMember past grace — ref
+    ``actions/stalegangeviction``."""
+    def run(session: Session, result: CycleResult) -> None:
+        result.tensors = stale_gang_eviction(
+            session.state, result.tensors,
+            grace_s=session.config.stale_grace_s,
+            num_levels=session.config.num_levels)
+    return run
+
+
+#: the reference's default action pipeline (``conf_util/
+#: scheduler_conf_util.go:37``)
+DEFAULT_ACTIONS = ("allocate", "consolidation", "reclaim", "preempt",
+                   "stalegangeviction")
+
+
 @dataclasses.dataclass
 class SchedulerConfig:
-    """ref ``conf/scheduler_conf.go:49-62`` — this slice's fields.  The
-    default action list is the one action ported so far."""
+    """ref ``conf/scheduler_conf.go:49-62`` — this slice's fields.
+
+    The default action list is ``("allocate",)``, not the reference's
+    :data:`DEFAULT_ACTIONS`: the reference's default ``VictimConfig``
+    (``batch_size=64``) runs reclaim and preempt through the chunked
+    victim wavefront, which this package has not ported and refuses.
+    Run the five actions with ``SessionConfig(victims=VictimConfig(
+    batch_size=1))``, the sequential engine."""
 
     actions: tuple[str, ...] = ("allocate",)
     session: SessionConfig = dataclasses.field(default_factory=SessionConfig)
@@ -163,9 +233,19 @@ class Scheduler:
         t_gather = time.perf_counter()
         result.bind_requests = session.bind_requests_from(
             result.tensors, host=host)
+        result.evictions = session.evictions_from(host)
         t_decode = time.perf_counter()
         for br in result.bind_requests:
             cluster.create_bind_request(br)
+        for ev in result.evictions:
+            # moved victims restart and get a pipelined rebind on their
+            # verified target node — evicted, not lost
+            cluster.evict_pod(ev.pod_name, restart=ev.move_to is not None)
+            if ev.move_to is not None:
+                rebind = session.pipelined_rebind(cluster, ev)
+                if rebind is not None:
+                    result.move_bind_requests.append(rebind)
+                    cluster.create_bind_request(rebind)
         result.commit_seconds = time.perf_counter() - t_solve
         self._record_fit_status(cluster, session, host)
         t_end = time.perf_counter()

@@ -8,8 +8,10 @@ to BindRequest objects via the SnapshotIndex.
 The commit path moves ONE compact array device→host: results pack into
 an i16 vector (indices < 32k; bools 8 per lane; the f32 queue tables as
 i16 pairs) — the parity surface the port and the reference compare byte
-for byte.  The analytics, repack and victim parts of the reference's
-commit wait for the slices that port those actions.
+for byte.  The victim actions' part of the commit — evictions and the
+pipelined rebinds of consolidation-moved pods — decodes from the same
+transfer.  The analytics and repack parts of the reference's commit wait
+for the slices that port those features.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from ..apis import types as apis
 from ..device import resolve_device
 from ..ops import drf
 from ..ops.allocate import AllocateConfig, AllocationResult
-from ..state.cluster_state import ClusterState, SnapshotIndex, build_snapshot
+from ..ops.victims import VictimConfig
+from ..state.cluster_state import (ClusterState, SnapshotIndex, _pow2_ceil,
+                                   build_snapshot)
 
 #: BindRequest backoff limit (the reference SessionConfig's default)
 DEFAULT_BIND_BACKOFF_LIMIT = 3
@@ -92,11 +96,46 @@ class SessionConfig:
     num_levels: int = 2
     #: proportion plugin kValue (time-based fairshare coupling)
     k_value: float = 0.0
+    victims: VictimConfig = dataclasses.field(default_factory=VictimConfig)
+    #: stalegangeviction grace period (ref options.go:34, default 60s)
+    stale_grace_s: float = 60.0
 
 
-def _auto_tune(config: SessionConfig, index: SnapshotIndex) -> SessionConfig:
-    """Derive the allocate fast-path flags from the snapshot's index hints
-    (the reference's ``_auto_tune``, allocate fields only)."""
+def _pow4_ceil(x: int) -> int:
+    b = 1
+    while b < int(x):
+        b <<= 2
+    return b
+
+
+def _preempt_lane_width(batch_size: int, num_pending: int,
+                        num_leaf_queues: int, padded_nodes: int) -> int:
+    """Victim-wavefront lane width for preempt (the reference's auto-tuning
+    v2, verbatim): one lane per live preemptor up to a B*N memory bound,
+    bucketed to powers of four."""
+    cap = 512
+    while cap > 64 and cap * max(padded_nodes, 1) > (1 << 22):
+        cap //= 2
+    if num_pending < 0:
+        spread = num_leaf_queues if num_leaf_queues > 64 else batch_size
+    else:
+        spread = max(num_pending, 1)
+    return max(1, min(cap, _pow4_ceil(spread)))
+
+
+def _sparse_unit_width(padded_pods: int, num_leaf_queues: int) -> int:
+    """Compact victim-table width when ``VictimConfig.sparse_unit_k`` is
+    None (the reference's rule, verbatim)."""
+    per_leaf = padded_pods // max(num_leaf_queues, 1)
+    return max(256, min(1024, _pow2_ceil(4 * max(per_leaf, 1))))
+
+
+def _auto_tune(config: SessionConfig, index: SnapshotIndex,
+               padded_nodes: int, padded_running: int) -> SessionConfig:
+    """Derive the kernel fast-path flags and wavefront widths from the
+    snapshot's index hints and padded shapes (the reference's
+    ``_auto_tune``, verbatim), so the port runs the reference's static
+    config."""
     if index.max_queue_depth + 1 > config.num_levels:
         config = dataclasses.replace(
             config, num_levels=index.max_queue_depth + 1)
@@ -107,16 +146,27 @@ def _auto_tune(config: SessionConfig, index: SnapshotIndex) -> SessionConfig:
                and config.allocate.placement.binpack_cpu)
     sub_topo = (index.has_subgroup_topology
                 or index.has_required_topology)
+    flags = dict(track_devices=devices, uniform_tasks=uniform,
+                 subgroup_topology=sub_topo,
+                 extended=index.has_extended_resources,
+                 dense_feasibility=index.dense_feasibility,
+                 preferred_topology=index.has_preferred_topology,
+                 anti_groups=index.has_anti_groups,
+                 attract_groups=index.has_attract_groups)
+    v = config.victims
     return dataclasses.replace(
         config,
-        allocate=dataclasses.replace(
-            config.allocate, track_devices=devices,
-            uniform_tasks=uniform, subgroup_topology=sub_topo,
-            extended=index.has_extended_resources,
-            dense_feasibility=index.dense_feasibility,
-            preferred_topology=index.has_preferred_topology,
-            anti_groups=index.has_anti_groups,
-            attract_groups=index.has_attract_groups))
+        allocate=dataclasses.replace(config.allocate, **flags),
+        victims=dataclasses.replace(
+            v, chunk_reclaim=not index.has_reclaim_minruntime,
+            batch_size_preempt=(
+                _preempt_lane_width(v.batch_size, index.num_pending_gangs,
+                                    index.num_leaf_queues, padded_nodes)
+                if v.batch_size_preempt is None else v.batch_size_preempt),
+            sparse_unit_k=(
+                _sparse_unit_width(padded_running, index.num_leaf_queues)
+                if v.sparse_unit_k is None else v.sparse_unit_k),
+            placement=dataclasses.replace(v.placement, **flags)))
 
 
 @dataclasses.dataclass
@@ -149,7 +199,8 @@ class Session:
         kernel config from the index hints, then divide fair shares."""
         config = config or SessionConfig()
         if config.auto_tune:
-            config = _auto_tune(config, index)
+            config = _auto_tune(config, index, state.nodes.n,
+                                state.running.m)
         fair_share = drf.set_fair_share(state, num_levels=config.num_levels,
                                         k_value=config.k_value)
         state = dataclasses.replace(
@@ -257,6 +308,53 @@ class Session:
                 portion.tolist(), mem.tolist(), count.tolist(),
                 dev.tolist(), dra.tolist())
         ]
+
+    def evictions_from(self, host: dict) -> list[apis.Eviction]:
+        """The victim mask and move targets of the gathered commit →
+        Eviction objects (``cache.Evict`` analogue); a consolidation move
+        carries its target node."""
+        mask = host["victim"].copy()
+        mask[len(self.index.running_pod_names):] = False
+        mi = np.nonzero(mask)[0]
+        names = self.index.running_pod_names_arr[mi]
+        keep = names != ""
+        if not keep.all():
+            mi, names = mi[keep], names[keep]
+        gangs = host["running_gang"][mi]
+        ng = len(self.index.gang_names)
+        ok_g = (gangs >= 0) & (gangs < ng)
+        if ng:
+            groups = np.where(ok_g, self.index.gang_names_arr[
+                np.clip(gangs, 0, ng - 1)], "")
+        else:
+            groups = np.full(len(mi), "", object)
+        targets = [self.index.node_names[m] if m >= 0 else None
+                   for m in host["victim_move"][mi].tolist()]
+        return [apis.Eviction(pod_name=nm, group=gr, move_to=mv)
+                for nm, gr, mv in zip(names.tolist(), groups.tolist(),
+                                      targets)]
+
+    def pipelined_rebind(self, cluster, ev: apis.Eviction
+                         ) -> apis.BindRequest | None:
+        """The pipelined rebind of a consolidation-moved victim on its
+        verified target node; None when the pod vanished between solve
+        and commit."""
+        pod = cluster.pods.get(ev.pod_name)
+        if pod is None or ev.move_to is None:
+            return None
+        is_frac = pod.accel_portion > 0 or pod.accel_memory_gib > 0
+        return apis.BindRequest(
+            pod_name=pod.name,
+            selected_node=ev.move_to,
+            received_resource_type=(
+                apis.ReceivedResourceType.FRACTION if is_frac
+                else apis.ReceivedResourceType.REGULAR),
+            received_accel_portion=pod.accel_portion,
+            received_accel_memory_gib=pod.accel_memory_gib,
+            received_accel_count=(
+                0 if is_frac else int(round(pod.resources.accel))),
+            backoff_limit=DEFAULT_BIND_BACKOFF_LIMIT,
+        )
 
     def unschedulable_explanations(self, host: dict) -> dict[str, str]:
         """Per-gang fit-failure messages for gangs that ended the cycle

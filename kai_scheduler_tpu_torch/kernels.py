@@ -64,6 +64,15 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("sparse_accept",
                    "kai_scheduler_tpu_torch/csrc/sparse_accept.cu",
                    "kai_scheduler_tpu/ops/allocate.py:283"),
+        KernelInfo("cumsum_ds",
+                   "kai_scheduler_tpu_torch/csrc/cumsum_ds.cu",
+                   "kai_scheduler_tpu/utils/numerics.py:30"),
+        KernelInfo("freed_by_mask",
+                   "kai_scheduler_tpu_torch/csrc/freed_by_mask.cu",
+                   "kai_scheduler_tpu/ops/victims.py:143"),
+        KernelInfo("replace_victims",
+                   "kai_scheduler_tpu_torch/csrc/replace_victims.cu",
+                   "kai_scheduler_tpu/ops/victims.py:644"),
     )
 }
 
@@ -96,6 +105,10 @@ _SIGNATURES = {
     "kai_type_tables": [_P] * 10 + [_I] * 7 + [_P] * 5 + [_P],
     "kai_uniform_fill": [_P] * 22 + [_I] * 10 + [_F] + [_P] * 5 + [_P],
     "kai_sparse_accept": [_P] * 6 + [_I] * 4 + [_P] * 4 + [_P],
+    "kai_cumsum_ds": [_P, _I, _I, _P, _P, _P],
+    "kai_freed_by_mask": [_P] * 12 + [_I] * 5 + [_P] * 6 + [_P],
+    "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
+    + [_P],
 }
 
 _LIB = None

@@ -1,3 +1,4 @@
-"""The solver operations of one allocate cycle — DRF division, predicate
-masks, scoring, ordering and the allocate wavefront — with the four
-hand-written CUDA kernels behind their wrappers (see :mod:`..kernels`)."""
+"""The solver operations of one cycle — DRF division, predicate masks,
+scoring, ordering, the allocate wavefront, the victim scenario engine and
+stale-gang eviction — with the hand-written CUDA kernels behind their
+wrappers (see :mod:`..kernels`)."""

@@ -587,6 +587,72 @@ def _attempt_gang(state: ClusterState, cand: Tensor, prior: Tensor,
         stride=max(1, N // max(1, config.batch_size)), hoisted=hoisted)
 
 
+def _ancestor_gate(parent: Tensor, q: Tensor, num_levels: int, used: Tensor,
+                   cap: Tensor, req: Tensor) -> Tensor:
+    """True iff ``used[a] + req <= cap[a]`` (per resource, UNLIMITED caps
+    skipped) for queue ``q`` and every ancestor ``a`` (ref ``:405``).
+    Batched: ``q`` i32 [...], ``req`` f32 [..., R] -> bool [...]."""
+    ok = torch.ones(q.shape, dtype=torch.bool, device=q.device)
+    cur = q
+    for _ in range(num_levels):
+        valid = cur >= 0
+        idx = torch.clamp(cur, min=0).long()
+        cap_q = cap[idx]
+        fits = ((cap_q <= UNLIMITED + 0.5)
+                | (used[idx] + req <= cap_q + EPS)).all(-1)
+        ok = ok & (~valid | fits)
+        cur = torch.where(valid, parent[idx], -1)
+    return ok
+
+
+def attempt_gang_dense(state: ClusterState, gi: int, free: Tensor,
+                       qa: Tensor, qan: Tensor, extra: Tensor, *,
+                       config: AllocateConfig, chain: Tensor,
+                       limit_eff: Tensor, quota_eff: Tensor,
+                       lt: LaneTables):
+    """One gang's whole placement with dense outputs — the reference's
+    ``_attempt_gang`` (``:1208``) as the victim solver calls it: lane 0, no
+    prior placements and no re-push quota (its ``legacy`` protocol:
+    success iff at least ``min_needed`` tasks place), no hoisted tables.
+    Routes through K2 for the gang's task type against ``(free, extra)``
+    and K3 with one lane; ``lt`` must map every gang to type row 0
+    (:func:`single_type_lanes`).
+
+    Returns ``(free2 [N, R], qa2 [Q, R], qan2 [Q, R], nodes_t i32 [T],
+    pipe_t bool [T], success bool [])``; the device and extended pools
+    pass through untouched (the uniform path tracks neither)."""
+    g, n = state.gangs, state.nodes
+    T, N = g.t, n.n
+    dev = free.device
+    ty = g.task_type[gi, :1].long()
+    tables = type_tables(n, free, extra, g.type_req.index_select(0, ty),
+                         g.type_selector.index_select(0, ty),
+                         g.type_class.index_select(0, ty), config.placement)
+    cand = torch.full((1,), gi, dtype=torch.int32, device=dev)
+    prior = torch.full((1, T), -1, dtype=torch.int32, device=dev)
+    quota_b = torch.full((1,), T, dtype=torch.int32, device=dev)
+    qa2, qan2, nodes_t, pipe_t, _ = uniform_fill(
+        cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, lt,
+        tables, n.soft_scores, n.valid, dense=config.dense_feasibility,
+        stride=max(1, N // max(1, config.batch_size)), hoisted=False)
+    nodes_t, pipe_t = nodes_t[0], pipe_t[0]
+    placed = nodes_t >= 0
+    success = placed.sum(dtype=torch.int32) >= g.min_needed[gi]
+    per_node = torch.zeros((N + 1,), dtype=torch.int32, device=dev)
+    per_node.index_add_(0, torch.where(placed, nodes_t, N).long(),
+                        placed.to(torch.int32))
+    free2 = free - per_node[:N, None].to(free.dtype) * g.task_req[gi, 0][None]
+    return free2, qa2[0], qan2[0], nodes_t, pipe_t, success
+
+
+def single_type_lanes(state: ClusterState) -> LaneTables:
+    """:class:`LaneTables` whose every gang reads type row 0 — the layout
+    of the one-row K2 tables :func:`attempt_gang_dense` builds."""
+    lt = LaneTables.of(state)
+    return dataclasses.replace(lt,
+                               task_type0=torch.zeros_like(lt.task_type0))
+
+
 def _pad_row(t: Tensor, fill) -> Tensor:
     """``t`` with one junk row appended (the target of scatters at the
     out-of-range gang index ``G``, which JAX drops)."""

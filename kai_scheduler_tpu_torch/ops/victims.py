@@ -1,0 +1,866 @@
+"""Victim-scenario engine — reclaim, preempt and consolidation.
+
+Port of ``kai_scheduler_tpu/ops/victims.py``, the sequential engine: for a
+pending *preemptor* gang, grow a victim set one eviction unit at a time and
+simulate "evict victims, re-run allocation" for each scenario; the first
+scenario whose simulation places the preemptor and passes the validators
+wins (ref ``actions/common/solvers/job_solver.go:47-120``).  Victims are
+ranked once per preemptor — victim jobs by the action-start frozen order,
+pods within a gang newest first — so a scenario is a prefix of unit ranks.
+Reclaim and preempt search that prefix with a capacity lower-bound probe,
+an upper probe and a bisection (success is monotone in the prefix);
+consolidation, whose every victim must also re-place, walks it linearly.
+
+The reference's ``lax.while_loop`` s and ``lax.cond`` s are host loops here:
+one device-to-host read per decision (the next preemptor, the search
+bounds, each scenario attempt's success).  Three device programs of the
+solver are hand-written CUDA kernels, each with its plain PyTorch version
+(the wrapper runs the plain version only for CPU tensors):
+
+- **K5** ``cumsum_ds`` (:mod:`..utils.numerics`) — the per-unit tables'
+  compensated prefix sums;
+- **K6** :func:`freed_by_mask` (``csrc/freed_by_mask.cu``) — what a
+  scenario's victims release per node, device, extended scalar and queue;
+- **K7** :func:`replace_victims` (``csrc/replace_victims.cu``) — the
+  consolidation validator's greedy re-placement of every victim.
+
+Each scenario attempt places the preemptor through K2 and K3 with one lane
+(:func:`.allocate.attempt_gang_dense`).  The chunked wavefront the
+reference runs for ``batch_size > 1`` (``_run_victim_action_chunked``) is
+not ported: that configuration raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import kernels
+from ..apis.types import UNLIMITED
+from ..state.cluster_state import ClusterState
+from ..utils.numerics import cumsum_ds
+from . import ordering
+from .allocate import (AllocateConfig, AllocationResult, LaneTables,
+                       _ancestor_gate, _chain_membership, attempt_gang_dense,
+                       check_supported, single_type_lanes)
+
+Tensor = torch.Tensor
+EPS = 1e-6
+BIG = 2 ** 30
+_INF = float("inf")
+_I32_MIN = -2 ** 31
+_I32_MAX = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class VictimConfig:
+    """Knobs of the victim actions — the reference's fields, one for one,
+    with the same defaults (see ``kai_scheduler_tpu.ops.victims.
+    VictimConfig`` for each knob's meaning).  ``batch_size > 1`` for
+    reclaim (with ``chunk_reclaim``) or preempt selects the chunked
+    wavefront, which this package has not ported: it raises."""
+
+    placement: AllocateConfig = AllocateConfig(dynamic_order=False)
+    saturation_multiplier: float = 1.0
+    queue_depth: int | None = None
+    queue_depth_preempt: int | None = None
+    max_consolidation_preemptees: int = 64
+    batch_size: int = 64
+    batch_size_preempt: int | None = None
+    chunk_reclaim: bool = False
+    max_victim_pods: int = 512
+    optimistic_preempt: bool | None = None
+    sparse_unit_k: int | None = None
+
+
+@dataclasses.dataclass
+class VictimStats:
+    """What one victim action did: preemptor steps taken, scenario
+    attempts simulated, and device-to-host reads the host loop made."""
+
+    steps: int = 0
+    attempts: int = 0
+    syncs: int = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: freed_by_mask
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PodIndex:
+    """The running pods listed by node and by leaf queue (CSR, stable in
+    pod index) — K6's segment order.  Pods do not change within a cycle,
+    so the lists are built once per action."""
+
+    node_off: Tensor   # i32 [N + 1]
+    node_pods: Tensor  # i32 [M]
+    queue_off: Tensor  # i32 [Q + 1]
+    queue_pods: Tensor  # i32 [M]
+
+    @classmethod
+    def of(cls, state: ClusterState) -> "PodIndex":
+        r = state.running
+
+        def csr(key: Tensor, n: int):
+            key = torch.clamp(key, min=0)
+            pods = torch.sort(key, stable=True).indices.to(torch.int32)
+            off = torch.zeros((n + 1,), dtype=torch.int32, device=key.device)
+            # integer counts (bincount would read its size from the device)
+            off[1:].index_add_(0, key.long(), torch.ones_like(pods))
+            return off.cumsum(0, dtype=torch.int32), pods
+
+        node_off, node_pods = csr(r.node, state.nodes.n)
+        queue_off, queue_pods = csr(r.queue, state.queues.q)
+        return cls(node_off, node_pods, queue_off, queue_pods)
+
+
+def _rollup(chain: Tensor, leaf: Tensor) -> Tensor:
+    """``einsum("qa,qr->ar", chain, leaf)`` summed in ascending ``q`` from
+    +0.0, the order of the reference's dot on the CPU."""
+    cf = chain.to(leaf.dtype)
+    out = torch.zeros_like(leaf)
+    for q in range(leaf.shape[0]):
+        out = out + cf[q][:, None] * leaf[q][None, :]
+    return out
+
+
+def freed_by_mask_plain(state: ClusterState, mask: Tensor, chain: Tensor):
+    """Plain PyTorch version of K6 (ref ``:143``): ``(freed_nodes [N, R],
+    freed_devices [N, D], freed_queues [Q, R], freed_queues_nonpreemptible
+    [Q, R], freed_extended [N, E])``.  Every segment sum adds in ascending
+    pod order from +0.0 (``index_add_`` on the CPU is that loop)."""
+    r, n, q = state.running, state.nodes, state.queues
+    N, D, Q = n.n, n.d, q.q
+    f32 = torch.float32
+
+    def seg_sum(values: Tensor, seg: Tensor, num: int) -> Tensor:
+        out = torch.zeros((num + 1,) + values.shape[1:], dtype=f32,
+                          device=values.device)
+        return out.index_add_(0, seg.long(), values)[:num]
+
+    req_m = torch.where(mask[:, None], r.req, 0.0)
+    node_seg = torch.where(mask, torch.clamp(r.node, min=0), N)
+    freed_nodes = seg_sum(req_m, node_seg, N)
+    frac = mask & (r.device >= 0)
+    flat = torch.clamp(r.node, min=0) * D + torch.clamp(r.device, min=0)
+    freed_dev = seg_sum(torch.where(frac, r.accel_held, 0.0),
+                        torch.where(frac, flat, N * D), N * D).reshape(N, D)
+    bits = (r.devices_mask[:, None] >> torch.arange(
+        D, dtype=torch.int32, device=mask.device)[None, :]) & 1
+    whole_bits = bits.to(f32) * (mask & (r.device < 0))[:, None]
+    freed_dev = freed_dev + seg_sum(whole_bits, node_seg, N)
+    leaf = seg_sum(req_m, torch.where(mask, torch.clamp(r.queue, min=0), Q), Q)
+    np_mask = mask & ~r.preemptible
+    leaf_np = seg_sum(torch.where(np_mask[:, None], r.req, 0.0),
+                      torch.where(np_mask, torch.clamp(r.queue, min=0), Q), Q)
+    freed_ext = seg_sum(torch.where(mask[:, None], r.extended, 0.0),
+                        node_seg, N)
+    return (freed_nodes, freed_dev, _rollup(chain, leaf),
+            _rollup(chain, leaf_np), freed_ext)
+
+
+def freed_by_mask(state: ClusterState, mask: Tensor, chain: Tensor,
+                  pods: PodIndex | None = None):
+    """K6 — resources released by evicting the masked running pods (see
+    :func:`freed_by_mask_plain` for the contract).  CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise.  ``pods`` is
+    the action's :class:`PodIndex` (built here when not given)."""
+    if not kernels.on_card(mask):
+        return freed_by_mask_plain(state, mask, chain)
+    r, n, q = state.running, state.nodes, state.queues
+    N, D, Q, M = n.n, n.d, q.q, r.m
+    R_ = r.req.shape[1]
+    E = r.extended.shape[1]
+    if pods is None:
+        pods = PodIndex.of(state)
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    ts = dict(mask=mask, req=r.req, device=r.device, held=r.accel_held,
+              devices_mask=r.devices_mask, preemptible=r.preemptible,
+              extended=r.extended, node_off=pods.node_off,
+              node_pods=pods.node_pods, queue_off=pods.queue_off,
+              queue_pods=pods.queue_pods, chain=chain)
+    dev = kernels.require_cuda("freed_by_mask", ts, dict(
+        mask=b, req=f32, device=i32, held=f32, devices_mask=i32,
+        preemptible=b, extended=f32, node_off=i32, node_pods=i32,
+        queue_off=i32, queue_pods=i32, chain=b))
+    if mask.shape != (M,) or chain.shape != (Q, Q):
+        raise ValueError("freed_by_mask: mask must be [M], chain [Q, Q]")
+    leaf = torch.empty((2 * Q * R_,), dtype=f32, device=dev)
+    outs = (torch.empty((N, R_), dtype=f32, device=dev),
+            torch.empty((N, D), dtype=f32, device=dev),
+            torch.empty((Q, R_), dtype=f32, device=dev),
+            torch.empty((Q, R_), dtype=f32, device=dev),
+            torch.empty((N, E), dtype=f32, device=dev))
+    rc = kernels.library().kai_freed_by_mask(
+        *(kernels.ptr(t) for t in ts.values()), N, R_, D, Q, E,
+        kernels.ptr(leaf), *(kernels.ptr(t) for t in outs),
+        kernels.stream_of(mask))
+    kernels.check(rc, "freed_by_mask")
+    kernels.count_launch("freed_by_mask")
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# K7: replace_victims
+# ---------------------------------------------------------------------------
+
+def replace_victims_plain(state: ClusterState, mask: Tensor, free: Tensor,
+                          device_free: Tensor, releasing: Tensor,
+                          device_releasing: Tensor, ext_free: Tensor,
+                          ext_releasing: Tensor, max_pods: int):
+    """Plain PyTorch version of K7 (ref ``_replace_victims``, ``:644``):
+    every victim, in pod order, takes the fitting node with the least
+    available accel (lowest index on ties), drawing on releasing capacity
+    too.  Returns ``(free' [N, R], device_free' [N, D], extended_free'
+    [N, E], moves i32 [M], all_ok bool [])``."""
+    r, n = state.running, state.nodes
+    M, D = r.m, n.d
+    K = max(1, min(M, max_pods))
+    dev = mask.device
+    idxs = torch.nonzero(mask).flatten()
+    n_vic = idxs.numel()
+    free_l, dev_l, ext_l = free.clone(), device_free.clone(), ext_free.clone()
+    moves = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    all_ok = n_vic <= K
+    d_ar = torch.arange(D, device=dev)
+    one_m_eps = 1.0 - EPS
+    for m in idxs[:K].tolist():
+        req = r.req[m]
+        is_frac = bool(r.device[m] >= 0)
+        p_n = torch.where(
+            r.accel_mem[m] > 0,
+            r.accel_mem[m] / torch.clamp(n.device_memory_gib, min=EPS),
+            r.accel_held[m])                                  # [N]
+        avail = free_l + releasing
+        dev_avail = dev_l + device_releasing
+        fit = ((avail + EPS >= req[None, :]).all(-1) & n.valid
+               & n.filter_masks[r.filter_class[m]])
+        ext_req = r.extended[m]
+        fit = fit & (ext_l + ext_releasing + EPS >= ext_req[None, :]).all(-1)
+        if is_frac:
+            fit = fit & (dev_avail.amax(-1) >= p_n - EPS)
+        else:
+            whole_free = (dev_avail >= one_m_eps).to(free.dtype).sum(-1)
+            fit = fit & (whole_free + EPS >= req[0])
+        if not bool(fit.any()):
+            all_ok = False
+            continue
+        score = torch.where(fit, -avail[:, 0], -_INF)
+        node = int(torch.argmax(score))
+        p = p_n[node]
+        delta = req.clone()
+        if is_frac:
+            delta[0] = p
+        free_l[node] = free_l[node] + (-delta)
+        ext_l[node] = ext_l[node] + (-ext_req)
+        dev_row = dev_avail[node]
+        if is_frac:
+            dev_delta = p * (d_ar == torch.argmax(dev_row)).to(free.dtype)
+        else:
+            k = int(torch.round(req[0]))
+            fully = dev_row >= one_m_eps
+            take = fully & (torch.cumsum(fully.to(torch.int32), 0) <= k)
+            dev_delta = take.to(free.dtype)
+        dev_l[node] = dev_l[node] + (-dev_delta)
+        moves[m] = node
+    return (free_l, dev_l, ext_l, moves,
+            torch.tensor(all_ok, dtype=torch.bool, device=dev))
+
+
+def replace_victims(state: ClusterState, mask: Tensor, free: Tensor,
+                    device_free: Tensor, releasing: Tensor,
+                    device_releasing: Tensor, ext_free: Tensor,
+                    ext_releasing: Tensor, max_pods: int):
+    """K7 — the consolidation validator's greedy re-placement (see
+    :func:`replace_victims_plain`).  CPU tensors run the plain version;
+    CUDA tensors launch one block or raise."""
+    if not kernels.on_card(mask):
+        return replace_victims_plain(state, mask, free, device_free,
+                                     releasing, device_releasing, ext_free,
+                                     ext_releasing, max_pods)
+    r, n = state.running, state.nodes
+    M, N, D = r.m, n.n, n.d
+    R_ = r.req.shape[1]
+    E = r.extended.shape[1]
+    K = max(1, min(M, max_pods))
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    dev = mask.device
+    # the first K victims in pod order (nonzero without a host read)
+    m32 = mask.to(i32)
+    pos = torch.cumsum(m32, 0, dtype=i32) - 1
+    dest = torch.where(mask & (pos < K), pos, K).long()
+    idxs = torch.zeros((K + 1,), dtype=i32, device=dev)
+    idxs.scatter_(0, dest, torch.arange(M, dtype=i32, device=dev))
+    n_vic = m32.sum(dtype=i32).reshape(1)
+    free_o = free.contiguous().clone()
+    dev_o = device_free.contiguous().clone()
+    ext_o = ext_free.contiguous().clone()
+    moves = torch.full((M,), -1, dtype=i32, device=dev)
+    all_ok = torch.empty((), dtype=b, device=dev)
+    ts = dict(idxs=idxs, n_vic=n_vic, req=r.req, device=r.device,
+              accel_mem=r.accel_mem, held=r.accel_held,
+              filter_class=r.filter_class, extended=r.extended,
+              dev_mem=n.device_memory_gib, valid=n.valid,
+              fmask=n.filter_masks, releasing=releasing.contiguous(),
+              dev_releasing=device_releasing.contiguous(),
+              ext_releasing=ext_releasing.contiguous(), free=free_o,
+              dev=dev_o, ext=ext_o, moves=moves, all_ok=all_ok)
+    kernels.require_cuda("replace_victims", ts, dict(
+        idxs=i32, n_vic=i32, req=f32, device=i32, accel_mem=f32, held=f32,
+        filter_class=i32, extended=f32, dev_mem=f32, valid=b, fmask=b,
+        releasing=f32, dev_releasing=f32, ext_releasing=f32, free=f32,
+        dev=f32, ext=f32, moves=i32, all_ok=b))
+    p = [kernels.ptr(t) for t in ts.values()]
+    rc = kernels.library().kai_replace_victims(
+        p[0], p[1], K, *p[2:14], N, R_, D, E, *p[14:],
+        kernels.stream_of(mask))
+    kernels.check(rc, "replace_victims")
+    kernels.count_launch("replace_victims")
+    return free_o, dev_o, ext_o, moves, all_ok
+
+
+# ---------------------------------------------------------------------------
+# victim ranking
+# ---------------------------------------------------------------------------
+
+def _segment_sum_i32(values: Tensor, seg: Tensor, num: int) -> Tensor:
+    out = torch.zeros((num + 1,), dtype=torch.int32, device=values.device)
+    return out.index_add_(0, seg.long(), values.to(torch.int32))[:num]
+
+
+def _segment_reduce(values: Tensor, seg: Tensor, num: int, reduce: str,
+                    init) -> Tensor:
+    out = torch.full((num + 1,), init, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce(0, seg.long(), values, reduce=reduce)[:num]
+
+
+def _pod_order_static(state: ClusterState):
+    """Within-gang pod order (newest first), once per action: ``(perm0
+    [M], gang_perm [M])`` (ref ``:190``)."""
+    r = state.running
+    G = state.gangs.g
+    gang_all = torch.where(r.valid & (r.gang >= 0), r.gang, G)
+    perm0 = ordering.lexsort((r.runtime_s, gang_all))
+    return perm0, gang_all[perm0]
+
+
+def victim_statics(state: ClusterState):
+    """Preemptor-independent victim-search inputs (ref ``:201``):
+    ``(base0 [M], gang_runtime [G], pod_order)``."""
+    r = state.running
+    G = state.gangs.g
+    base0 = (r.valid & ~r.releasing & (r.node >= 0) & r.preemptible
+             & (r.gang >= 0))
+    gang_runtime = _segment_reduce(
+        torch.where(r.valid & (r.gang >= 0), r.runtime_s, -1.0),
+        torch.where(r.gang >= 0, r.gang, G), G, "amax", -_INF)
+    return base0, gang_runtime, _pod_order_static(state)
+
+
+def frozen_job_rank(state: ClusterState, queue_allocated: Tensor,
+                    fair_share: Tensor) -> Tensor:
+    """Victim-job order frozen at action start (ref ``:222``): most
+    saturated queue first, lowest priority first, newest first.  i32 [G]
+    rank per gang."""
+    g = state.gangs
+    G = g.g
+    f32 = torch.float32
+    sat = (queue_allocated / torch.clamp(fair_share, min=EPS)).amax(-1)
+    gq = torch.clamp(g.queue, min=0).long()
+    rank_gang = ordering.lexsort((
+        -g.creation_order.to(f32), g.priority.to(f32), -sat[gq]))
+    out = torch.zeros((G,), dtype=torch.int32, device=sat.device)
+    out[rank_gang] = torch.arange(G, dtype=torch.int32, device=sat.device)
+    return out
+
+
+def victim_candidates(state: ClusterState, gi: int, *, mode: str,
+                      already_victim: Tensor, statics=None):
+    """``(cand bool [M], protected bool [G])`` — pods eligible as victims
+    for preemptor ``gi`` and the minruntime-protected gangs (ref
+    ``:245``)."""
+    r, g, q = state.running, state.gangs, state.queues
+    if statics is None:
+        statics = victim_statics(state)
+    base0, gang_runtime, _ = statics
+    base = base0 & ~already_victim
+    my_queue = g.queue[gi:gi + 1]      # [1]: a 0-dim index reads the host
+    gq = torch.clamp(g.queue, min=0).long()
+    if mode == "reclaim":
+        mrt_g = q.reclaim_min_runtime_eff[gq, my_queue.long()]
+    else:
+        mrt_g = q.preempt_min_runtime_eff[gq]
+    protected = (gang_runtime >= 0) & (gang_runtime < mrt_g)
+    if mode == "reclaim":
+        return base & (r.queue != my_queue), protected
+    if mode == "consolidate":
+        return base & (r.gang != gi), protected
+    return (base & (r.queue == my_queue)
+            & (r.priority < g.priority[gi])), protected
+
+
+def _rank_eviction_units(state: ClusterState, cand: Tensor,
+                         queue_allocated: Tensor, fair_share: Tensor,
+                         already_victim: Tensor, protected: Tensor | None,
+                         pod_order=None, job_rank: Tensor | None = None):
+    """Every candidate pod's global eviction-unit rank (ref ``:293``):
+    ``(unit_rank i32 [M] — BIG for non-candidates, num_units i32 [])``.
+    A gang's first ``active - minMember`` pods (newest first) are single
+    units, the rest one whole-gang unit; protected gangs expose only
+    their surplus units."""
+    g, r = state.gangs, state.running
+    G, M = g.g, r.m
+    i32 = torch.int32
+    dev = cand.device
+    gang_of_pod = torch.where(cand, r.gang, G)
+    pods_per_gang = _segment_sum_i32(cand, gang_of_pod, G)
+    victim_gang = pods_per_gang > 0
+    if job_rank is None:
+        job_rank = frozen_job_rank(state, queue_allocated, fair_share)
+    if pod_order is None:
+        pod_order = _pod_order_static(state)
+    perm0, gang_perm = pod_order
+    cand_p = cand[perm0].to(i32)
+    excl = torch.cumsum(cand_p, 0, dtype=i32) - cand_p
+    base = _segment_reduce(excl, gang_perm, G, "amin", _I32_MAX)
+    seq_p = excl - base[torch.clamp(gang_perm, max=G - 1).long()]
+    seq = torch.zeros((M,), dtype=i32, device=dev)
+    seq[perm0] = seq_p
+    victims_in_gang = _segment_sum_i32(
+        already_victim & (r.gang >= 0), torch.where(r.gang >= 0, r.gang, G),
+        G)
+    effective_active = g.running_count - victims_in_gang
+    surplus = torch.minimum(
+        torch.clamp(effective_active - g.min_member, min=0), pods_per_gang)
+    whole_unit = pods_per_gang > surplus
+    if protected is not None:
+        whole_unit = whole_unit & ~protected
+    units_per_gang = torch.where(victim_gang, surplus + whole_unit.to(i32),
+                                 0).to(i32)
+    units_by_rank = torch.zeros((G,), dtype=i32, device=dev)
+    units_by_rank[job_rank.long()] = units_per_gang
+    offsets = torch.cumsum(units_by_rank, 0, dtype=i32) - units_by_rank
+    gsafe = torch.clamp(gang_of_pod, max=G - 1).long()
+    unit_in_gang = torch.minimum(seq, surplus[gsafe])
+    in_range = unit_in_gang < units_per_gang[gsafe]
+    unit_rank = torch.where(cand & in_range,
+                            offsets[job_rank[gsafe].long()] + unit_in_gang,
+                            BIG).to(i32)
+    return unit_rank, units_per_gang.sum(dtype=i32)
+
+
+def _leveled_queue(chain: Tensor, depth: Tensor, vq: Tensor,
+                   rq: Tensor) -> Tensor:
+    """The victim-side ancestor just below the LCA with the reclaimer
+    (ref ``:376``), batched over ``vq``/``rq`` (broadcast): i32, -1 when
+    every victim ancestor is shared with the reclaimer."""
+    cand_q = chain[vq.long()] & ~chain[rq.long()]
+    d = torch.where(cand_q, depth, BIG)
+    return torch.where(cand_q.any(-1), torch.argmin(d, -1), -1).to(
+        torch.int32)
+
+
+#: rounds of :func:`_ordered_segment_sum` gathered at once (bounds the
+#: [segments, rounds, ...] staging tensor)
+_ROUNDS_PER_GATHER = 16
+
+
+def _ordered_segment_sum(values: Tensor, seg: Tensor, num: int,
+                         max_len: int) -> Tensor:
+    """``segment_sum`` with every segment added in ascending row order
+    from +0.0 (the reference's scatter order) on any device, without
+    atomics: rows sorted stably by segment, then round ``k`` adds every
+    segment's ``k``-th row (gathered for a block of rounds at once;
+    segments already exhausted add +0.0, which leaves a sum that starts
+    at +0.0 unchanged).  ``max_len`` bounds the rows of any segment below
+    ``num``."""
+    dev = values.device
+    out = torch.zeros((num,) + values.shape[1:], dtype=values.dtype,
+                      device=dev)
+    if seg.numel() == 0:
+        return out
+    order = torch.sort(seg, stable=True).indices
+    s = seg[order].contiguous()
+    v = values[order]
+    ids = torch.arange(num, dtype=s.dtype, device=dev)
+    start = torch.searchsorted(s, ids)
+    length = torch.searchsorted(s, ids, right=True) - start
+    tail = (1,) * (values.dim() - 1)
+    for k0 in range(0, max_len, _ROUNDS_PER_GATHER):
+        k = torch.arange(k0, min(max_len, k0 + _ROUNDS_PER_GATHER),
+                         device=dev)
+        idx = torch.clamp(start[:, None] + k[None, :], max=seg.shape[0] - 1)
+        on = (k[None, :] < length[:, None]).view(idx.shape + tail)
+        rows = torch.where(on, v[idx], 0.0)           # [num, rounds, ...]
+        for j in range(k.shape[0]):
+            out = out + rows[:, j]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one preemptor's scenario search
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Action:
+    """Per-action constants the step loop hands each solve."""
+
+    chain: Tensor
+    statics: tuple
+    job_rank: Tensor
+    #: K6's pod lists (None on the CPU, where the plain version runs)
+    pods: PodIndex | None
+    lanes: LaneTables
+    limit_eff: Tensor
+    quota_eff: Tensor
+    #: most running pods of any one gang — bounds a unit's pod count
+    max_unit: int
+    stats: VictimStats
+
+
+def action_context(state: ClusterState, result: AllocationResult,
+                   fair_share: Tensor, *, num_levels: int,
+                   stats: VictimStats | None = None) -> _Action:
+    """The per-action constants every solve reads, computed once at
+    action start: ancestor chains, victim statics, the frozen job order,
+    K6's pod lists (on the card), K3's one-type lane tables, the queue
+    caps and the largest gang's running-pod count (one host read)."""
+    g, q, r = state.gangs, state.queues, state.running
+    G = g.g
+    stats = stats or VictimStats()
+    max_unit = int(_segment_sum_i32(
+        r.valid & (r.gang >= 0), torch.where(r.gang >= 0, r.gang, G),
+        G).max()) if G else 0
+    stats.syncs += 1
+    return _Action(
+        chain=_chain_membership(q.parent, num_levels),
+        statics=victim_statics(state),
+        job_rank=frozen_job_rank(state, result.queue_allocated, fair_share),
+        pods=PodIndex.of(state) if kernels.on_card(r.valid) else None,
+        lanes=single_type_lanes(state),
+        limit_eff=torch.where(q.limit <= UNLIMITED + 0.5, _INF, q.limit),
+        quota_eff=torch.where(q.quota <= UNLIMITED + 0.5, _INF, q.quota),
+        max_unit=max_unit, stats=stats)
+
+
+def solve_for_preemptor(state: ClusterState, gi: int,
+                        result: AllocationResult, fair_share: Tensor, *,
+                        num_levels: int, mode: str, config: VictimConfig,
+                        act: _Action):
+    """One preemptor's scenario search (ref ``:390``).  Returns ``None``
+    when no scenario places it, else ``(victim_mask [M], nodes_t [T],
+    pipe_t [T], moves [M] | None, free', device_free', extra', extra_dev',
+    qa', qan', ext', ext_extra')`` — the commit-set fields a success
+    writes (the uniform path places no devices: ``placement_device``
+    stays -1)."""
+    reclaim = mode == "reclaim"
+    consolidate = mode == "consolidate"
+    g, q, n, r = state.gangs, state.queues, state.nodes, state.running
+    M, T = r.m, g.t
+    stats = act.stats
+    chain = act.chain
+    free = result.free
+    extra = result.releasing_extra
+    extra_dev = result.device_releasing_extra
+    ext_extra = result.extended_releasing_extra
+    qa = result.queue_allocated
+    qan = result.queue_allocated_nonpreemptible
+    queue = g.queue[gi:gi + 1]         # [1]: a 0-dim index reads the host
+    task_req = torch.where(g.task_valid[gi][:, None], g.task_req[gi], 0.0)
+    total_req = torch.zeros_like(task_req[0])
+    for t in range(T):
+        total_req = total_req + task_req[t]
+    nonpreempt = ~g.preemptible[gi]
+
+    # ---- gates ----------------------------------------------------------
+    nonpreempt_quota_ok = torch.where(
+        nonpreempt, _ancestor_gate(q.parent, queue, num_levels, qan,
+                                   q.quota, total_req), True)
+    gate = ~nonpreempt if consolidate else nonpreempt_quota_ok
+    cand, protected = victim_candidates(
+        state, gi, mode=mode, already_victim=result.victim,
+        statics=act.statics)
+    gate = gate & cand.any()
+    removed_victims = result.victim & (result.victim_move < 0)
+    unit_rank, num_units = _rank_eviction_units(
+        state, cand, qa, fair_share, removed_victims, protected,
+        act.statics[2], act.job_rank)
+    if consolidate:
+        num_units = torch.clamp(num_units,
+                                max=config.max_consolidation_preemptees)
+    reclaimer_under_quota = _ancestor_gate(
+        q.parent, queue, num_levels, qa, q.quota, total_req)
+    m_req = torch.where(cand[:, None], r.req, 0.0)
+    urank_safe = torch.clamp(unit_rank, max=M)
+
+    # ---- per-unit tables over all unit ranks ------------------------------
+    unit_req = _ordered_segment_sum(m_req, urank_safe, M, act.max_unit)
+    cum_freed = cumsum_ds(unit_req, axis=0)
+    cluster_free = torch.where(n.valid[:, None],
+                               free + n.releasing + extra, 0.0).sum(0)
+    enough = ((cluster_free[None, :] + cum_freed + EPS)
+              >= total_req[None, :]).all(-1)
+    ar_m = torch.arange(M, device=free.device)
+    if reclaim:
+        unit_leaf = _segment_reduce(torch.where(cand, r.queue, -1),
+                                    urank_safe, M, "amax", _I32_MIN)
+        leaf_safe = torch.clamp(unit_leaf, min=0)
+        lq_u = _leveled_queue(chain, q.depth, leaf_safe, queue)
+        contrib = chain[leaf_safe.long()] & (unit_leaf >= 0)[:, None]
+        inc = contrib[:, :, None] * unit_req[:, None, :]      # [U, Q, R]
+        csum_excl = cumsum_ds(inc, axis=0) - inc
+        lq_safe = torch.clamp(lq_u, min=0).long()
+        freed_excl = csum_excl[ar_m, lq_safe]
+        remaining_u = qa[lq_safe] - freed_excl
+        over_fs = (remaining_u > fair_share[lq_safe] + EPS).any(-1)
+        over_q = (remaining_u > act.quota_eff[lq_safe] + EPS).any(-1)
+        pass_u = (lq_u < 0) | over_fs | (reclaimer_under_quota & over_q)
+    else:
+        pass_u = torch.ones((M,), dtype=torch.bool, device=free.device)
+    bad = (ar_m < num_units) & ~pass_u
+    first_bad = torch.where(bad.any(), torch.argmax(bad.to(torch.int32)),
+                            num_units)
+    hi_t = torch.minimum(num_units, first_bad) - 1
+    lo_t = torch.argmax(enough.to(torch.int32))
+    gate_t, pre_t, lo, hi = torch.cat([
+        t.to(torch.int64).reshape(1)
+        for t in (gate, enough.any(), lo_t, hi_t)]).tolist()
+    stats.syncs += 1
+    if not (gate_t and pre_t and hi >= lo):
+        return None
+
+    cfg = config.placement
+    max_pods = max(config.max_victim_pods,
+                   config.max_consolidation_preemptees * T)
+
+    def attempt(k: int):
+        """Simulate scenario prefix ``k``: evict, credit, re-place."""
+        stats.attempts += 1
+        mask_k = cand & (unit_rank <= k)
+        freed_nodes, freed_dev, freed_q, _, freed_ext = freed_by_mask(
+            state, mask_k, chain, act.pods)
+        extra_eff = extra + freed_nodes
+        extra_dev_eff = extra_dev + freed_dev
+        ext_extra_eff = ext_extra + freed_ext
+        qa_eff = qa if consolidate else qa - freed_q
+        free2, qa2, qan2, nodes_t, pipe_t, success = attempt_gang_dense(
+            state, gi, free, qa_eff, qan, extra_eff, config=cfg,
+            chain=chain, limit_eff=act.limit_eff, quota_eff=act.quota_eff,
+            lt=act.lanes)
+        dev2, ext2 = result.device_free, result.extended_free
+        moves = None
+        if reclaim:
+            success = success & _ancestor_gate(
+                q.parent, queue, num_levels, qa_eff, fair_share, total_req)
+        if consolidate:
+            free2, dev2, ext2, moves, all_ok = replace_victims(
+                state, mask_k, free2, result.device_free,
+                n.releasing + extra_eff,
+                n.device_releasing + extra_dev_eff, ext2,
+                n.extended_releasing + ext_extra_eff, max_pods)
+            success = success & all_ok
+        stats.syncs += 1
+        ok = bool(success)
+        return ok, (mask_k, nodes_t, pipe_t, moves, free2, dev2, extra_eff,
+                    extra_dev_eff, qa2, qan2, ext2, ext_extra_eff)
+
+    if consolidate:
+        # allPodsReallocated is not monotone: the linear first-success walk
+        for k in range(lo, hi + 1):
+            ok, out = attempt(k)
+            if ok:
+                return out
+        return None
+    ok, out = attempt(lo)
+    if ok:
+        return out
+    ok, best = attempt(hi)
+    if not ok:
+        return None
+    lo_c, hi_c = lo, hi          # invariant: lo_c fails, hi_c succeeds
+    while lo_c + 1 < hi_c:
+        mid = (lo_c + hi_c) // 2
+        ok, out = attempt(mid)
+        if ok:
+            hi_c, best = mid, out
+        else:
+            lo_c = mid
+    return best
+
+
+# ---------------------------------------------------------------------------
+# the action
+# ---------------------------------------------------------------------------
+
+def _check_ported(mode: str, config: VictimConfig) -> None:
+    if mode not in ("reclaim", "preempt", "consolidate"):
+        raise ValueError(f"unknown victim action mode: {mode!r}")
+    if (config.batch_size > 1 and mode in ("reclaim", "preempt")
+            and (mode != "reclaim" or config.chunk_reclaim)):
+        raise NotImplementedError(
+            f"{mode}: batch_size>1 (the chunked victim wavefront) is not "
+            f"ported to the PyTorch package yet; use "
+            f"VictimConfig(batch_size=1)")
+    # dynamic_order is read only by the allocate loop
+    check_supported(dataclasses.replace(config.placement, dynamic_order=True))
+
+
+def run_victim_action(state: ClusterState, fair_share: Tensor,
+                      result: AllocationResult, *, num_levels: int,
+                      mode: str, config: VictimConfig = VictimConfig()
+                      ) -> AllocationResult:
+    """The reclaim / preempt / consolidation action (ref ``:1699``)."""
+    return run_victim_action_counted(state, fair_share, result,
+                                     num_levels=num_levels, mode=mode,
+                                     config=config)[0]
+
+
+def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
+                              result: AllocationResult, *, num_levels: int,
+                              mode: str,
+                              config: VictimConfig = VictimConfig()
+                              ) -> tuple[AllocationResult, VictimStats]:
+    """:func:`run_victim_action`, also returning its :class:`VictimStats`.
+
+    Scans pending unallocated gangs in fairness order and solves victim
+    scenarios for each; successful preemptors commit as pipelined
+    placements (tasks on victims' releasing capacity) and consolidation
+    victims get a planned node in ``victim_move``.  The device choice
+    follows ``state``."""
+    _check_ported(mode, config)
+    g, q, r, n = state.gangs, state.queues, state.running, state.nodes
+    G, Q = g.g, q.q
+    dev = state.device
+    i32 = torch.int32
+    total = state.total_capacity
+    depth = (config.queue_depth_preempt
+             if mode == "preempt" and config.queue_depth_preempt is not None
+             else config.queue_depth)
+    stats = VictimStats()
+    act = action_context(state, result, fair_share, num_levels=num_levels,
+                         stats=stats)
+    chain, quota_eff_q = act.chain, act.quota_eff
+    gq = torch.clamp(g.queue, min=0)
+    gql = gq.long()
+
+    # ---- vectorized viability prefilter (ref :1844-1908) ----------------
+    base = (r.valid & ~r.releasing & (r.node >= 0) & r.preemptible
+            & (r.gang >= 0))
+    rq = torch.where(base, r.queue, Q)
+    cnt_q = _segment_sum_i32(base, rq, Q)
+    total_cnt = cnt_q.sum(dtype=i32)
+    if mode == "reclaim":
+        has_cand = (total_cnt - cnt_q[gql]) > 0
+    elif mode == "consolidate":
+        own = _segment_sum_i32(base, torch.where(base, r.gang, G), G)
+        has_cand = (total_cnt - own) > 0
+    else:
+        minprio = _segment_reduce(torch.where(base, r.priority, BIG), rq, Q,
+                                  "amin", _I32_MAX)
+        has_cand = minprio[gql] < g.priority
+    tr = torch.where(g.task_valid[:, :, None], g.task_req, 0.0)
+    task_req_g = torch.zeros_like(tr[:, 0])
+    for t in range(g.t):
+        task_req_g = task_req_g + tr[:, t]
+    gate_np = _ancestor_gate(q.parent, gq, num_levels,
+                             result.queue_allocated_nonpreemptible, q.quota,
+                             task_req_g)
+    viable = has_cand & torch.where(~g.preemptible, gate_np, True)
+    if mode == "reclaim":
+        # lower bound of future queue allocation: everything any
+        # candidate could ever free, rolled up the chain
+        freeable = freed_by_mask(state, base, chain, act.pods)[2]
+        qa_lower = torch.clamp(result.queue_allocated - freeable, min=0.0)
+        viable = viable & _ancestor_gate(q.parent, gq, num_levels, qa_lower,
+                                         fair_share, task_req_g)
+    elif mode == "consolidate":
+        viable = viable & g.preemptible
+        spare = torch.where(n.valid[:, None],
+                            result.free + n.releasing
+                            + result.releasing_extra, 0.0).sum(0)
+        viable = viable & (task_req_g <= spare[None, :] + EPS).all(-1)
+    remaining = g.valid & (g.backoff <= 0) & ~result.allocated & viable
+
+    if mode == "reclaim":
+        # [victim leaf, reclaimer leaf] leveled-queue table for the live
+        # strategy-viability drop
+        qidx = torch.arange(Q, dtype=i32, device=dev)
+        lq_tab = _leveled_queue(chain, q.depth, qidx[:, None], qidx[None, :])
+        lqs = torch.clamp(lq_tab, min=0).long()
+        no_lq = lq_tab < 0
+        diff = qidx[:, None] != qidx[None, :]
+        has_v = (cnt_q > 0)[:, None] & diff
+
+    res = dataclasses.replace(result)
+    q_att = torch.zeros((Q,), dtype=i32, device=dev)
+    fuel = G
+    while fuel > 0:
+        gi_t = ordering.select_next_gang(g, q, res.queue_allocated,
+                                         fair_share, total,
+                                         remaining).reshape(1)
+        runnable_t = (remaining[gi_t] & g.valid[gi_t]
+                      & (g.backoff[gi_t] <= 0) & ~res.allocated[gi_t])
+        any_rem, gi, runnable = torch.cat([
+            t.to(torch.int64).reshape(1)
+            for t in (remaining.any(), gi_t, runnable_t)]).tolist()
+        stats.syncs += 1
+        if not any_rem:
+            break
+        stats.steps += 1
+        won = None
+        if runnable:
+            won = solve_for_preemptor(state, gi, res, fair_share,
+                                      num_levels=num_levels, mode=mode,
+                                      config=config, act=act)
+        if won is not None:
+            (victims, nodes_t, pipe_t, moves, free2, dev2, extra2,
+             extra_dev2, qa2, qan2, ext2, ext_extra2) = won
+            placements = res.placements.clone()
+            placements[gi] = nodes_t
+            pipelined = res.pipelined.clone()
+            pipelined[gi] = pipe_t
+            victim_move = res.victim_move
+            if moves is not None:
+                victim_move = torch.where(moves >= 0, moves, victim_move)
+            res = dataclasses.replace(
+                res, free=free2, device_free=dev2, releasing_extra=extra2,
+                device_releasing_extra=extra_dev2, extended_free=ext2,
+                extended_releasing_extra=ext_extra2, queue_allocated=qa2,
+                queue_allocated_nonpreemptible=qan2, placements=placements,
+                placement_device=_set_row(res.placement_device, gi, -1),
+                pipelined=pipelined,
+                allocated=_set_row(res.allocated, gi, True),
+                victim=res.victim | victims, victim_move=victim_move)
+        if runnable:
+            res = dataclasses.replace(
+                res, attempted=_set_row(res.attempted, gi, True))
+        remaining = _set_row(remaining, gi, False)
+        if depth is not None:
+            if runnable:
+                q_att[gql[gi:gi + 1]] += 1
+            remaining = remaining & (q_att[gql] < depth)
+        if mode == "reclaim":
+            # live strategy-viability drop: a (victim queue, reclaimer)
+            # pair that stops being strategy-evictable never recovers
+            # within the action
+            qa_l = res.queue_allocated
+            under_g = _ancestor_gate(q.parent, gq, num_levels, qa_l, q.quota,
+                                     task_req_g)
+            over_fs_vc = no_lq | (qa_l[lqs] > fair_share[lqs] + EPS).any(-1)
+            over_qt_vc = no_lq | (qa_l[lqs] > quota_eff_q[lqs] + EPS).any(-1)
+            ev_fs_c = (has_v & over_fs_vc).any(0)
+            ev_qt_c = (has_v & over_qt_vc).any(0)
+            remaining = remaining & (ev_fs_c[gql] | (under_g & ev_qt_c[gql]))
+        fuel -= 1
+    return res, stats
+
+
+def _set_row(t: Tensor, i: int, value) -> Tensor:
+    """``t`` with row ``i`` set to the scalar ``value`` (a copy; ``fill_``
+    on the device, where an item assignment would copy the scalar from
+    the host and wait)."""
+    out = t.clone()
+    out[i].fill_(value)
+    return out

@@ -2,9 +2,12 @@
 
 Port of ``kai_scheduler_tpu/runtime/cluster.py`` (the parts one cycle
 uses): intake writes objects into it, the scheduler snapshots it, the
-binder commits bindings back.  The reference's mutation journal (for the
-incremental snapshotter), the shared-device reservation registry and the
-intake/eviction surfaces wait for the slices that port them.
+binder commits bindings back, and the victim actions' evictions mark pods
+releasing until the next ``tick`` reaps them (or, for consolidation
+moves, returns them to PENDING for their pipelined rebind).  The
+reference's mutation journal (for the incremental snapshotter), the
+shared-device reservation registry (which ``tick`` releases there) and
+the intake surfaces wait for the slices that port them.
 """
 from __future__ import annotations
 
@@ -35,6 +38,10 @@ class Cluster:
         default_factory=dict)
     #: monotonic clock advanced by the simulation driver
     now: float = 0.0
+    #: evicted pods whose workload controller will recreate them (the
+    #: consolidation-move path) — on the next tick they return to PENDING
+    #: instead of vanishing
+    restarting: set[str] = dataclasses.field(default_factory=set)
 
     @classmethod
     def from_objects(cls, nodes, queues, pod_groups, pods,
@@ -143,9 +150,22 @@ class Cluster:
         if group is not None and group.last_start_timestamp is None:
             group.last_start_timestamp = self.now
 
+    def evict_pod(self, pod_name: str, restart: bool = False) -> None:
+        """Eviction = delete pod; its resources become releasing until the
+        next tick reaps it.  ``restart=True`` models the workload
+        controller recreating the pod (consolidation moves): after release
+        it returns to PENDING so a pipelined rebind can land it on its
+        planned node."""
+        pod = self.pods.get(pod_name)
+        if pod is not None:
+            pod.status = apis.PodStatus.RELEASING
+            if restart:
+                self.restarting.add(pod_name)
+
     def tick(self, seconds: float = 1.0) -> None:
         """Advance time: bound pods start running, releasing pods vanish
-        (their DRA claims deallocate with them)."""
+        (their DRA claims deallocate with them) or, when restarting,
+        return to PENDING."""
         self.now += seconds
         for name in list(self.pods):
             pod = self.pods[name]
@@ -155,6 +175,12 @@ class Cluster:
                         claim.node = None
                         claim.devices = []
                         claim.owner_pod = None
-                del self.pods[name]
+                if name in self.restarting:
+                    self.restarting.discard(name)
+                    pod.status = apis.PodStatus.PENDING
+                    pod.node = None
+                    pod.accel_devices = []
+                else:
+                    del self.pods[name]
             elif pod.status == apis.PodStatus.BOUND:
                 pod.status = apis.PodStatus.RUNNING

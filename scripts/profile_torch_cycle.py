@@ -1,20 +1,27 @@
-"""Where the time of one allocate cycle of the PyTorch port goes, on one
-NVIDIA GPU.
+"""Where the time of one cycle of the PyTorch port goes, on one NVIDIA
+GPU.
 
-    python3 scripts/profile_torch_cycle.py [--shape headline|contended]
+    python3 scripts/profile_torch_cycle.py \
+        [--shape headline|contended|saturated|fragmented]
 
 Runs the cycle of ``chip_smoke.py``'s shape once to warm up, then once
 under ``torch.profiler`` (CPU and CUDA activities), and prints:
 
-- the cycle's wall time and its phases (``CycleResult.phase_seconds``);
+- the cycle's wall time (the warm-up run's too: the profiler's own
+  per-op cost inflates the profiled one) and its phases
+  (``CycleResult.phase_seconds``); for the victim cells (``saturated``,
+  ``fragmented``: the five default actions with the sequential victim
+  engine) the per-action seconds, steps, scenario attempts and syncs;
 - the device's busy time — the union of every kernel (ours and
   PyTorch's), copy and memset interval in the trace — and its idle share
   of the cycle, 1 - busy / wall;
 - the 20 device activities with the most summed time, with call counts.
 
-The trace goes to ``chiprun_out/profile_<shape>.json`` (Chrome trace
-format) and the numbers to ``chiprun_out/profile_<shape>_summary.json``.
-Needs a CUDA device; imports nothing of JAX.
+The numbers go to ``chiprun_out/profile_<shape>_summary.json``; the trace
+(Chrome trace format) to ``chiprun_out/profile_<shape>.json`` for the
+allocate cells and to ``build/profile_<shape>.json`` for the victim
+cells, whose traces hold hundreds of thousands of events.  Needs a CUDA
+device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -64,21 +71,29 @@ def device_activity(trace_path: str, top_n: int = 20):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--shape", choices=("headline", "contended"),
-                    default="headline")
+    ap.add_argument("--shape", default="headline", choices=(
+        "headline", "contended", "saturated", "fragmented"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_cycle: no CUDA device", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    shape = chip_smoke.HEADLINE if args.shape == "headline" \
-        else chip_smoke.CONTENDED
+    victim = args.shape in ("saturated", "fragmented")
     card = chip_smoke.card_line()
-    chip_smoke.run_cycle(shape, "cuda")                 # build + warm up
     from kai_scheduler_tpu_torch.framework.scheduler import Scheduler
-    cluster = chip_smoke.fresh_cluster(shape)
-    sched = Scheduler(device="cuda")
+    if victim:
+        shape = (chip_smoke.SATURATED if args.shape == "saturated"
+                 else chip_smoke.FRAGMENTED)
+        _, _, warm = chip_smoke.run_victim_cycle(args.shape, "cuda")
+        cluster = chip_smoke.victim_cluster(args.shape)
+        sched = Scheduler(chip_smoke.victim_config(), device="cuda")
+    else:
+        shape = (chip_smoke.HEADLINE if args.shape == "headline"
+                 else chip_smoke.CONTENDED)
+        _, _, warm = chip_smoke.run_cycle(shape, "cuda")   # build + warm
+        cluster = chip_smoke.fresh_cluster(shape)
+        sched = Scheduler(device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -88,12 +103,17 @@ def main() -> int:
         wall = time.perf_counter() - t0
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    trace_path = os.path.join(out_dir, f"profile_{args.shape}.json")
+    trace_dir = os.path.join(ROOT, "build") if victim else out_dir
+    os.makedirs(trace_dir, exist_ok=True)
+    trace_path = os.path.join(trace_dir, f"profile_{args.shape}.json")
     prof.export_chrome_trace(trace_path)
     busy, top = device_activity(trace_path)
     summary = dict(
         card=card, shape=shape, wall_seconds=wall,
-        phase_seconds=res.phase_seconds, chunks=res.chunks,
+        warm_up_wall_seconds=warm, phase_seconds=res.phase_seconds,
+        action_seconds=res.action_seconds,
+        victim_stats={k: vars(v) for k, v in res.victim_stats.items()},
+        evictions=len(res.evictions), chunks=res.chunks,
         binds=len(res.bind_requests), device_seconds=busy,
         device_idle_share=1.0 - busy / wall,
         top_device=[dict(name=n, calls=c, device_ms=ms)
@@ -102,11 +122,17 @@ def main() -> int:
               "w") as f:
         json.dump(summary, f, indent=1, default=str)
     print(f"card: {card}")
-    print(f"{args.shape}: wall {wall:.4f} s, {res.chunks} chunks, "
-          f"{len(res.bind_requests)} binds; device busy {busy:.4f} s, "
-          f"idle share {summary['device_idle_share']:.4f}")
+    print(f"{args.shape}: wall {wall:.4f} s (warm-up run, unprofiled: "
+          f"{warm:.4f} s), {res.chunks} chunks, {len(res.bind_requests)} "
+          f"binds, {len(res.evictions)} evictions; device busy {busy:.4f} "
+          f"s, idle share {summary['device_idle_share']:.4f} of the "
+          f"profiled wall, {1.0 - busy / warm:.4f} of the warm-up wall")
     print("phases: " + ", ".join(f"{k} {v:.4f}"
                                  for k, v in res.phase_seconds.items()))
+    print("actions: " + ", ".join(
+        f"{k} {v:.4f} s" + (f" ({vars(res.victim_stats[k])})"
+                            if k in res.victim_stats else "")
+        for k, v in res.action_seconds.items()))
     for name, calls, ms in top:
         print(f"  {ms:10.3f} ms  {calls:6d}x  {name[:90]}")
     return 0

@@ -1,10 +1,13 @@
 """The port's whole cycle against the reference's classic cycle:
 ``Scheduler(device="cpu").run_once`` vs the reference ``Scheduler`` with
-``actions=("allocate",)``, no incremental snapshot, no analytics and no
-repack, on twin clusters built from the same seed.  Compared: the packed
-i16 commit byte for byte, the BindRequests (pod, node, order and every
-field), and the Cluster state after the binder applies them — over two
-cycles, so the second snapshot sees the first one's binds."""
+no incremental snapshot, no analytics and no repack, on twin clusters
+built from the same seed — with ``actions=("allocate",)``, and with the
+five default actions at ``VictimConfig(batch_size=1)`` (the sequential
+victim engine) on a saturated and a fragmented cluster.  Compared: the
+packed i16 commit byte for byte, the BindRequests (pod, node, order and
+every field), the evictions and moved victims' rebinds, and the Cluster
+state after the binder applies them — over two cycles, so the second
+snapshot sees the first one's binds and evictions."""
 import dataclasses
 import functools
 
@@ -18,17 +21,25 @@ from kai_scheduler_tpu.apis import types as ref_apis
 from kai_scheduler_tpu.framework.scheduler import Scheduler as RefScheduler
 from kai_scheduler_tpu.framework.scheduler import \
     SchedulerConfig as RefSchedulerConfig
+from kai_scheduler_tpu.framework.session import \
+    SessionConfig as RefSessionConfig
+from kai_scheduler_tpu.ops.victims import VictimConfig as RefVictimConfig
 from kai_scheduler_tpu.runtime.cluster import Cluster as RefCluster
 from kai_scheduler_tpu.state.synthetic import make_cluster as ref_make
 import kai_scheduler_tpu_torch.framework.session as port_session
 from kai_scheduler_tpu_torch.apis import types as port_apis
 import kai_scheduler_tpu_torch.state.cluster_state as port_cs
-from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
+from kai_scheduler_tpu_torch.framework.scheduler import (DEFAULT_ACTIONS,
+                                                         Scheduler,
                                                          SchedulerConfig,
                                                          cycle_seed_for)
-from kai_scheduler_tpu_torch.framework.session import _bitpack, _bitunpack
+from kai_scheduler_tpu_torch.framework.session import (SessionConfig,
+                                                       _bitpack, _bitunpack)
+from kai_scheduler_tpu_torch.ops.victims import VictimConfig
 from kai_scheduler_tpu_torch.runtime.cluster import Cluster
 from kai_scheduler_tpu_torch.state import make_cluster
+
+import chip_smoke
 
 SHAPES = {
     "headline_small": dict(num_nodes=48, node_accel=8.0, num_gangs=40,
@@ -140,6 +151,59 @@ def test_cycle_matches_reference(name, pad32):
         assert cluster_state(cluster) == cluster_state(ref_cluster), cycle
 
 
+def _fragmented(apis, cluster_cls):
+    nodes, queues, groups, pods, now = chip_smoke.fragmented_objects(
+        apis, num_nodes=24, pending=6, stale=3)
+    cluster = cluster_cls.from_objects(nodes, queues, groups, pods)
+    cluster.now = now
+    return cluster
+
+
+#: the victim cells of the chip smoke test, cut to a few dozen nodes
+VICTIM_SHAPES = {
+    "saturated_small": lambda apis, make, cls: cls.from_objects(*make(
+        num_nodes=64, node_accel=4.0, num_gangs=40, tasks_per_gang=8,
+        running_fraction=0.8, queue_accel_quota=6.0,
+        partition_queues_by_running=True)),
+    "fragmented_small": lambda apis, make, cls: _fragmented(apis, cls),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VICTIM_SHAPES))
+def test_victim_cycle_matches_reference(name, pad32):
+    """The five default actions over two cycles with a tick between them
+    (evicted pods vanish or, when moved, restart pending and bind on their
+    planned node): commit, binds, evictions, move rebinds and the cluster
+    state equal the reference's."""
+    ref_cluster = VICTIM_SHAPES[name](ref_apis, ref_make, RefCluster)
+    cluster = VICTIM_SHAPES[name](port_apis, make_cluster, Cluster)
+    ref_sched = RefScheduler(RefSchedulerConfig(
+        incremental=False, analytics_every=0, repack_enable=False,
+        session=RefSessionConfig(victims=RefVictimConfig(batch_size=1))))
+    sched = Scheduler(SchedulerConfig(
+        actions=DEFAULT_ACTIONS,
+        session=SessionConfig(victims=VictimConfig(batch_size=1))),
+        device="cpu")
+    evicted = 0
+    for cycle in range(2):
+        want = ref_sched.run_once(ref_cluster)
+        got = sched.run_once(cluster)
+        assert got.packed.tobytes() == pad32["packed"].tobytes(), cycle
+        for field in ("bind_requests", "evictions", "move_bind_requests"):
+            assert [dataclasses.asdict(b) for b in getattr(got, field)] == \
+                [dataclasses.asdict(b) for b in getattr(want, field)], \
+                (cycle, field)
+        evicted += len(got.evictions)
+        for c, res in ((ref_cluster, want), (cluster, got)):
+            for br in res.bind_requests:
+                c.bind_pod(br.pod_name, br.selected_node)
+            c.tick()
+        assert cluster_state(cluster) == cluster_state(ref_cluster), cycle
+        assert cluster.restarting == ref_cluster.restarting
+    assert evicted > 0
+    assert set(got.victim_stats) == {"consolidation", "reclaim", "preempt"}
+
+
 def test_cycle_seed_matches_reference():
     from kai_scheduler_tpu.framework.scheduler import \
         cycle_seed_for as ref_seed
@@ -149,9 +213,22 @@ def test_cycle_seed_matches_reference():
 
 
 def test_unported_actions_raise():
-    with pytest.raises(NotImplementedError, match="reclaim"):
-        Scheduler(SchedulerConfig(actions=("allocate", "reclaim")),
+    """Every action of the reference is registered now; what stays
+    unported is the chunked victim wavefront the reference's default
+    ``VictimConfig(batch_size=64)`` selects for reclaim — it raises
+    instead of running something else — and any unknown action name."""
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Scheduler(SchedulerConfig(actions=("allocate", "repack")),
                   device="cpu")
+    sched = Scheduler(SchedulerConfig(actions=("allocate", "reclaim")),
+                      device="cpu")
+    cluster = Cluster.from_objects(*make_cluster(
+        num_nodes=8, node_accel=4.0, num_gangs=10, tasks_per_gang=4,
+        running_fraction=0.8, partition_queues_by_running=True))
+    with pytest.raises(NotImplementedError,
+                       match="batch_size>1 \\(the chunked victim wavefront"):
+        sched.run_once(cluster)
+    assert DEFAULT_ACTIONS == RefSchedulerConfig().actions
 
 
 def test_bitpack_round_trip():

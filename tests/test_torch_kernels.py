@@ -19,6 +19,10 @@ from kai_scheduler_tpu_torch.state import make_cluster
 
 pytestmark = pytest.mark.cuda
 
+#: the kernels an allocate-only cycle launches (K1-K4)
+ALLOCATE_KERNELS = ("drf_water_fill", "type_tables", "uniform_fill",
+                    "sparse_accept")
+
 #: the allocate tests' features cluster (kept here too: this file runs on
 #: the card's machine, which has no JAX to import those tests with)
 SHAPES = {
@@ -207,9 +211,156 @@ def test_cuda_cycle_commit_equals_cpu_cycle(cuda, name):
     kernels.reset_launch_counts()
     gpu = Scheduler(device=cuda).run_once(
         Cluster.from_objects(*objects(shape, make_cluster, apis)))
-    assert all(v > 0 for v in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ALLOCATE_KERNELS), counts
     cpu = Scheduler(device="cpu").run_once(
         Cluster.from_objects(*objects(shape, make_cluster, apis)))
     assert gpu.packed.tobytes() == cpu.packed.tobytes()
     assert [dataclasses.astuple(b) for b in gpu.bind_requests] == \
         [dataclasses.astuple(b) for b in cpu.bind_requests]
+
+
+# ---------------------------------------------------------------------------
+# the victim path's kernels: K5 cumsum_ds, K6 freed_by_mask, K7
+# replace_victims
+# ---------------------------------------------------------------------------
+
+def test_cumsum_ds_matches_plain(cuda):
+    """K5 at the saturated cell's running-pod count, with Q*R columns and
+    values whose f32 sums round (1e-3 to 1e9, both signs), plus the short
+    and odd lengths the recursion treats apart."""
+    from kai_scheduler_tpu_torch.utils.numerics import (cumsum_ds,
+                                                        cumsum_ds_plain)
+    rng = np.random.default_rng(0)
+    for U, C in ((40_000, 18), (40_960, 3), (1, 4), (2, 1), (3, 2),
+                 (7, 5), (1000, 18)):
+        x = (rng.uniform(1, 10, (U, C)) * 10 ** rng.uniform(-3, 9, (U, C))
+             * rng.choice([-1, 1], (U, C))).astype(np.float32)
+        t = torch.from_numpy(x).to(cuda)
+        before = kernels.KERNELS["cumsum_ds"].launches
+        got = cumsum_ds(t)
+        assert kernels.KERNELS["cumsum_ds"].launches == before + 1
+        assert_same(got, cumsum_ds_plain(t.cpu()))
+    t3 = torch.from_numpy(rng.random((500, 6, 3)).astype(np.float32))
+    assert_same(cumsum_ds(t3.to(cuda)), cumsum_ds_plain(t3))
+
+
+def _victim_state(cuda, seed=0, **shape):
+    """A running cluster on the card with fractional requests: memory in
+    GiB with fractions, fractional accel shares on devices, so summation
+    order changes the bits."""
+    from kai_scheduler_tpu_torch.state import state_from_numpy, state_to_numpy
+    ses = _session(cuda, **shape)
+    leaves = state_to_numpy(ses.state)
+    rng = np.random.default_rng(seed)
+    M = leaves["running.req"].shape[0]
+    req = leaves["running.req"].copy()
+    req[:, 1] = rng.uniform(0.1, 3.0, M).astype(np.float32)
+    req[:, 2] = (rng.uniform(1, 10, M) * 10 ** rng.uniform(0, 7, M)
+                 ).astype(np.float32)
+    leaves["running.req"] = req
+    frac = rng.random(M) < 0.3
+    leaves["running.device"] = np.where(
+        frac, rng.integers(0, ses.state.nodes.d, M), -1).astype(np.int32)
+    leaves["running.accel_held"] = np.where(
+        frac, rng.uniform(0.05, 0.9, M), 0.0).astype(np.float32)
+    leaves["running.devices_mask"] = np.where(
+        frac, 0, rng.integers(0, 16, M)).astype(np.int32)
+    # scramble queues and preemptibility so pods of one node or queue
+    # are far apart in pod order
+    Q = ses.state.queues.q
+    leaves["running.queue"] = rng.integers(0, Q, M).astype(np.int32)
+    leaves["running.preemptible"] = rng.random(M) < 0.7
+    return state_from_numpy(leaves, cuda), ses
+
+
+def test_freed_by_mask_matches_plain(cuda):
+    from kai_scheduler_tpu_torch.ops import victims as V
+    st, ses = _victim_state(cuda, num_nodes=300, num_gangs=400,
+                            tasks_per_gang=4, running_fraction=0.8,
+                            num_departments=3, queues_per_department=3)
+    chain = A._chain_membership(st.queues.parent, ses.config.num_levels)
+    rng = np.random.default_rng(1)
+    cst = _cpu_state(st)
+    for p in (0.05, 0.5, 1.0):
+        mask = torch.from_numpy(rng.random(st.running.m) < p).to(cuda)
+        before = kernels.KERNELS["freed_by_mask"].launches
+        got = V.freed_by_mask(st, mask, chain)
+        assert kernels.KERNELS["freed_by_mask"].launches == before + 1
+        want = V.freed_by_mask_plain(cst, mask.cpu(), chain.cpu())
+        assert_same(got, want)
+
+
+def _cpu_state(st):
+    from kai_scheduler_tpu_torch.state import state_from_numpy, state_to_numpy
+    return state_from_numpy(state_to_numpy(st), "cpu")
+
+
+def test_replace_victims_matches_plain(cuda):
+    """K7 with tied scores (identical empty nodes), fractional victims,
+    and more victims than K (the scenario is rejected but the first K
+    still re-place)."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    st, _ = _victim_state(cuda, num_nodes=200, num_gangs=300,
+                          tasks_per_gang=4, running_fraction=0.6)
+    n = st.nodes
+    cst = _cpu_state(st)
+    rng = np.random.default_rng(2)
+    for p, max_pods in ((0.01, 512), (0.05, 512), (0.2, 16)):
+        mask = torch.from_numpy(rng.random(st.running.m) < p).to(cuda)
+        args = (mask, n.free, n.device_free, n.releasing, n.device_releasing,
+                n.extended_free, n.extended_releasing, max_pods)
+        before = kernels.KERNELS["replace_victims"].launches
+        got = V.replace_victims(st, *args)
+        assert kernels.KERNELS["replace_victims"].launches == before + 1
+        want = V.replace_victims_plain(cst, *(
+            a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        assert_same(got, want)
+        if max_pods == 16:
+            assert not bool(got[4]) and int(mask.sum()) > 16
+
+
+def _victim_cluster(name):
+    """The chip smoke test's victim cells at a few hundred nodes."""
+    from kai_scheduler_tpu_torch.framework.scheduler import DEFAULT_ACTIONS
+    if name == "saturated":
+        cluster = Cluster.from_objects(*make_cluster(
+            num_nodes=256, node_accel=4.0, num_gangs=160, tasks_per_gang=8,
+            running_fraction=0.8, queue_accel_quota=25.0,
+            partition_queues_by_running=True))
+    else:
+        import chip_smoke
+        nodes, queues, groups, pods, now = chip_smoke.fragmented_objects(
+            apis, num_nodes=300, pending=12, stale=4)
+        cluster = Cluster.from_objects(nodes, queues, groups, pods)
+        cluster.now = now
+    return cluster, DEFAULT_ACTIONS
+
+
+@pytest.mark.parametrize("name", ["saturated", "fragmented"])
+def test_cuda_victim_cycle_equals_cpu_cycle(cuda, name):
+    """The five default actions at the sequential victim engine: the card
+    (K2, K3, K5-K7) equals the CPU (plain versions) in the packed commit,
+    the evictions with their move targets and the move rebinds."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    from kai_scheduler_tpu_torch.framework.session import SessionConfig
+    from kai_scheduler_tpu_torch.ops.victims import VictimConfig
+    out = {}
+    for dev in (cuda, "cpu"):
+        cluster, actions = _victim_cluster(name)
+        kernels.reset_launch_counts()
+        out[str(dev)] = Scheduler(SchedulerConfig(
+            actions=actions, session=SessionConfig(
+                victims=VictimConfig(batch_size=1))), device=dev).run_once(
+                    cluster)
+        if dev is cuda:
+            counts = kernels.launch_counts()
+            assert counts["cumsum_ds"] > 0 and counts["freed_by_mask"] > 0
+            if name == "fragmented":
+                assert counts["replace_victims"] > 0
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.evictions
+    assert gpu.packed.tobytes() == cpu.packed.tobytes()
+    for field in ("bind_requests", "evictions", "move_bind_requests"):
+        assert [dataclasses.astuple(b) for b in getattr(gpu, field)] == \
+            [dataclasses.astuple(b) for b in getattr(cpu, field)], field

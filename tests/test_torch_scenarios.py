@@ -1,10 +1,13 @@
-"""The reference's allocate and hierarchy scenario catalogs
+"""The reference's allocate, hierarchy and victim scenario catalogs
 (``tests/scenarios/``, traceable to the reference's Go suites) through
-both packages: one allocate cycle of each case, with the reference's
-auto-tuned config.  Where the port implements that config, the packed i16
-commit and the BindRequests must be byte-equal; where it does not, the
-port must refuse with ``NotImplementedError`` — never a different
-result."""
+both packages: one cycle of each case with the reference's auto-tuned
+config — allocate only for the allocate and hierarchy catalogs, the five
+default actions with the sequential victim engine (``VictimConfig(
+batch_size=1)``) for the victim catalog.  Where the port implements that
+config, the packed i16 commit, the BindRequests, the evictions (with
+their move targets) and the moves' pipelined rebinds must be equal; where
+it does not, the port must refuse with ``NotImplementedError`` — never a
+different result."""
 import dataclasses
 import enum
 import functools
@@ -17,18 +20,28 @@ import kai_scheduler_tpu.state.cluster_state as ref_cs
 from kai_scheduler_tpu.framework.scheduler import Scheduler as RefScheduler
 from kai_scheduler_tpu.framework.scheduler import \
     SchedulerConfig as RefSchedulerConfig
+from kai_scheduler_tpu.framework.session import \
+    SessionConfig as RefSessionConfig
+from kai_scheduler_tpu.ops.victims import VictimConfig as RefVictimConfig
 import kai_scheduler_tpu_torch.framework.session as port_session
 import kai_scheduler_tpu_torch.state.cluster_state as port_cs
 from kai_scheduler_tpu_torch.apis import types as port_apis
-from kai_scheduler_tpu_torch.framework.scheduler import Scheduler
+from kai_scheduler_tpu_torch.framework.scheduler import (DEFAULT_ACTIONS,
+                                                         Scheduler,
+                                                         SchedulerConfig)
+from kai_scheduler_tpu_torch.framework.session import SessionConfig
 from kai_scheduler_tpu_torch.ops.allocate import AllocateConfig, \
     check_supported
+from kai_scheduler_tpu_torch.ops.victims import VictimConfig
 from kai_scheduler_tpu_torch.runtime.cluster import Cluster
-from scenarios import test_allocate_scenarios, test_hierarchy_order_scenarios
+from scenarios import (test_allocate_scenarios,
+                       test_hierarchy_order_scenarios,
+                       test_victim_scenarios)
 from scenarios.harness import _build
 
 CASES = {c.name: c for c in (test_allocate_scenarios.CASES
                              + test_hierarchy_order_scenarios.CASES)}
+VICTIM_CASES = {c.name: c for c in test_victim_scenarios.CASES}
 
 
 def to_port(x):
@@ -66,6 +79,7 @@ def pad32(monkeypatch):
     def from_state(cls, *args, **kwargs):
         ses = orig_open(cls, *args, **kwargs)
         seen["config"] = ses.config.allocate
+        seen["victims"] = ses.config.victims
         return ses
     monkeypatch.setattr(ref_session, "_pack_commit", capture)
     monkeypatch.setattr(ref_session.Session, "from_state",
@@ -76,11 +90,7 @@ def pad32(monkeypatch):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_scenario_cycle_matches_reference_or_is_refused(name, pad32):
     ref_cluster = _build(CASES[name])
-    cluster = Cluster.from_objects(
-        *to_port(list(ref_cluster.snapshot_lists())))
-    cluster.resource_claims = to_port(ref_cluster.resource_claims)
-    cluster.device_classes = to_port(ref_cluster.device_classes)
-    cluster.now = ref_cluster.now
+    cluster = _port_cluster(ref_cluster)
     want = RefScheduler(RefSchedulerConfig(
         actions=("allocate",), incremental=False, analytics_every=0,
         repack_enable=False)).run_once(ref_cluster)
@@ -101,6 +111,63 @@ def test_scenario_cycle_matches_reference_or_is_refused(name, pad32):
     assert got.packed.tobytes() == pad32["packed"].tobytes()
     assert [dataclasses.asdict(b) for b in got.bind_requests] == \
         [dataclasses.asdict(b) for b in want.bind_requests]
+
+
+def _port_cluster(ref_cluster) -> Cluster:
+    cluster = Cluster.from_objects(
+        *to_port(list(ref_cluster.snapshot_lists())))
+    cluster.resource_claims = to_port(ref_cluster.resource_claims)
+    cluster.device_classes = to_port(ref_cluster.device_classes)
+    cluster.now = ref_cluster.now
+    return cluster
+
+
+def _supported(cfg) -> bool:
+    """The port implements the reference's auto-tuned placement config
+    (``dynamic_order`` is read only by the allocate loop)."""
+    try:
+        check_supported(AllocateConfig(**{
+            f.name: getattr(cfg, f.name)
+            for f in dataclasses.fields(cfg) if f.name != "placement"}))
+    except NotImplementedError:
+        return False
+    return True
+
+
+def _victim_cycle(name):
+    """One five-action cycle of a victim-catalog case on the reference
+    (sequential victim engine), and the port's twin cluster."""
+    case = VICTIM_CASES[name]
+    ref_cluster = _build(case)
+    patch = test_victim_scenarios._prepare(case)
+    if patch is not None:
+        patch(ref_cluster)
+    cluster = _port_cluster(ref_cluster)
+    want = RefScheduler(RefSchedulerConfig(
+        incremental=False, analytics_every=0, repack_enable=False,
+        session=RefSessionConfig(victims=RefVictimConfig(batch_size=1)))
+    ).run_once(ref_cluster)
+    return want, cluster
+
+
+@pytest.mark.parametrize("name", sorted(VICTIM_CASES))
+def test_victim_scenario_cycle_matches_reference_or_is_refused(name, pad32):
+    want, cluster = _victim_cycle(name)
+    sched = Scheduler(SchedulerConfig(
+        actions=DEFAULT_ACTIONS,
+        session=SessionConfig(victims=VictimConfig(batch_size=1))),
+        device="cpu")
+    if not (_supported(pad32["config"])
+            and _supported(dataclasses.replace(pad32["victims"].placement,
+                                               dynamic_order=True))):
+        with pytest.raises(NotImplementedError):
+            sched.run_once(cluster)
+        return
+    got = sched.run_once(cluster)
+    assert got.packed.tobytes() == pad32["packed"].tobytes()
+    for field in ("bind_requests", "evictions", "move_bind_requests"):
+        assert [dataclasses.asdict(b) for b in getattr(got, field)] == \
+            [dataclasses.asdict(b) for b in getattr(want, field)], field
 
 
 def test_catalog_cases_run_on_the_port():
