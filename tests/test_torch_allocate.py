@@ -18,6 +18,7 @@ from kai_scheduler_tpu.ops.allocate import allocate_jit
 from kai_scheduler_tpu.state.synthetic import make_cluster as ref_make
 from kai_scheduler_tpu_torch.ops import allocate as A
 from kai_scheduler_tpu_torch.state import state_from_numpy
+from jax_executables import release_jax_executables  # noqa: F401
 
 SECTIONS = ("nodes", "queues", "gangs", "running")
 

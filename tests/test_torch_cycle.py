@@ -40,6 +40,7 @@ from kai_scheduler_tpu_torch.runtime.cluster import Cluster
 from kai_scheduler_tpu_torch.state import make_cluster
 
 import chip_smoke
+from jax_executables import release_jax_executables  # noqa: F401
 
 SHAPES = {
     "headline_small": dict(num_nodes=48, node_accel=8.0, num_gangs=40,

@@ -15,6 +15,7 @@ from kai_scheduler_tpu.ops import drf as ref_drf
 from kai_scheduler_tpu.state.synthetic import make_cluster as ref_make
 from kai_scheduler_tpu_torch.ops import drf
 from kai_scheduler_tpu_torch.state import state_from_numpy
+from jax_executables import release_jax_executables  # noqa: F401
 
 SECTIONS = ("nodes", "queues", "gangs", "running")
 

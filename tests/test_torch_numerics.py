@@ -11,6 +11,7 @@ import torch
 
 from kai_scheduler_tpu.utils.numerics import cumsum_ds as ref_cumsum_ds
 from kai_scheduler_tpu_torch.utils import numerics as NU
+from jax_executables import release_jax_executables  # noqa: F401
 
 _ref = jax.jit(ref_cumsum_ds)
 

@@ -19,6 +19,7 @@ from kai_scheduler_tpu_torch.ops import allocate as A
 from kai_scheduler_tpu_torch.ops import ordering, predicates, scoring
 from kai_scheduler_tpu_torch.state import cluster_state as port_cs
 from kai_scheduler_tpu_torch.state import state_from_numpy
+from jax_executables import release_jax_executables  # noqa: F401
 
 SECTIONS = ("nodes", "queues", "gangs", "running")
 

@@ -38,6 +38,7 @@ from scenarios import (test_allocate_scenarios,
                        test_hierarchy_order_scenarios,
                        test_victim_scenarios)
 from scenarios.harness import _build
+from jax_executables import release_jax_executables  # noqa: F401
 
 CASES = {c.name: c for c in (test_allocate_scenarios.CASES
                              + test_hierarchy_order_scenarios.CASES)}

@@ -15,6 +15,7 @@ from kai_scheduler_tpu_torch.apis import types as port_apis
 from kai_scheduler_tpu_torch.state import (build_snapshot, leaf_paths,
                                            make_cluster, state_from_numpy,
                                            state_to_numpy)
+from jax_executables import release_jax_executables  # noqa: F401
 
 SECTIONS = ("nodes", "queues", "gangs", "running")
 

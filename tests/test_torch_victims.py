@@ -37,6 +37,7 @@ from test_consolidation import fragmented_cluster
 from test_victims import preempt_cluster, two_queue_cluster
 
 import chip_smoke
+from jax_executables import release_jax_executables  # noqa: F401
 
 SECTIONS = ("nodes", "queues", "gangs", "running")
 
