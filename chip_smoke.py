@@ -6,13 +6,14 @@ Drives ``kai_scheduler_tpu_torch`` end to end on the card and fails
 (non-zero exit, no result line) on any build error, launch error or
 mismatch:
 
-1. builds the seven hand-written CUDA kernels from ``csrc/`` (one
+1. builds the eight hand-written CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, all started together) and prints the card's name
    and power limit;
 2. runs one warm-up allocate cycle of the headline cluster (10,000 nodes
    x 6,250 gangs x 8 replicas = 50,000 pending pods) through
    ``Scheduler(device="cuda").run_once``, capturing the inputs each
-   allocate kernel's wrapper receives on the main path; then holds K1-K4
+   allocate kernel's wrapper receives on the main path (allocate only:
+   ``SchedulerConfig(actions=("allocate",))``); then holds K1-K4
    against their plain PyTorch versions on those inputs (bit-exact:
    tolerance 0) and times both with CUDA events;
 3. runs the headline cycle again five times, timed, each on a fresh
@@ -23,21 +24,33 @@ mismatch:
 4. does the same (three runs) on a contended cluster: the same backlog
    on 4,000 nodes, four departments of four queues, three priorities;
 5. runs the five default actions (allocate, consolidation, reclaim,
-   preempt, stalegangeviction) with the sequential victim engine
-   (``VictimConfig(batch_size=1)``) on each of two clusters: first a
-   run under the profiler's CUDA activity with K5-K7's inputs captured
-   (each kernel's in-cycle device time), then the timed run on a fresh
-   cluster with the launch counts reset just before and read just after:
-   - *saturated* (the repo's worst-case production shape): 10,000 nodes x
-     4 accelerators filled by 40,000 running pods, 10,000 pending pods in
-     the other queues — reclaim must evict;
-   - *fragmented*: 10,000 nodes x 8 accelerators, each running two
-     one-pod gangs of 2; 256 pending one-pod gangs of 6 fit no node idle
-     — consolidation must move victims; 16 running gangs below their
-     quorum past the grace period — stalegangeviction must evict;
+   preempt, stalegangeviction) on four victim cells: first a run under
+   the profiler's CUDA activity with K5-K8's (and the victim wavefront's
+   K2-K4) inputs captured (each kernel's in-cycle device time), then the
+   timed run on a fresh cluster with the launch counts reset just before
+   and read just after:
+   - *saturated* (the repo's worst-case production shape) at the default
+     ``SchedulerConfig()``: 10,000 nodes x 4 accelerators filled by
+     40,000 running pods, 10,000 pending pods in the other queues —
+     reclaim must evict, through the chunked wavefront (64 lanes);
+   - *saturated_sequential*: the same cell at ``VictimConfig(
+     batch_size=1)``, the sequential engine, its depth cut to 128
+     preemptors per queue (``queue_depth``);
+   - *preempt_many_queues* (``bench.py``'s many-tenant preempt shape,
+     the preempt action alone as there) at the default VictimConfig:
+     80,000 running pods fill 10,000 nodes x 8 accelerators, 512 leaf
+     queues each hold one boosted 8-pod preemptor — preempt must evict,
+     through the sparse wavefront (256 lanes);
+   - *fragmented* at the default config: 10,000 nodes x 8 accelerators,
+     each running two one-pod gangs of 2; 256 pending one-pod gangs of 6
+     fit no node idle — consolidation (sequential) must move victims; 16
+     running gangs below their quorum past the grace period —
+     stalegangeviction must evict;
    the packed commit, BindRequests, evictions (pod, move target) and
-   move rebinds must equal the CPU oracle's; then K5-K7 are held against
-   their plain versions on the captured inputs and timed;
+   move rebinds must equal the CPU oracle's; then K5-K8 and the victim
+   modes of K2-K4 (per-lane pools, per-lane queue tables and score bias,
+   the freed credit) are held against their plain versions on the
+   captured inputs and timed;
 6. prints one JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -96,8 +109,9 @@ class Capture:
         from kai_scheduler_tpu_torch.ops import allocate, drf, stale, victims
         self.keep = keep
         self.calls: dict[str, list] = {}
-        # (module, attribute, kernel): every place the main path looks the
-        # wrapper up
+        # (module, attribute, key): every place the main path looks the
+        # wrapper up; the victim wavefront's calls of K2-K4 get keys of
+        # their own (their per-lane modes)
         self._sites = ((drf, "drf_water_fill", "drf_water_fill"),
                        (allocate, "type_tables", "type_tables"),
                        (allocate, "uniform_fill", "uniform_fill"),
@@ -105,7 +119,11 @@ class Capture:
                        (victims, "cumsum_ds", "cumsum_ds"),
                        (victims, "freed_by_mask", "freed_by_mask"),
                        (stale, "freed_by_mask", "freed_by_mask"),
-                       (victims, "replace_victims", "replace_victims"))
+                       (victims, "replace_victims", "replace_victims"),
+                       (victims, "freed_by_lane", "freed_by_lane"),
+                       (victims, "type_tables", "type_tables:lanes"),
+                       (victims, "uniform_fill", "uniform_fill:lanes"),
+                       (victims, "sparse_accept", "sparse_accept:credit"))
         self._orig = {k: getattr(mod, a) for mod, a, k in self._sites}
         self._saved = [(mod, a, getattr(mod, a)) for mod, a, _ in self._sites]
 
@@ -345,14 +363,52 @@ ALLOCATE_KERNELS = ("drf_water_fill", "type_tables", "uniform_fill",
 SATURATED = dict(num_nodes=10_000, node_accel=4.0, num_gangs=6250,
                  tasks_per_gang=8, running_fraction=0.8,
                  queue_accel_quota=1000.0, partition_queues_by_running=True)
+#: the repo's many-tenant preempt shape (bench.py's preempt_many_queues):
+#: 80,000 running pods fill 10,000 nodes x 8 accelerators; 512 leaf
+#: queues each hold one boosted 8-pod preemptor
+PREEMPT_MANY = dict(num_nodes=10_000, node_accel=8.0, num_gangs=10_512,
+                    tasks_per_gang=8, running_fraction=10_000 / 10_512,
+                    num_departments=2, queues_per_department=256,
+                    pending_priority_boost=100)
 #: see fragmented_objects
 FRAGMENTED = dict(num_nodes=10_000, pending=256, stale=16)
-#: K5-K7 calls kept per victim cell (the first solve's tables, an early
-#: and a later scenario mask, the first consolidation re-placements)
+#: the victim cells, in the order they run: (cluster, victim wavefront
+#: width — None for the default VictimConfig, 1 for the sequential engine)
+VICTIM_CELLS = {"saturated": ("saturated", None),
+                "saturated_sequential": ("saturated", 1),
+                "preempt_many_queues": ("preempt_many_queues", None),
+                "fragmented": ("fragmented", None)}
+#: the sequential cell's depth cut: reclaim attempts at most this many
+#: preemptors per queue (the cell's 1,250 pending gangs wait in two
+#: queues), about a fifth of the full run's steps, so that the script
+#: stays within half its time limit
+SEQUENTIAL_QUEUE_DEPTH = 128
+#: the preempt cell runs the preempt action alone, as the repo's own
+#: benchmark of this shape does (bench.py bench_preempt_many_queues); in
+#: the five-action cycle reclaim first spends 512 one-lane chunks on it
+CELL_ACTIONS = {"preempt_many_queues": ("preempt",)}
+#: kernel calls kept per victim cell (the first solve's tables, an early
+#: and a later scenario mask, the first consolidation re-placements; the
+#: wavefront's first chunks)
+_LANES = {"freed_by_lane": (0, 1, 2), "type_tables:lanes": (0, 1, 2),
+          "uniform_fill:lanes": (0, 1, 2), "sparse_accept:credit": (0, 1)}
 VICTIM_KEEP = {
-    "saturated": {"cumsum_ds": (0, 1), "freed_by_mask": (0, 3)},
+    "saturated": dict(_LANES),
+    "saturated_sequential": {"cumsum_ds": (0, 1), "freed_by_mask": (0, 3)},
+    "preempt_many_queues": dict(_LANES),
     "fragmented": {"cumsum_ds": (0,), "freed_by_mask": (1, 40),
                    "replace_victims": (0, 20)},
+}
+#: the kernels each victim cell must launch
+VICTIM_NEED = {
+    "saturated": ("cumsum_ds", "freed_by_mask", "freed_by_lane",
+                  "type_tables", "uniform_fill"),
+    "saturated_sequential": ("cumsum_ds", "freed_by_mask", "type_tables",
+                             "uniform_fill"),
+    "preempt_many_queues": ("cumsum_ds", "freed_by_lane", "type_tables",
+                            "uniform_fill", "sparse_accept"),
+    "fragmented": ("cumsum_ds", "freed_by_mask", "replace_victims",
+                   "type_tables", "uniform_fill"),
 }
 
 
@@ -408,10 +464,12 @@ def fresh_cluster(shape: dict):
 
 
 def run_cycle(shape: dict, device: str):
-    from kai_scheduler_tpu_torch.framework.scheduler import Scheduler
+    from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
+                                                             SchedulerConfig)
     cluster = fresh_cluster(shape)
     t0 = time.perf_counter()
-    res = Scheduler(device=device).run_once(cluster)
+    res = Scheduler(SchedulerConfig(actions=("allocate",)),
+                    device=device).run_once(cluster)
     if device == "cuda":
         torch.cuda.synchronize()
     return res, cluster, time.perf_counter() - t0
@@ -456,21 +514,30 @@ def check_cycle(name: str, shape: dict, gpu, cpu, cluster) -> dict:
 # the victim cells
 # ---------------------------------------------------------------------------
 
-def victim_config():
-    from kai_scheduler_tpu_torch.framework.scheduler import (DEFAULT_ACTIONS,
-                                                             SchedulerConfig)
+def victim_config(cell: str):
+    """The cell's SchedulerConfig: the default (the reference's five
+    actions and VictimConfig), or the sequential victim engine."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
     from kai_scheduler_tpu_torch.framework.session import SessionConfig
     from kai_scheduler_tpu_torch.ops.victims import VictimConfig
-    return SchedulerConfig(actions=DEFAULT_ACTIONS, session=SessionConfig(
-        victims=VictimConfig(batch_size=1)))
+    width = VICTIM_CELLS[cell][1]
+    actions = CELL_ACTIONS.get(cell, SchedulerConfig().actions)
+    if width is None:
+        return SchedulerConfig(actions=actions)
+    return SchedulerConfig(actions=actions, session=SessionConfig(
+        victims=VictimConfig(batch_size=width,
+                             queue_depth=SEQUENTIAL_QUEUE_DEPTH)))
 
 
 def victim_cluster(cell: str):
     from kai_scheduler_tpu_torch.apis import types as apis
     from kai_scheduler_tpu_torch.runtime.cluster import Cluster
     from kai_scheduler_tpu_torch.state import make_cluster
-    if cell == "saturated":
+    kind = VICTIM_CELLS[cell][0]
+    if kind == "saturated":
         return Cluster.from_objects(*make_cluster(**SATURATED))
+    if kind == "preempt_many_queues":
+        return Cluster.from_objects(*make_cluster(**PREEMPT_MANY))
     nodes, queues, groups, pods, now = fragmented_objects(apis,
                                                           **FRAGMENTED)
     cluster = Cluster.from_objects(nodes, queues, groups, pods)
@@ -481,7 +548,7 @@ def victim_cluster(cell: str):
 def run_victim_cycle(cell: str, device: str):
     from kai_scheduler_tpu_torch.framework.scheduler import Scheduler
     cluster = victim_cluster(cell)
-    sched = Scheduler(victim_config(), device=device)
+    sched = Scheduler(victim_config(cell), device=device)
     t0 = time.perf_counter()
     res = sched.run_once(cluster)
     if device == "cuda":
@@ -520,14 +587,12 @@ def check_victim_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
     pipelined = int(t.pipelined.sum())
     stale_names = {f"run-{i}-0" for i in range(FRAGMENTED["stale"])}
     stale_ev = [e for e in res.evictions if e.group in stale_names]
-    if cell == "saturated":
-        need = ("cumsum_ds", "freed_by_mask", "type_tables", "uniform_fill")
+    need = VICTIM_NEED[cell]
+    if cell != "fragmented":
         if not res.evictions or pipelined <= 0:
             raise AssertionError(f"{cell}: {len(res.evictions)} evictions, "
                                  f"{pipelined} pipelined placements")
     else:
-        need = ("cumsum_ds", "freed_by_mask", "replace_victims",
-                "type_tables", "uniform_fill")
         if not moved or not stale_ev:
             raise AssertionError(f"{cell}: {len(moved)} consolidation "
                                  f"moves, {len(stale_ev)} stale evictions")
@@ -577,7 +642,7 @@ def victim_kernel_checks(caps: dict) -> dict:
     # K5 — read each element once, write once; ~20 f32 operations each
     # (a combine per up-sweep pair, one per even prefix, the final add)
     errs, big = [], None
-    for cell in ("saturated", "fragmented"):
+    for cell in ("saturated_sequential", "fragmented"):
         for args, kw in caps[cell].calls.get("cumsum_ds", []):
             x = args[0]
             got = caps[cell]._orig["cumsum_ds"](x, **kw)
@@ -597,7 +662,7 @@ def victim_kernel_checks(caps: dict) -> dict:
     # K6 — the mask, the masked pods' rows and the five outputs once each;
     # a few adds per masked pod plus the chain roll-up
     errs, rec = [], None
-    for cell in ("saturated", "fragmented"):
+    for cell in ("saturated_sequential", "fragmented"):
         for args, kw in caps[cell].calls.get("freed_by_mask", []):
             state, mask, chain = args[:3]
             got = caps[cell]._orig["freed_by_mask"](*args, **kw)
@@ -657,6 +722,131 @@ def victim_kernel_checks(caps: dict) -> dict:
 
 
 
+def lane_kernel_checks(caps: dict) -> dict:
+    """K8 and the victim wavefront's modes of K2-K4 on the inputs
+    captured from the chunked cells vs their plain versions (K8's on CPU
+    copies — its plain segment sums need the CPU's ordered
+    ``index_add_``; K2-K4's on the card, as in :func:`kernel_checks`),
+    kernel and plain times on the card, and the bound.  K8's nearest
+    library call (NOT the same function): ``index_add_`` of the
+    [B (N + 1), R] lane-node table alone, atomic order."""
+    from kai_scheduler_tpu_torch.ops import allocate as A
+    from kai_scheduler_tpu_torch.ops import victims as V
+    cells = ("saturated", "preempt_many_queues")
+
+    def calls(key):
+        return [(cell, args, kw) for cell in cells
+                for args, kw in caps[cell].calls.get(key, [])]
+
+    def largest(recs, size):
+        return max(recs, key=lambda rec: size(rec[1]))
+
+    out = {}
+    # K8 — the live pods' rows and the CSR lists once, the three outputs
+    # once; 6 adds per live pod, 3 per (lane, node) and (lane, queue) of
+    # the lane prefix, 2 per (lane, node) of own_incr, 1 per chain entry
+    # of the roll-up
+    recs = [(c, a, {"compose": k["compose"]})
+            for c, a, k in calls("freed_by_lane")]
+    errs = []
+    for cell, (state, lane, B, chain), kw in recs:
+        got = caps[cell]._orig["freed_by_lane"](state, lane, B, chain, **kw)
+        want = V.freed_by_lane_plain(_cpu_state(state), lane.cpu(), B,
+                                     chain.cpu(), **kw)
+        errs.append(_max_abs_err(_to_cpu(got), want))
+    cell, (state, lane, B, chain), kw = largest(
+        recs, lambda a: a[2] * a[0].nodes.n)
+    pods = V.PodIndex.of(state)
+    k_ms = _time_ms(lambda: V.freed_by_lane(state, lane, B, chain, pods=pods,
+                                            **kw))
+    p_ms = _time_ms(lambda: V.freed_by_lane_plain(state, lane, B, chain,
+                                                  **kw), 5)
+    r, n, q = state.running, state.nodes, state.queues
+    M, N, Q = r.m, n.n, q.q
+    live = lane < B
+    n_live = int(live.sum())
+    seg = (torch.where(live, lane, B).long() * (N + 1)
+           + torch.where(live, torch.clamp(r.node, min=0), N).long())
+    req_m = torch.where(live[:, None], r.req, 0.0)
+
+    def library():
+        torch.zeros(((B + 1) * (N + 1), 3), device=lane.device).index_add_(
+            0, seg, req_m)
+    lib_ms = _time_ms(library)
+    nnz = int(chain.sum())
+    nbytes = (M * 4 + n_live * 12 + (N + 1 + M + Q + 1 + M) * 4 + Q * Q
+              + B * N * 12 + B * Q * 12 + B * N)
+    ops = (6 * n_live + (3 * B * (N + Q) if kw["compose"] else 0)
+           + 2 * B * N + 3 * B * nnz)
+    b, by = bound(nbytes, ops)
+    out["freed_by_lane"] = dict(
+        max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
+        bound_by=by, nearest_library_ms=lib_ms,
+        nearest_library="index_add_ of the [B (N + 1), R] lane-node table "
+                        "only (atomic order)",
+        shape=f"B={B} N={N} Q={Q} M={M} live={n_live} "
+              f"compose={kw['compose']} ({cell})", checked=len(recs))
+
+    # K2 with one pool per row: as kernel_checks' K2, plus the [Y, N, R]
+    # pools read once
+    recs = calls("type_tables:lanes")
+    errs = [_max_abs_err(caps[c]._orig["type_tables:lanes"](*a, **k),
+                         A.type_tables_plain(*a, **k)) for c, a, k in recs]
+    cell, args, kw = largest(recs, lambda a: a[2].numel())
+    nodes, free, extra, type_req, type_sel, type_cls, placement = args
+    Y, N = type_req.shape[0], free.shape[0]
+    k_ms = _time_ms(lambda: A.type_tables(*args, **kw))
+    p_ms = _time_ms(lambda: A.type_tables_plain(*args, **kw))
+    nb = _nbytes(free, extra, nodes.releasing, nodes.allocatable,
+                 nodes.valid, nodes.labels, nodes.filter_masks, type_req,
+                 type_sel, type_cls) + Y * N * 14
+    b, by = bound(nb, Y * N * 45)
+    out["type_tables:lanes"] = dict(
+        max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
+        bound_by=by, shape=f"Y={Y} N={N} per-row extra ({cell})",
+        checked=len(recs))
+
+    # K3 with per-lane queue tables, rows and score bias: as
+    # kernel_checks' K3, plus the [B, Q, R] tables and [B, N] bias
+    recs = calls("uniform_fill:lanes")
+    errs = [_max_abs_err(caps[c]._orig["uniform_fill:lanes"](*a, **k),
+                         A.uniform_fill_plain(*a, **k)) for c, a, k in recs]
+    cell, args, kw = largest(recs, lambda a: a[1].numel())
+    (cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, lt, tables,
+     soft, valid) = args
+    B, T = prior.shape
+    Q = qan.shape[0]
+    N = valid.shape[0]
+    k_ms = _time_ms(lambda: A.uniform_fill(*args, **kw))
+    p_ms = _time_ms(lambda: A.uniform_fill_plain(*args, **kw))
+    nb = (_nbytes(cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain,
+                  soft, valid, *tables, kw["rows"], kw["score_bias"])
+          + B * (12 + T + 3 * 4 + 1 + 4 * 3) + B * (2 * Q * 3 * 4 + T * 5 + 1))
+    b, by = bound(nb, B * N * 11)
+    out["uniform_fill:lanes"] = dict(
+        max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
+        bound_by=by, shape=f"B={B} T={T} N={N} Q={Q} per-lane ({cell})",
+        checked=len(recs))
+
+    # K4 with the per-entry freed credit: as kernel_checks' K4, plus the
+    # [K, R] credit read once
+    recs = calls("sparse_accept:credit")
+    errs = [_max_abs_err(caps[c]._orig["sparse_accept:credit"](*a, **k),
+                         A.sparse_accept_plain(*a, **k)) for c, a, k in recs]
+    cell, args, kw = largest(recs, lambda a: a[0].numel())
+    nodes_b = args[0]
+    K = nodes_b.numel()
+    k_ms = _time_ms(lambda: A.sparse_accept(*args, **kw))
+    p_ms = _time_ms(lambda: A.sparse_accept_plain(*args, **kw))
+    lg = max(1, (K - 1).bit_length())
+    nb = (_nbytes(*args[:4], kw["credit"]) + K * 2 * 12 + 4 + K * 8)
+    b, by = bound(nb, K * lg * lg // 2 + K * 21)
+    out["sparse_accept:credit"] = dict(
+        max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
+        bound_by=by, shape=f"K={K} with credit ({cell})", checked=len(recs))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -667,6 +857,7 @@ def main() -> int:
     report: dict = {}
 
     # -- 1. build -----------------------------------------------------------
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
@@ -733,11 +924,11 @@ def main() -> int:
     # -- 5. the victim cells: one GPU run each (counts reset just before,
     # read just after), one CPU oracle run --------------------------------
     # (a first GPU run, not timed, under the profiler's CUDA activity
-    # with K5-K7's inputs captured, gives each kernel's in-cycle device
-    # time)
+    # with the victim kernels' inputs captured, gives each kernel's
+    # in-cycle device time)
     from torch.profiler import ProfilerActivity, profile
     caps = {}
-    for cell in ("saturated", "fragmented"):
+    for cell in VICTIM_CELLS:
         with Capture(VICTIM_KEEP[cell]) as cap, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
             run_victim_cycle(cell, "cuda")
@@ -760,60 +951,88 @@ def main() -> int:
             f"({cpu_s:.1f} s)")
         for act, sec in res.action_seconds.items():
             st = rec["victim_stats"].get(act)
-            extra = (f"{st['steps']} steps, {st['attempts']} scenario "
-                     f"attempts, {st['syncs']} host syncs, " if st else "")
+            extra = ""
+            if st and act in ("reclaim", "preempt") and \
+                    VICTIM_CELLS[cell][1] is None:
+                extra = (f"chunked wavefront: {st['steps']} chunks, "
+                         f"{st['attempts']} lanes, {st['syncs']} host syncs, "
+                         f"{st['demotions']} leftover demotions, "
+                         f"{st['fallbacks']} sparse fallbacks, ")
+            elif st:
+                extra = (f"{st['steps']} steps, {st['attempts']} scenario "
+                         f"attempts, {st['syncs']} host syncs, ")
             log(f"  {cell} action {act}: {extra}{sec:.4f} s")
         log("  phases: " + ", ".join(
             f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
         log("  in-cycle kernel device ms / launches (profiled run): "
             + ", ".join(f"{k} {v['ms']:.3f} / {v['launches']}"
                         for k, v in in_cycle.items() if v["launches"]))
+        log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
     checks.update(victim_kernel_checks(caps))
+    lane_checks = lane_kernel_checks(caps)
+    checks["freed_by_lane"] = lane_checks.pop("freed_by_lane")
     #: the main path each kernel's launches are read from
     path_of = {k: ("headline", launches) for k in ALLOCATE_KERNELS}
-    path_of.update(cumsum_ds=("saturated", report["saturated"]["launches"]),
-                   freed_by_mask=("saturated",
-                                  report["saturated"]["launches"]),
-                   replace_victims=("fragmented",
-                                    report["fragmented"]["launches"]))
+    for k, cell in (("cumsum_ds", "saturated_sequential"),
+                    ("freed_by_mask", "saturated_sequential"),
+                    ("replace_victims", "fragmented"),
+                    ("freed_by_lane", "saturated")):
+        path_of[k] = (cell, report[cell]["launches"])
+    #: the victim wavefront's modes of K2-K4 and the cell they run in
+    mode_path = {"type_tables:lanes": "saturated",
+                 "uniform_fill:lanes": "saturated",
+                 "sparse_accept:credit": "preempt_many_queues"}
 
-    for name, c in checks.items():
-        cell, counts = path_of[name]
+    for name, c in list(checks.items()) + list(lane_checks.items()):
+        cell, counts = (path_of[name] if name in path_of else
+                        (mode_path[name], report[mode_path[name]]["launches"]))
+        base = name.split(":")[0]
         lib = ("" if c.get("nearest_library_ms") is None else
                f", nearest library call {c['nearest_library']}: "
                f"{c['nearest_library_ms']:.4f} ms")
         in_cyc = ", ".join(
-            f"{v} {report[v]['in_cycle_ms'][name]['ms']:.3f} ms / "
-            f"{report[v]['in_cycle_ms'][name]['launches']} launches"
-            for v in ("saturated", "fragmented"))
+            f"{v} {report[v]['in_cycle_ms'][base]['ms']:.3f} ms / "
+            f"{report[v]['in_cycle_ms'][base]['launches']} launches"
+            for v in VICTIM_CELLS)
         log(f"kernel {name}: equal to its plain version (max_abs_err "
             f"{c['max_abs_err']}), {c['ms']:.4f} ms kernel, "
-            f"{c['plain_ms']:.4f} ms plain, {counts[name]} launches per "
+            f"{c['plain_ms']:.4f} ms plain, {counts[base]} launches per "
             f"{cell} cycle, bound {c['bound_ms']:.6f} ms by "
             f"{c['bound_by']} [{c['shape']}]{lib}; in-cycle device time "
             f"in the profiled victim runs: {in_cyc}")
     log(f"launch floor (one PyTorch call on one element): "
         f"{report['launch_floor_ms']:.4f} ms")
-    report["kernel_checks"] = checks
+    report["kernel_checks"] = dict(checks, **lane_checks)
     rows = []
     for name, info in kernels.KERNELS.items():
         c = checks[name]
         cell, counts = path_of[name]
-        rows.append(dict(name=name, route="cuda", source=info.source,
-                         replaces=info.replaces, launches=counts[name],
-                         max_abs_err=c["max_abs_err"], ms=c["ms"],
-                         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                         bound_by=c["bound_by"], library_ms=None,
-                         launches_path=cell,
-                         nearest_library_ms=c.get("nearest_library_ms"),
-                         in_cycle_ms={v: report[v]["in_cycle_ms"][name]["ms"]
-                                      for v in ("saturated",
-                                                "fragmented")}))
+        row = dict(name=name, route="cuda", source=info.source,
+                   replaces=info.replaces, launches=counts[name],
+                   max_abs_err=c["max_abs_err"], ms=c["ms"],
+                   plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                   bound_by=c["bound_by"], library_ms=None,
+                   launches_path=cell,
+                   nearest_library_ms=c.get("nearest_library_ms"),
+                   in_cycle_ms={v: report[v]["in_cycle_ms"][name]["ms"]
+                                for v in VICTIM_CELLS})
+        mode = f"{name}:lanes" if f"{name}:lanes" in lane_checks else \
+            f"{name}:credit"
+        if mode in lane_checks:
+            m = lane_checks[mode]
+            row["victim_mode"] = dict(
+                cell=mode_path[mode],
+                launches=report[mode_path[mode]]["launches"][name],
+                **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "shape")})
+        rows.append(row)
     report["kernels"] = rows
     report["card"] = card
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
+    report["seconds"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {report['seconds']:.0f} s")
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -16,6 +16,12 @@
 // (uniform replicas of whole accelerators, cores and GiB), so every f32
 // prefix sum is exact and its order does not matter.
 //
+// The victim wavefront's sparse accept passes an optional per-entry
+// `credit` [K, 3] (lane-major, like the entries): the lane-prefix of the
+// lanes' freed capacity at the claim's node, compared as
+// (pipe_pool + credit) + EPS (ref allocate.py:346-347).  The wrapper
+// computes it in the reference's order.
+//
 // Bound: launch latency — the inputs are a few KB (K = 2,048 entries at
 // the headline); the sort's log^2 K shared-memory passes are the cost.
 // Up to SA_SMEM_KP (padded) entries the keys and prefix sums live in
@@ -50,7 +56,8 @@ __global__ void __launch_bounds__(SA_THREADS) sparse_accept_kernel(
     const int* __restrict__ nodes_b, const u8* __restrict__ ent_ok,
     const u8* __restrict__ pipe_b, const float* __restrict__ req_b,
     const float* __restrict__ free_, const float* __restrict__ pipe_pool,
-    int B, int T, int N, int Kp, unsigned char* scratch,
+    const float* __restrict__ credit, int B, int T, int N, int Kp,
+    unsigned char* scratch,
     int* __restrict__ first_bad, int* __restrict__ node_e,
     int* __restrict__ lane_e) {
   const int K = B * T;
@@ -164,7 +171,9 @@ __global__ void __launch_bounds__(SA_THREADS) sparse_accept_kernel(
       const float cum_e = __fsub_rn(cs[i * 3 + r], __fsub_rn(cs[s * 3 + r], rs));
       const float cumb_e =
           __fsub_rn(csb[i * 3 + r], __fsub_rn(csb[s * 3 + r], rbs));
-      viol = viol || (cum_e > __fadd_rn(pipe_pool[node * 3 + r], KAI_EPS));
+      float cap = pipe_pool[node * 3 + r];
+      if (credit) cap = __fadd_rn(cap, credit[(size_t)idx * 3 + r]);
+      viol = viol || (cum_e > __fadd_rn(cap, KAI_EPS));
       viol = viol ||
              (cumb_e > __fadd_rn(fmaxf(free_[node * 3 + r], 0.0f), KAI_EPS));
     }
@@ -180,7 +189,8 @@ __global__ void __launch_bounds__(SA_THREADS) sparse_accept_kernel(
 KAI_EXPORT int kai_sparse_accept(const int* nodes_b, const u8* ent_ok,
                                  const u8* pipe_b, const float* req_b,
                                  const float* free_, const float* pipe_pool,
-                                 int B, int T, int N, int R,
+                                 const float* credit, int B, int T, int N,
+                                 int R,
                                  unsigned char* scratch, int* first_bad,
                                  int* node_e, int* lane_e,
                                  cudaStream_t stream) {
@@ -196,7 +206,7 @@ KAI_EXPORT int kai_sparse_accept(const int* nodes_b, const u8* ent_ok,
       (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   sparse_accept_kernel<<<1, SA_THREADS, smem, stream>>>(
-      nodes_b, ent_ok, pipe_b, req_b, free_, pipe_pool, B, T, N, Kp, scratch,
-      first_bad, node_e, lane_e);
+      nodes_b, ent_ok, pipe_b, req_b, free_, pipe_pool, credit, B, T, N, Kp,
+      scratch, first_bad, node_e, lane_e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,13 @@
 // element.  Every f32 operation keeps the reference's order
 // ((free + releasing) + extra, (avail + EPS) / max(req, EPS), floor,
 // ((0 + placement) + resourcetype) + availability).
+//
+// `extra` is one [N, 3] pool for every type row, or (per_row) one pool per
+// row, [Y, N, 3]: the chunked victim wavefront builds one row per lane, the
+// lane's gang type over the chunk-start pool plus that lane's own freed
+// capacity (ref victims.py:1314 extra_b, under the lane vmap).  Only the
+// pipeline pool, its fit, its replica count and the density range of the
+// row read it.
 #include "kai_common.cuh"
 
 #define TT_THREADS 512
@@ -52,10 +59,11 @@ __global__ void type_tables_kernel(
     const u8* __restrict__ valid, const int* __restrict__ labels,
     const u8* __restrict__ fmask, const float* __restrict__ type_req,
     const int* __restrict__ type_sel, const int* __restrict__ type_class,
-    int N, int K, int binpack_accel, int binpack_cpu, u8* __restrict__ fi,
-    u8* __restrict__ fp, int* __restrict__ ci, int* __restrict__ cp,
-    float* __restrict__ sc) {
+    int N, int K, int binpack_accel, int binpack_cpu, int per_row,
+    u8* __restrict__ fi, u8* __restrict__ fp, int* __restrict__ ci,
+    int* __restrict__ cp, float* __restrict__ sc) {
   const int y = blockIdx.x;
+  if (per_row) extra += (size_t)y * N * 3;
   const float req[3] = {type_req[y * 3], type_req[y * 3 + 1],
                         type_req[y * 3 + 2]};
   const int* sel = type_sel + (size_t)y * K;
@@ -144,12 +152,13 @@ KAI_EXPORT int kai_type_tables(const float* free_, const float* rel,
                                const u8* fmask, const float* type_req,
                                const int* type_sel, const int* type_class,
                                int N, int R, int K, int Y, int X,
-                               int binpack_accel, int binpack_cpu, u8* fi,
-                               u8* fp, int* ci, int* cp, float* sc,
-                               cudaStream_t stream) {
+                               int binpack_accel, int binpack_cpu,
+                               int per_row, u8* fi, u8* fp, int* ci, int* cp,
+                               float* sc, cudaStream_t stream) {
   if (N < 1 || R != 3 || K < 1 || Y < 1 || X < 1) return KAI_ERR_ARGS;
   type_tables_kernel<<<Y, TT_THREADS, 0, stream>>>(
       free_, rel, extra, alloc, valid, labels, fmask, type_req, type_sel,
-      type_class, N, K, binpack_accel, binpack_cpu, fi, fp, ci, cp, sc);
+      type_class, N, K, binpack_accel, binpack_cpu, per_row, fi, fp, ci, cp,
+      sc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,15 @@
 // the f32 spacing of the ~109-point scores), so the tie order is part of
 // the contract.
 //
+// The chunked victim wavefront (ref victims.py:1350, `_attempt_gang` under
+// the lane vmap, legacy protocol) adds three optional inputs: `qa` with one
+// [Q, 3] table per lane (qa_lanes: each lane's allocation net of its own
+// victims), `rows` naming each lane's row of the tables (a junk lane's
+// clamped gang may share a real lane's gang, so the row is not derived
+// from the gang), and `score_bias` [B, N] (the own-freed band), added last
+// in the reference's f32 order: ((bands + soft) + jitter) + bias hoisted,
+// bands + ((jitter + soft) + bias) not.
+//
 // Bound: the per-lane work is a read of the lane type's [N] fit/band rows
 // and soft-score row (~10 bytes per node, shared by the lanes of one type
 // through L2) and a handful of flops per node; with B lanes it is
@@ -98,15 +107,18 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     const int* __restrict__ task_class0, const u8* __restrict__ fi,
     const u8* __restrict__ fp, const int* __restrict__ ci,
     const int* __restrict__ cp, const float* __restrict__ sc,
-    const float* __restrict__ soft, const u8* __restrict__ valid, int T,
-    int N, int Q, int dense, int stride, int hoisted, float jscale,
-    float* __restrict__ qa2, float* __restrict__ qan2,
+    const float* __restrict__ soft, const u8* __restrict__ valid,
+    const int* __restrict__ rows, const float* __restrict__ score_bias, int T,
+    int N, int Q, int dense, int stride, int hoisted, int qa_lanes,
+    float jscale, float* __restrict__ qa2, float* __restrict__ qan2,
     int* __restrict__ nodes_t, u8* __restrict__ pipe_t,
     u8* __restrict__ success) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int k = min(T, N);
   const int* prior_b = prior + (size_t)b * T;
+  const float* qa_b = qa_lanes ? qa + (size_t)b * Q * 3 : qa;
+  const float* bias_b = score_bias ? score_bias + (size_t)b * N : nullptr;
   __shared__ UfLane L;
   __shared__ int s_order[UF_MAXK];
   __shared__ float s_wv[UF_WARPS];
@@ -116,7 +128,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
   if (tid == 0) {
     const int gi = cand[b];
     L.gi = gi;
-    L.ty = task_type0[gi];
+    L.ty = rows ? rows[b] : task_type0[gi];
     L.cls = task_class0[gi];
     L.queue = gang_queue[gi];
     L.nonpre = preemptible[gi] == 0;
@@ -129,7 +141,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     }
     L.goal = min(quota_b[b], tcount - already);
     const u8* anc = chain + (size_t)L.queue * Q;
-    int m = uf_max_copies(qa, limit_eff, anc, Q, L.req);
+    int m = uf_max_copies(qa_b, limit_eff, anc, Q, L.req);
     if (L.nonpre) m = min(m, uf_max_copies(qan, quota_eff, anc, Q, L.req));
     L.mgate = m;
   }
@@ -159,8 +171,14 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
       float score = KAI_BIG_NEG;
       if (fpn) {
         const float bands = sc_y[n], s = soft_c[n];
-        score = hoisted ? __fadd_rn(__fadd_rn(bands, s), jit)
-                        : __fadd_rn(bands, __fadd_rn(jit, s));
+        if (hoisted) {
+          score = __fadd_rn(__fadd_rn(bands, s), jit);
+          if (bias_b) score = __fadd_rn(score, bias_b[n]);
+        } else {
+          float extra_bands = __fadd_rn(jit, s);
+          if (bias_b) extra_bands = __fadd_rn(extra_bands, bias_b[n]);
+          score = __fadd_rn(bands, extra_bands);
+        }
       }
       if (kai_better(score, n, tv[k - 1], ti[k - 1])) {
         int j = k - 1;
@@ -275,7 +293,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     const int q = idx / 3, r = idx % 3;
     const float d = __fmul_rn(anc[q] ? 1.0f : 0.0f,
                               __fmul_rn((float)L.total, L.req[r]));
-    qa2[(size_t)b * Q * 3 + idx] = __fadd_rn(qa[idx], d);
+    qa2[(size_t)b * Q * 3 + idx] = __fadd_rn(qa_b[idx], d);
     qan2[(size_t)b * Q * 3 + idx] = __fadd_rn(qan[idx], L.nonpre ? d : 0.0f);
   }
 }
@@ -287,16 +305,17 @@ KAI_EXPORT int kai_uniform_fill(
     const int* gang_queue, const u8* preemptible, const int* anti_self,
     const int* task_type0, const int* task_class0, const u8* fi, const u8* fp,
     const int* ci, const int* cp, const float* sc, const float* soft,
-    const u8* valid, int B, int T, int N, int Q, int Y, int G, int X,
-    int dense, int stride, int hoisted, float jscale, float* qa2, float* qan2,
-    int* nodes_t, u8* pipe_t, u8* success, cudaStream_t stream) {
+    const u8* valid, const int* rows, const float* score_bias, int B, int T,
+    int N, int Q, int Y, int G, int X, int dense, int stride, int hoisted,
+    int qa_lanes, float jscale, float* qa2, float* qan2, int* nodes_t,
+    u8* pipe_t, u8* success, cudaStream_t stream) {
   if (B < 1 || T < 1 || N < 1 || Q < 1 || Y < 1 || G < 1 || X < 1 ||
       (T < N ? T : N) > UF_MAXK)
     return KAI_ERR_ARGS;
   uniform_fill_kernel<<<B, UF_THREADS, 0, stream>>>(
       cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, task_req0,
       task_valid, gang_queue, preemptible, anti_self, task_type0, task_class0,
-      fi, fp, ci, cp, sc, soft, valid, T, N, Q, dense, stride, hoisted,
-      jscale, qa2, qan2, nodes_t, pipe_t, success);
+      fi, fp, ci, cp, sc, soft, valid, rows, score_bias, T, N, Q, dense,
+      stride, hoisted, qa_lanes, jscale, qa2, qan2, nodes_t, pipe_t, success);
   return static_cast<int>(cudaGetLastError());
 }

@@ -168,14 +168,14 @@ DEFAULT_ACTIONS = ("allocate", "consolidation", "reclaim", "preempt",
 class SchedulerConfig:
     """ref ``conf/scheduler_conf.go:49-62`` — this slice's fields.
 
-    The default action list is ``("allocate",)``, not the reference's
-    :data:`DEFAULT_ACTIONS`: the reference's default ``VictimConfig``
-    (``batch_size=64``) runs reclaim and preempt through the chunked
-    victim wavefront, which this package has not ported and refuses.
-    Run the five actions with ``SessionConfig(victims=VictimConfig(
-    batch_size=1))``, the sequential engine."""
+    The default action list is the reference's :data:`DEFAULT_ACTIONS`,
+    at the reference's default ``VictimConfig``: reclaim and preempt run
+    the chunked victim wavefront (``batch_size=64``; preempt's width
+    auto-tuned per snapshot), consolidation the sequential engine.
+    ``SessionConfig(victims=VictimConfig(batch_size=1))`` runs reclaim and
+    preempt sequentially too."""
 
-    actions: tuple[str, ...] = ("allocate",)
+    actions: tuple[str, ...] = DEFAULT_ACTIONS
     session: SessionConfig = dataclasses.field(default_factory=SessionConfig)
     #: determinism seed: each cycle derives ``cycle_seed_for(seed, index)``
     seed: int = 0

@@ -73,6 +73,9 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("replace_victims",
                    "kai_scheduler_tpu_torch/csrc/replace_victims.cu",
                    "kai_scheduler_tpu/ops/victims.py:644"),
+        KernelInfo("freed_by_lane",
+                   "kai_scheduler_tpu_torch/csrc/freed_by_lane.cu",
+                   "kai_scheduler_tpu/ops/victims.py:738"),
     )
 }
 
@@ -102,13 +105,14 @@ _F = ctypes.c_float
 #: an int (0 = launched, else a cudaError_t or a negative argument code)
 _SIGNATURES = {
     "kai_drf_level": [_P] * 10 + [_F, _I, _I, _P, _P, _P],
-    "kai_type_tables": [_P] * 10 + [_I] * 7 + [_P] * 5 + [_P],
-    "kai_uniform_fill": [_P] * 22 + [_I] * 10 + [_F] + [_P] * 5 + [_P],
-    "kai_sparse_accept": [_P] * 6 + [_I] * 4 + [_P] * 4 + [_P],
+    "kai_type_tables": [_P] * 10 + [_I] * 8 + [_P] * 5 + [_P],
+    "kai_uniform_fill": [_P] * 24 + [_I] * 11 + [_F] + [_P] * 5 + [_P],
+    "kai_sparse_accept": [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P],
     "kai_cumsum_ds": [_P, _I, _I, _P, _P, _P],
     "kai_freed_by_mask": [_P] * 12 + [_I] * 5 + [_P] * 6 + [_P],
     "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
     + [_P],
+    "kai_freed_by_lane": [_P] * 7 + [_I] * 5 + [_P] * 4 + [_P],
 }
 
 _LIB = None

@@ -200,7 +200,9 @@ def type_tables_plain(nodes: NodeState, free: Tensor, extra: Tensor,
     ``fit_idle``, ``fit_pipe`` (bool [Y, N]), the whole replicas that fit
     on idle and on idle+releasing+extra (i32 [Y, N]) and the summed plugin
     bands (f32 [Y, N], unmasked — the lanes add the soft and jitter
-    bands and mask)."""
+    bands and mask).  ``extra`` is one [N, R] pool for every row, or one
+    pool per row, [Y, N, R] (the victim wavefront: row b is lane b's
+    gang type with the lane's own freed capacity)."""
     zero = torch.zeros(type_req.shape[:-1], dtype=type_req.dtype,
                        device=type_req.device)
     fi, fp = feasible_nodes_dual(
@@ -231,6 +233,9 @@ def type_tables(nodes: NodeState, free: Tensor, extra: Tensor,
     X = nodes.filter_masks.shape[0]
     if R_ != 3 or type_req.shape != (Y, R_):
         raise ValueError("type_tables: resource axis must be 3")
+    per_row = extra.dim() == 3
+    if extra.shape != ((Y, N, R_) if per_row else (N, R_)):
+        raise ValueError("type_tables: extra must be [N, R] or [Y, N, R]")
     f32, i32, b = torch.float32, torch.int32, torch.bool
     ts = dict(free=free, releasing=nodes.releasing, extra=extra,
               allocatable=nodes.allocatable, valid=nodes.valid,
@@ -250,7 +255,7 @@ def type_tables(nodes: NodeState, free: Tensor, extra: Tensor,
     rc = lib.kai_type_tables(
         *(kernels.ptr(t) for t in ts.values()),
         N, R_, K, Y, X, int(placement.binpack_accel),
-        int(placement.binpack_cpu),
+        int(placement.binpack_cpu), int(per_row),
         *(kernels.ptr(t) for t in (fi, fp, ci, cp, sc)),
         kernels.stream_of(free))
     kernels.check(rc, "type_tables")
@@ -304,7 +309,9 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
                        qa: Tensor, qan: Tensor, limit_eff: Tensor,
                        quota_eff: Tensor, chain: Tensor, lt: LaneTables,
                        tables, soft_scores: Tensor, valid: Tensor, *,
-                       dense: bool, stride: int, hoisted: bool):
+                       dense: bool, stride: int, hoisted: bool,
+                       rows: Tensor | None = None,
+                       score_bias: Tensor | None = None):
     """Plain PyTorch version of K3, batched over the B lanes.
 
     ``cand`` i32 [B] gang per lane (already clamped to a real row),
@@ -315,7 +322,14 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
 
     ``hoisted`` selects the reference's f32 order of the score bands:
     with per-chunk type tables ``((bands + soft) + jitter)``, without
-    (``Yu > B``) ``(bands + (jitter + soft))``."""
+    (``Yu > B``) ``(bands + (jitter + soft))``.
+
+    The victim wavefront's lanes add three things: ``qa`` may be one
+    table per lane, [B, Q, R] (each lane's queue allocation net of its
+    own victims); ``rows`` i32 [B] names each lane's row of the tables
+    (instead of its gang's task type); ``score_bias`` f32 [B, N] joins
+    the bands last — ``((bands + soft) + jitter) + bias`` hoisted,
+    ``bands + ((jitter + soft) + bias)`` not."""
     fi_y, fp_y, ci_y, cp_y, sc_y = tables
     B, T = prior.shape
     N = valid.shape[0]
@@ -338,9 +352,12 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
     req_pos = req > EPS
 
     def max_copies(used, cap):
+        room = cap - used
+        if room.dim() == 2:
+            room = room[None]
         head = torch.where(
             req_pos[:, None, :],
-            (cap - used)[None] / torch.clamp(req, min=EPS)[:, None, :],
+            room / torch.clamp(req, min=EPS)[:, None, :],
             _INF)                                            # [B, Q, R]
         head = torch.where(anc[:, :, None], head, _INF)
         m = torch.floor(head + EPS).flatten(1).amin(1)
@@ -356,7 +373,7 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
         c = torch.where(opn[:, None] & prior_on_node, 0, c)
         return torch.where(opn[:, None], torch.clamp(c, max=1), c)
 
-    ty = lt.task_type0[gi].long()
+    ty = (lt.task_type0[gi] if rows is None else rows).long()
     fit_idle = fi_y[ty] & valid
     fit_pipe = fp_y[ty] & valid
     c_pipe = lane_clamp(cp_y[ty], fit_pipe)                  # [B, N]
@@ -375,8 +392,13 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
     bands = sc_y[ty]
     if hoisted:
         base = (bands + soft) + jitter
+        if score_bias is not None:
+            base = base + score_bias
     else:
-        base = bands + (jitter + soft)
+        extra_bands = jitter + soft
+        if score_bias is not None:
+            extra_bands = extra_bands + score_bias
+        base = bands + extra_bands
     scores = torch.where(fit_pipe, base, BIG_NEG)
 
     # ---- greedy fill by score order (lax.top_k: value desc, lower index
@@ -407,7 +429,7 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
     pipe_t = placed_t & (rank_in_node >= c_idle.gather(1, nidx))
     q_delta = total_placed.to(torch.float32)[:, None] * req  # [B, R]
     anc_d = anc.to(torch.float32)[:, :, None] * q_delta[:, None, :]
-    qa2 = qa[None] + anc_d
+    qa2 = (qa if qa.dim() == 3 else qa[None]) + anc_d
     qan2 = qan[None] + torch.where(nonpre[:, None, None], anc_d, 0.0)
     success = (goal > 0) & (total_placed >= goal)
     return qa2, qan2, nodes_t, pipe_t, success
@@ -421,7 +443,8 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
                  qan: Tensor, limit_eff: Tensor, quota_eff: Tensor,
                  chain: Tensor, lt: LaneTables, tables,
                  soft_scores: Tensor, valid: Tensor, *, dense: bool,
-                 stride: int, hoisted: bool):
+                 stride: int, hoisted: bool, rows: Tensor | None = None,
+                 score_bias: Tensor | None = None):
     """K3 — every lane's whole-gang placement (see
     :func:`uniform_fill_plain` for the contract).  CPU tensors run the
     plain version; CUDA tensors launch one block per lane or raise."""
@@ -429,10 +452,14 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
         return uniform_fill_plain(cand, prior, quota_b, qa, qan, limit_eff,
                                   quota_eff, chain, lt, tables, soft_scores,
                                   valid, dense=dense, stride=stride,
-                                  hoisted=hoisted)
+                                  hoisted=hoisted, rows=rows,
+                                  score_bias=score_bias)
     fi_y, fp_y, ci_y, cp_y, sc_y = tables
     B, T = prior.shape
-    Q, R_ = qa.shape
+    Q, R_ = qan.shape
+    qa_lanes = qa.dim() == 3
+    if qa.shape != ((B, Q, R_) if qa_lanes else (Q, R_)):
+        raise ValueError("uniform_fill: qa must be [Q, R] or [B, Q, R]")
     Y, N = fp_y.shape
     G = lt.queue.shape[0]
     X = soft_scores.shape[0]
@@ -449,11 +476,18 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
               anti_self=lt.anti_self, task_type0=lt.task_type0,
               task_class0=lt.task_class0, fi=fi_y, fp=fp_y, ci=ci_y,
               cp=cp_y, sc=sc_y, soft=soft_scores, valid=valid)
-    dev = kernels.require_cuda("uniform_fill", ts, dict(
+    opt = dict(rows=rows, score_bias=score_bias)
+    dev = kernels.require_cuda("uniform_fill", dict(
+        ts, **{k: v for k, v in opt.items() if v is not None}), dict(
         cand=i32, prior=i32, quota_b=i32, qa=f32, qan=f32, limit_eff=f32,
         quota_eff=f32, chain=b, task_req0=f32, task_valid=b, queue=i32,
         preemptible=b, anti_self=i32, task_type0=i32, task_class0=i32,
-        fi=b, fp=b, ci=i32, cp=i32, sc=f32, soft=f32, valid=b))
+        fi=b, fp=b, ci=i32, cp=i32, sc=f32, soft=f32, valid=b, rows=i32,
+        score_bias=f32))
+    if rows is not None and rows.shape != (B,):
+        raise ValueError("uniform_fill: rows must be [B]")
+    if score_bias is not None and score_bias.shape != (B, N):
+        raise ValueError("uniform_fill: score_bias must be [B, N]")
     qa2 = torch.empty((B, Q, R_), dtype=f32, device=dev)
     qan2 = torch.empty((B, Q, R_), dtype=f32, device=dev)
     nodes_t = torch.empty((B, T), dtype=i32, device=dev)
@@ -462,8 +496,9 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
     lib = kernels.library()
     rc = lib.kai_uniform_fill(
         *(kernels.ptr(t) for t in ts.values()),
+        *(None if v is None else kernels.ptr(v) for v in opt.values()),
         B, T, N, Q, Y, G, X, int(dense), int(stride), int(hoisted),
-        float(_jitter_scale(N)),
+        int(qa_lanes), float(_jitter_scale(N)),
         *(kernels.ptr(t) for t in (qa2, qan2, nodes_t, pipe_t, success)),
         kernels.stream_of(prior))
     kernels.check(rc, "uniform_fill")
@@ -497,11 +532,14 @@ def sparse_entry_tables(nodes_b: Tensor, ent_ok: Tensor, N: int):
 
 def sparse_accept_plain(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
                         req_b: Tensor, free: Tensor, pipe_pool: Tensor,
-                        N: int):
+                        N: int, credit: Tensor | None = None):
     """Plain PyTorch version of K4 (ref ``sparse_accept_first_bad``):
-    each entry's node-cumulative claim must fit ``pipe_pool`` and the
-    bind-now subset must fit the idle pool.  Returns (first_bad i32 [] —
-    B when every claim fits, node_e i32 [K], lane_e i32 [K]).
+    each entry's node-cumulative claim must fit ``pipe_pool`` (plus the
+    entry's ``credit`` [K, R], lane-major like the entries, when given:
+    the victim wavefront's lane-prefix freed capacity at the claim's
+    node, compared as ``(pipe_pool + credit) + EPS``) and the bind-now
+    subset must fit the idle pool.  Returns (first_bad i32 [] — B when
+    every claim fits, node_e i32 [K], lane_e i32 [K]).
 
     The claims are whole-unit requests in the snapshots this path runs,
     so the f32 prefix sums are exact whatever their order."""
@@ -514,7 +552,10 @@ def sparse_accept_plain(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
     cum_e = cs - (cs - req_s)[sidx]
     nsafe = torch.clamp(ns, max=N - 1).long()
     real = ns < N
-    viol = (cum_e > pipe_pool[nsafe] + EPS).any(-1) & real
+    cap_pipe = pipe_pool[nsafe]
+    if credit is not None:
+        cap_pipe = cap_pipe + credit[perm]
+    viol = (cum_e > cap_pipe + EPS).any(-1) & real
     bind_e = (ent_ok & ~pipe_b).reshape(-1)[perm]
     reqb_s = torch.where(bind_e[:, None], req_b[lsl], 0.0)
     csb = torch.cumsum(reqb_s, 0)
@@ -531,13 +572,14 @@ SMEM_ENTRIES = 4096
 
 
 def sparse_accept(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
-                  req_b: Tensor, free: Tensor, pipe_pool: Tensor, N: int):
+                  req_b: Tensor, free: Tensor, pipe_pool: Tensor, N: int,
+                  credit: Tensor | None = None):
     """K4 — the first lane whose claims over-subscribe a node (see
     :func:`sparse_accept_plain`).  CPU tensors run the plain version;
     CUDA tensors launch one block or raise."""
     if not kernels.on_card(nodes_b):
         return sparse_accept_plain(nodes_b, ent_ok, pipe_b, req_b, free,
-                                   pipe_pool, N)
+                                   pipe_pool, N, credit)
     B, T = nodes_b.shape
     R_ = req_b.shape[1]
     K = B * T
@@ -546,9 +588,13 @@ def sparse_accept(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
     f32, i32, b = torch.float32, torch.int32, torch.bool
     ts = dict(nodes_b=nodes_b, ent_ok=ent_ok, pipe_b=pipe_b, req_b=req_b,
               free=free, pipe_pool=pipe_pool)
+    if credit is not None:
+        if credit.shape != (K, R_):
+            raise ValueError("sparse_accept: credit must be [B*T, 3]")
+        ts["credit"] = credit
     dev = kernels.require_cuda("sparse_accept", ts, dict(
         nodes_b=i32, ent_ok=b, pipe_b=b, req_b=f32, free=f32,
-        pipe_pool=f32))
+        pipe_pool=f32, credit=f32))
     first_bad = torch.empty((), dtype=i32, device=dev)
     node_e = torch.empty((K,), dtype=i32, device=dev)
     lane_e = torch.empty((K,), dtype=i32, device=dev)
@@ -557,7 +603,9 @@ def sparse_accept(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
                if Kp > SMEM_ENTRIES else None)
     lib = kernels.library()
     rc = lib.kai_sparse_accept(
-        *(kernels.ptr(t) for t in ts.values()), B, T, N, R_,
+        *(kernels.ptr(ts[k]) for k in ("nodes_b", "ent_ok", "pipe_b",
+                                       "req_b", "free", "pipe_pool")),
+        None if credit is None else kernels.ptr(credit), B, T, N, R_,
         None if scratch is None else kernels.ptr(scratch),
         kernels.ptr(first_bad), kernels.ptr(node_e), kernels.ptr(lane_e),
         kernels.stream_of(nodes_b))

@@ -25,24 +25,34 @@ solver are hand-written CUDA kernels, each with its plain PyTorch version
   consolidation validator's greedy re-placement of every victim.
 
 Each scenario attempt places the preemptor through K2 and K3 with one lane
-(:func:`.allocate.attempt_gang_dense`).  The chunked wavefront the
-reference runs for ``batch_size > 1`` (``_run_victim_action_chunked``) is
-not ported: that configuration raises ``NotImplementedError``.
+(:func:`.allocate.attempt_gang_dense`).
+
+At ``batch_size > 1`` (the default) reclaim (with ``chunk_reclaim``) and
+preempt run the chunked victim wavefront instead
+(:func:`_run_victim_action_chunked`): ``B`` preemptors per chunk, one host
+read per chunk, every lane's freed pools from **K8**
+:func:`freed_by_lane` (``csrc/freed_by_lane.cu``), every lane's placement
+through K2 (one table row per lane) and K3 (per-lane queue tables and
+score bias), and the sparse accept through K4 with the lanes' freed
+credit.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from .. import kernels
 from ..apis.types import UNLIMITED
 from ..state.cluster_state import ClusterState
-from ..utils.numerics import cumsum_ds
+from ..utils.numerics import cumsum_blocked, cumsum_ds
 from . import ordering
 from .allocate import (AllocateConfig, AllocationResult, LaneTables,
-                       _ancestor_gate, _chain_membership, attempt_gang_dense,
-                       check_supported, single_type_lanes)
+                       _ancestor_gate, _chain_membership, _pad_row,
+                       attempt_gang_dense, check_supported, single_type_lanes,
+                       sparse_accept, type_tables, uniform_fill)
+from .scoring import W_OWN_FREED
 
 Tensor = torch.Tensor
 EPS = 1e-6
@@ -58,7 +68,7 @@ class VictimConfig:
     with the same defaults (see ``kai_scheduler_tpu.ops.victims.
     VictimConfig`` for each knob's meaning).  ``batch_size > 1`` for
     reclaim (with ``chunk_reclaim``) or preempt selects the chunked
-    wavefront, which this package has not ported: it raises."""
+    wavefront; 1 the sequential engine."""
 
     placement: AllocateConfig = AllocateConfig(dynamic_order=False)
     saturation_multiplier: float = 1.0
@@ -76,11 +86,16 @@ class VictimConfig:
 @dataclasses.dataclass
 class VictimStats:
     """What one victim action did: preemptor steps taken, scenario
-    attempts simulated, and device-to-host reads the host loop made."""
+    attempts simulated, and device-to-host reads the host loop made.  A
+    chunked action counts its wavefront chunks as ``steps`` and the lanes
+    it attempted as ``attempts``, plus its leftover demotions and whether
+    it fell back from the sparse to the dense path."""
 
     steps: int = 0
     attempts: int = 0
     syncs: int = 0
+    demotions: int = 0
+    fallbacks: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +333,90 @@ def replace_victims(state: ClusterState, mask: Tensor, free: Tensor,
     kernels.check(rc, "replace_victims")
     kernels.count_launch("replace_victims")
     return free_o, dev_o, ext_o, moves, all_ok
+
+
+# ---------------------------------------------------------------------------
+# K8: freed_by_lane
+# ---------------------------------------------------------------------------
+
+def _rollup_lanes(chain: Tensor, leaf: Tensor) -> Tensor:
+    """``einsum("qa,bqr->bar", chain, leaf)`` summed in ascending ``q``
+    from +0.0 (:func:`_rollup` for every lane at once)."""
+    cf = chain.to(leaf.dtype)
+    out = torch.zeros_like(leaf)
+    for q in range(leaf.shape[1]):
+        out = out + cf[q][None, :, None] * leaf[:, q][:, None, :]
+    return out
+
+
+def freed_by_lane_plain(state: ClusterState, lane: Tensor, B: int,
+                        chain: Tensor, *, compose: bool):
+    """Plain PyTorch version of K8 (ref ``_freed_by_lane``, ``:738``):
+    ``lane`` i32 [M] gives each pod the wavefront lane that consumes it
+    (``B`` = none).  Returns ``(freed_nodes [B, N, R], freed_queues
+    [B, Q, R], own_incr bool [B, N])``: with ``compose`` lane ``b``'s pool
+    is the union of lanes ``<= b`` (a cumulative sum over lanes in the
+    reference's ``jnp.cumsum`` order), else its own assignment only;
+    ``own_incr`` marks the nodes where lane ``b``'s own pods free
+    anything.  The device and extended tables the reference can add are
+    not built: this package refuses the configurations that track them."""
+    r, n, q = state.running, state.nodes, state.queues
+    N, Q = n.n, q.q
+    R_ = r.req.shape[1]
+    live = lane < B
+    lane_s = torch.where(live, lane, B).long()
+    req_m = torch.where(live[:, None], r.req, 0.0)
+
+    def seg_sum(seg: Tensor, num: int) -> Tensor:
+        out = torch.zeros(((B + 1) * (num + 1), R_), dtype=req_m.dtype,
+                          device=req_m.device)
+        out.index_add_(0, seg, req_m)
+        return out.reshape(B + 1, num + 1, R_)[:B, :num]
+
+    node_s = torch.where(live, torch.clamp(r.node, min=0), N).long()
+    own_n = seg_sum(lane_s * (N + 1) + node_s, N)
+    queue_s = torch.where(live, torch.clamp(r.queue, min=0), Q).long()
+    leaf_own = seg_sum(lane_s * (Q + 1) + queue_s, Q)
+    freed_n = cumsum_blocked(own_n) if compose else own_n
+    leaf_cum = cumsum_blocked(leaf_own) if compose else leaf_own
+    own_sum = (own_n[..., 0] + own_n[..., 1]) + own_n[..., 2]
+    return freed_n, _rollup_lanes(chain, leaf_cum), own_sum > EPS
+
+
+def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
+                  *, compose: bool, pods: PodIndex | None = None):
+    """K8 — per-lane freed capacity from a pod-to-lane assignment (see
+    :func:`freed_by_lane_plain`).  CPU tensors run the plain version;
+    CUDA tensors launch the kernel or raise.  ``pods`` is the action's
+    :class:`PodIndex` (K6's lists, reused)."""
+    if not kernels.on_card(lane):
+        return freed_by_lane_plain(state, lane, B, chain, compose=compose)
+    r, n, q = state.running, state.nodes, state.queues
+    N, Q, M = n.n, q.q, r.m
+    R_ = r.req.shape[1]
+    if pods is None:
+        pods = PodIndex.of(state)
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    ts = dict(lane=lane, req=r.req, node_off=pods.node_off,
+              node_pods=pods.node_pods, queue_off=pods.queue_off,
+              queue_pods=pods.queue_pods, chain=chain)
+    dev = kernels.require_cuda("freed_by_lane", ts, dict(
+        lane=i32, req=f32, node_off=i32, node_pods=i32, queue_off=i32,
+        queue_pods=i32, chain=b))
+    if lane.shape != (M,) or chain.shape != (Q, Q) or R_ != 3:
+        raise ValueError("freed_by_lane: lane must be [M], chain [Q, Q], "
+                         "R 3")
+    leaf = torch.empty((B, Q, R_), dtype=f32, device=dev)
+    freed_n = torch.empty((B, N, R_), dtype=f32, device=dev)
+    freed_q = torch.empty((B, Q, R_), dtype=f32, device=dev)
+    own_incr = torch.empty((B, N), dtype=b, device=dev)
+    rc = kernels.library().kai_freed_by_lane(
+        *(kernels.ptr(t) for t in ts.values()), N, R_, Q, B, int(compose),
+        *(kernels.ptr(t) for t in (leaf, freed_n, freed_q, own_incr)),
+        kernels.stream_of(lane))
+    kernels.check(rc, "freed_by_lane")
+    kernels.count_launch("freed_by_lane")
+    return freed_n, freed_q, own_incr
 
 
 # ---------------------------------------------------------------------------
@@ -691,18 +790,625 @@ def solve_for_preemptor(state: ClusterState, gi: int,
 
 
 # ---------------------------------------------------------------------------
+# the chunked victim wavefront
+# ---------------------------------------------------------------------------
+
+def _sparse_preempt_ok(config: VictimConfig) -> bool:
+    """Static gate of the sparse preempt wavefront (ref ``:810``): uniform
+    tasks, no device table, no extended resources, no subgroup topology;
+    ``optimistic_preempt=False`` forces the dense composed path."""
+    p = config.placement
+    ok = (p.uniform_tasks and not p.track_devices and not p.extended
+          and not p.subgroup_topology)
+    if config.optimistic_preempt is not None:
+        ok = ok and config.optimistic_preempt
+    return ok
+
+
+#: ``AllocationResult.wavefront_stats`` row per chunked action (columns:
+#: chunks, valid lanes, lane slots, sparse fallbacks, leftover demotions)
+_STATS_ROW = {"reclaim": 0, "preempt": 1}
+
+
+def _searchsorted(arr: Tensor, v: Tensor, *, right: bool = False) -> Tensor:
+    """``jnp.searchsorted`` with its default ``method="scan"``, batched:
+    ``arr`` [..., n] with ``v`` [...] of the same leading dims, or a 1-D
+    ``arr`` with ``v`` of any shape.  The
+    reference's fixed bisection — ``ceil(log2(n + 1))`` halvings of
+    ``[0, n]`` probing ``(low + high) // 2`` — so a row that rounding left
+    unsorted answers as it does there.  Integer rows are sorted by
+    construction (counts, ranks, running maxima): there it is the lower
+    (upper) bound, ``torch.searchsorted``'s answer.  i32 [...]."""
+    if not arr.is_floating_point():
+        if arr.dim() == 1:
+            return torch.searchsorted(arr, v, right=right).to(torch.int32)
+        return torch.searchsorted(arr.contiguous(), v[..., None].contiguous(),
+                                  right=right)[..., 0].to(torch.int32)
+    n = arr.shape[-1]
+    low = torch.zeros(v.shape, dtype=torch.long, device=v.device)
+    high = torch.full(v.shape, n, dtype=torch.long, device=v.device)
+    for _ in range(math.ceil(math.log2(n + 1))):
+        mid = (low + high) // 2
+        at = torch.clamp(mid, max=n - 1)
+        probe = (arr[at] if arr.dim() == 1
+                 else torch.gather(arr, -1, at[..., None])[..., 0])
+        go_left = (v < probe) if right else (v <= probe)
+        low = torch.where(go_left, low, mid)
+        high = torch.where(go_left, mid, high)
+    return high.to(torch.int32)
+
+
+def _lane_sum(w: Tensor, x: Tensor) -> Tensor:
+    """``einsum("b,b...->...", w, x)`` added in ascending ``b`` from +0.0,
+    for 0/1 weights ``w`` (exact products, so a fused multiply-add rounds
+    as the separate product and add do)."""
+    acc = torch.zeros(torch.broadcast_shapes(w[0].shape, x[0].shape),
+                      dtype=x.dtype, device=x.device)
+    for b in range(x.shape[0]):
+        acc.addcmul_(w[b], x[b])
+    return acc
+
+
+def _ancestor_gate_lanes(parent: Tensor, q_b: Tensor, num_levels: int,
+                         used_b: Tensor, cap: Tensor, req: Tensor) -> Tensor:
+    """:func:`_ancestor_gate` with one ``used`` table per lane, [B, Q, R]."""
+    ok = torch.ones(q_b.shape, dtype=torch.bool, device=q_b.device)
+    ar = torch.arange(q_b.shape[0], device=q_b.device)
+    cur = q_b
+    for _ in range(num_levels):
+        valid = cur >= 0
+        idx = torch.clamp(cur, min=0).long()
+        cap_q = cap[idx]
+        fits = ((cap_q <= UNLIMITED + 0.5)
+                | (used_b[ar, idx] + req <= cap_q + EPS)).all(-1)
+        ok = ok & (~valid | fits)
+        cur = torch.where(valid, parent[idx], -1)
+    return ok
+
+
+@dataclasses.dataclass
+class _Tables:
+    """The per-action unit tables one flavour of the wavefront probes."""
+
+    sparse: bool
+    # dense
+    onehot_leaf: Tensor | None = None   # bool [U, Q]
+    C_leaf: Tensor | None = None        # f32 [U, Q, R]
+    cl: Tensor | None = None            # i32 [U + 1, Q]
+    pos_q: Tensor | None = None         # i32 [Q, U]
+    S_T: Tensor | None = None           # f32 [Q*R, U]   (reclaim)
+    prio_by_q: Tensor | None = None     # f32 [Q, U]     (preempt)
+    # sparse
+    pos_c: Tensor | None = None         # i32 [Q, KU + 1]
+    valid_pos: Tensor | None = None     # bool [Q, KU]
+    Cq: Tensor | None = None            # f32 [Q, KU, R]
+    prio_c: Tensor | None = None        # f32 [Q, KU]
+
+
+def _unit_tables(sparse: bool, reclaim: bool, unit_req: Tensor,
+                 unit_leaf: Tensor, unit_prio: Tensor | None, chain: Tensor,
+                 Q: int, KU: int) -> _Tables:
+    """The hoisted per-unit tables (ref ``:1013-1075``): the compact
+    per-queue top-``KU`` tables of the sparse path, or the dense [U, Q]
+    cumulatives."""
+    M, R_ = unit_req.shape
+    dev = unit_req.device
+    i32 = torch.int32
+    has_leaf = unit_leaf >= 0
+    leaf_safe = torch.clamp(unit_leaf, min=0).long()
+    ar_m = torch.arange(M, dtype=i32, device=dev)
+    if sparse:
+        leaf_key = torch.where(has_leaf, leaf_safe, Q)
+        perm_u = torch.sort(leaf_key, stable=True).indices
+        lk_p = leaf_key[perm_u]
+        first_u = torch.ones((M,), dtype=torch.bool, device=dev)
+        first_u[1:] = lk_p[1:] != lk_p[:-1]
+        seg_start = torch.cummax(torch.where(first_u, ar_m, -1), 0).values
+        r_in_q = torch.zeros((M,), dtype=i32, device=dev)
+        r_in_q[perm_u] = ar_m - seg_start
+        rk = torch.clamp(r_in_q, max=KU)
+        # every duplicate target writes the junk rank M
+        pos_c = torch.full((Q + 1, KU + 1), M, dtype=i32, device=dev)
+        pos_c[torch.where(has_leaf, leaf_safe, Q),
+              torch.where(has_leaf, rk, KU).long()] = torch.where(
+                  has_leaf & (r_in_q < KU), ar_m, M)
+        pos_c = pos_c[:Q].contiguous()
+        pos_k = pos_c[:, :KU]
+        valid_pos = pos_k < M
+        pos_safe = torch.clamp(pos_k, max=M - 1).long()
+        Cq = cumsum_ds(torch.where(valid_pos[..., None], unit_req[pos_safe],
+                                   0.0), axis=1)
+        prio_c = torch.where(valid_pos, unit_prio[pos_safe], 1e30)
+        return _Tables(True, pos_c=pos_c, valid_pos=valid_pos, Cq=Cq,
+                       prio_c=prio_c.contiguous())
+    qidx = torch.arange(Q, device=dev)
+    onehot_leaf = (unit_leaf[:, None] == qidx[None, :]) & has_leaf[:, None]
+    C_leaf = cumsum_ds(onehot_leaf[:, :, None] * unit_req[:, None, :], axis=0)
+    # (int scans run along the innermost axis: CUDA's outer-axis scan
+    # walks the rows one by one)
+    cnt_leaf = torch.cumsum(onehot_leaf.T.to(i32), 1, dtype=i32).T
+    cl = torch.cat([torch.zeros((1, Q), dtype=i32, device=dev), cnt_leaf])
+    r_in_q = cl[ar_m.long(), leaf_safe]
+    rows = torch.where(has_leaf, leaf_safe, Q)
+    pos_q = torch.full((Q + 1, M), M, dtype=i32, device=dev)
+    pos_q[rows, r_in_q.long()] = ar_m
+    pos_q = pos_q[:Q].contiguous()
+    t = _Tables(False, onehot_leaf=onehot_leaf, C_leaf=C_leaf, cl=cl,
+                pos_q=pos_q)
+    if reclaim:
+        inc_sub = ((chain[leaf_safe] & has_leaf[:, None])[:, :, None]
+                   * unit_req[:, None, :])
+        # the exclusive subtree cumulative, one row per (queue, resource)
+        t.S_T = (cumsum_ds(inc_sub, axis=0) - inc_sub).reshape(
+            M, Q * R_).T.contiguous()
+    else:
+        prio_by_q = torch.full((Q + 1, M), 1e30, device=dev)
+        prio_by_q[rows, r_in_q.long()] = unit_prio
+        t.prio_by_q = prio_by_q[:Q].contiguous()
+    return t
+
+
+def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
+                               result: AllocationResult, *, num_levels: int,
+                               mode: str, config: VictimConfig,
+                               remaining0: Tensor, act: _Action,
+                               lq_tab: Tensor | None, cnt_q: Tensor,
+                               task_req_g: Tensor) -> AllocationResult:
+    """The wavefront victim search (ref ``_run_victim_action_chunked``,
+    ``:831``): ``B`` preemptors per chunk in the frozen fairness order,
+    each lane with its own budget over the frozen eviction-unit order, a
+    pod-to-lane assignment, per-lane freed pools (K8), every lane's
+    placement at once (K2 with one table row per lane, K3 with per-lane
+    queue tables and the own-freed score bias) and a strict accept
+    prefix (dense, or K4 with the lane-prefix freed credit).  The
+    reference's ``lax.while_loop`` is a host loop with ONE device-to-host
+    read per chunk, its ``any(remaining)`` test; the chunk body branches
+    on no device value.  The action's sparse/dense choice (the
+    reference's ``lax.cond`` on a queue overflowing ``sparse_unit_k``)
+    reads once more."""
+    reclaim = mode == "reclaim"
+    stats = act.stats
+    g, q, n, r = state.gangs, state.queues, state.nodes, state.running
+    G, T, M, Q, N = g.g, g.t, r.m, q.q, n.n
+    R_ = n.free.shape[1]
+    dev = state.device
+    i32, f32 = torch.int32, torch.float32
+    bs = (config.batch_size_preempt
+          if not reclaim and config.batch_size_preempt is not None
+          else config.batch_size)
+    B = max(1, min(bs, G))
+    pcfg = config.placement
+    depth = (config.queue_depth_preempt
+             if not reclaim and config.queue_depth_preempt is not None
+             else config.queue_depth)
+    chain = act.chain
+    base0, gang_runtime, pod_order = act.statics
+    quota_eff_q, limit_eff_q = act.quota_eff, act.limit_eff
+    gq = torch.clamp(g.queue, min=0)
+    gql = gq.long()
+    row = _STATS_ROW[mode]
+    if reclaim:
+        protected = torch.zeros((G,), dtype=torch.bool, device=dev)
+    else:
+        mrt_g = q.preempt_min_runtime_eff[gql]
+        protected = (gang_runtime >= 0) & (gang_runtime < mrt_g)
+
+    # ---- hoisted: frozen eviction-unit order + per-unit inputs ----------
+    cand0 = base0 & ~result.victim
+    removed0 = result.victim & (result.victim_move < 0)
+    unit_rank, num_units = _rank_eviction_units(
+        state, cand0, result.queue_allocated, fair_share, removed0,
+        protected, pod_order, act.job_rank)
+    urank_safe = torch.clamp(unit_rank, max=M)
+    unit_req = _ordered_segment_sum(torch.where(cand0[:, None], r.req, 0.0),
+                                    urank_safe, M, act.max_unit)
+    unit_leaf = _segment_reduce(torch.where(cand0, r.queue, -1), urank_safe,
+                                M, "amax", _I32_MIN)
+    has_leaf = unit_leaf >= 0
+    leaf_safe = torch.clamp(unit_leaf, min=0).long()
+    if reclaim:
+        C_all = cumsum_ds(unit_req, axis=0)
+        unit_prio = None
+    else:
+        C_all = None
+        gang_prio_pod = g.priority[torch.clamp(r.gang, min=0).long()]
+        unit_prio = _segment_reduce(
+            torch.where(cand0, gang_prio_pod, -BIG), urank_safe, M, "amax",
+            _I32_MIN).to(f32)
+
+    # ---- hoisted: frozen preemptor order --------------------------------
+    order0 = ordering.job_order_perm(g, q, result.queue_allocated,
+                                     fair_share, state.total_capacity,
+                                     remaining0)
+
+    lanes = torch.arange(B, dtype=i32, device=dev)
+    lanes_l = lanes.long()
+    qidx = torch.arange(Q, device=dev)
+    pod_leaf = torch.clamp(r.queue, 0, Q - 1).long()
+    ar_m = torch.arange(M, device=dev)
+    KU = (max(1, int(config.sparse_unit_k))
+          if config.sparse_unit_k is not None else 256)
+    sparse = (not reclaim) and _sparse_preempt_ok(config)
+    fell_back = False
+    if sparse and KU < M:
+        cnt_units_q = _segment_sum_i32(has_leaf, torch.where(
+            has_leaf, leaf_safe, Q), Q)
+        stats.syncs += 1
+        if bool((cnt_units_q > KU).any()):
+            sparse, fell_back = False, True
+    tb = _unit_tables(sparse, reclaim, unit_req, unit_leaf, unit_prio, chain,
+                      Q, KU)
+
+    # loop state; row G of each gang buffer is the junk row
+    res = dataclasses.replace(result)
+    placements = _pad_row(result.placements, -1)
+    placement_device = _pad_row(result.placement_device, -1)
+    pipelined = _pad_row(result.pipelined, False)
+    allocated = _pad_row(result.allocated, False)
+    attempted = _pad_row(result.attempted, False)
+    fit_reason = _pad_row(result.fit_reason, 0)
+    remaining = _pad_row(remaining0, False)
+    wstats = result.wavefront_stats.clone()
+    one = torch.ones((), dtype=i32, device=dev)
+    if fell_back:
+        wstats[row, 3].add_(one)
+    c = torch.full((Q,), -1, dtype=i32, device=dev)
+    q_att = torch.zeros((Q,), dtype=i32, device=dev)
+    fuel = G
+    while fuel > 0:
+        stats.syncs += 1
+        if not bool(remaining[:G].any()):
+            break
+        stats.steps += 1
+        free, qa, qan = res.free, res.queue_allocated, \
+            res.queue_allocated_nonpreemptible
+        extra = res.releasing_extra
+
+        # ---- lanes: first B remaining gangs in frozen order -------------
+        flags = remaining[:G][order0]
+        rnk = torch.cumsum(flags.to(i32), 0, dtype=i32) - 1
+        pos = torch.where(flags & (rnk < B), rnk, B).long()
+        cand_g = torch.full((B + 1,), G, dtype=torch.long, device=dev)
+        cand_g[pos] = order0
+        cand_g = cand_g[:B]
+        # the flagged gangs fill the first lanes (storing a Python True
+        # into a device tensor would wait on the host)
+        cand_valid = lanes_l < flags.sum()
+        gsafe_b = torch.clamp(cand_g, max=G - 1)
+        q_b = gq[gsafe_b]
+        qbl = q_b.long()
+        same_q_b = q_b[None, :] == q_b[:, None]
+
+        # ---- lane budgets over the frozen unit order --------------------
+        lane_req = torch.where(cand_valid[:, None], task_req_g[gsafe_b], 0.0)
+        cluster_free = torch.where(n.valid[:, None],
+                                   free + n.releasing + extra, 0.0).sum(0)
+        if reclaim:
+            cum_req = cumsum_blocked(lane_req)
+            targets = cum_req - cluster_free[None, :] - EPS
+        else:
+            seg_incl = (same_q_b & (lanes_l[None, :] <= lanes_l[:, None])
+                        & cand_valid[None, :])
+            cum_req_q = _lane_sum(seg_incl.to(f32).T[:, :, None],
+                                  lane_req[:, None, :])
+            targets = cum_req_q - cluster_free[None, :] - EPS
+        need_b = cand_valid & (targets > 0).any(-1)
+        if tb.sparse:
+            pos_k = tb.pos_c[:, :KU]
+            j_c = _searchsorted(pos_k, c, right=True)
+            Cv_c = torch.where((j_c > 0)[:, None],
+                               tb.Cq[qidx, torch.clamp(j_c - 1, min=0).long()],
+                               0.0)
+            base_b = Cv_c[qbl]
+            v_b = targets + base_b
+            pos_full_b = tb.pos_c[qbl]
+            j_rb = _searchsorted(tb.Cq[qbl].transpose(1, 2).contiguous(), v_b)
+            k_rb = torch.where(v_b > 0, torch.gather(
+                pos_full_b, 1, torch.clamp(j_rb, max=KU).long()), 0)
+        else:
+            csafe = torch.clamp(c, 0, M - 1).long()
+            Cv_at_c = torch.where((c >= 0)[:, None], tb.C_leaf[csafe, qidx],
+                                  0.0)
+            if reclaim:
+                arr_b = C_all[None] - tb.C_leaf[:, qbl].transpose(0, 1)
+                base_b = Cv_at_c.sum(0)[None, :] - Cv_at_c[qbl]
+            else:
+                arr_b = tb.C_leaf[:, qbl].transpose(0, 1)
+                base_b = Cv_at_c[qbl]
+            k_rb = _searchsorted(arr_b.transpose(1, 2).contiguous(),
+                                 targets + base_b)
+        K_cap = torch.where(need_b, k_rb.amax(1), -1).to(i32)
+        if reclaim:
+            vrank = torch.cumsum(cand_valid.to(i32), 0, dtype=i32) - 1
+        else:
+            vrank = (same_q_b & (lanes_l[None, :] < lanes_l[:, None])
+                     & cand_valid[None, :]).sum(1, dtype=i32)
+        if tb.sparse:
+            av_c = (tb.valid_pos & (pos_k < num_units)
+                    & (pos_k > c[:, None]))
+            cav = torch.cumsum(av_c.to(i32), 1, dtype=i32)
+            j_min = _searchsorted(cav[qbl], vrank + 1)
+            K_min = torch.gather(pos_full_b, 1, torch.clamp(
+                j_min, max=KU).long()[:, None])[:, 0]
+        else:
+            avail_u = (has_leaf & (ar_m < num_units)
+                       & (ar_m > c[torch.clamp(unit_leaf, 0, Q - 1).long()]))
+            # available units of each lane's own queue, counted along the
+            # unit axis (only the lanes' B queues of the reference's
+            # [U, Q] count)
+            cum_av_own = torch.cumsum(
+                (avail_u[None, :] & tb.onehot_leaf.T[qbl]).to(i32), 1,
+                dtype=i32)                                        # [B, U]
+            if reclaim:
+                cum_av = torch.cumsum(avail_u.to(i32), 0, dtype=i32)
+                cum_av_b = cum_av[None, :] - cum_av_own
+            else:
+                cum_av_b = cum_av_own
+            K_min = _searchsorted(cum_av_b, vrank + 1)
+        K_raw = torch.where(cand_valid, torch.maximum(K_cap, K_min), -1)
+        K_b = torch.cummax(K_raw, 0).values
+        insufficient_b = cand_valid & (K_raw >= num_units)
+
+        # ---- strategy / priority admissibility bound --------------------
+        if reclaim:
+            S_cons = _rollup(chain, Cv_at_c)
+            thr_fs = (qa - fair_share - EPS + S_cons).reshape(-1)
+            S_T = tb.S_T
+            bnd_fs = _searchsorted(S_T, thr_fs).reshape(Q, R_).amax(1)
+            thr_qt = (torch.where(torch.isinf(quota_eff_q), -_INF,
+                                  qa - quota_eff_q - EPS)
+                      + S_cons).reshape(-1)
+            bnd_qt = _searchsorted(S_T, thr_qt).reshape(Q, R_).amax(1)
+            under_b = _ancestor_gate(q.parent, q_b, num_levels, qa, q.quota,
+                                     lane_req)
+            bnd_eff = torch.where(under_b[None, :],
+                                  torch.maximum(bnd_fs, bnd_qt)[:, None],
+                                  bnd_fs[:, None])                # [Q, B]
+            lq_vb = lq_tab[:, qbl]
+            x_vb = torch.clamp(torch.gather(
+                bnd_eff, 0, torch.clamp(lq_vb, 0, Q - 1).long()), 0, M)
+            cnt_before = tb.cl[x_vb.long(), qidx[:, None]]
+            first_bad_vb = tb.pos_q[qidx[:, None],
+                                    torch.clamp(cnt_before, 0, M - 1).long()]
+            first_bad_vb = torch.where(lq_vb >= 0, first_bad_vb, M)
+            hi_b = torch.minimum(first_bad_vb.amin(0), num_units) - 1
+        else:
+            prio_b = g.priority[gsafe_b].to(f32)
+            if tb.sparse:
+                allowed = _searchsorted(tb.prio_c[qbl], prio_b)
+                hi_b = torch.gather(pos_full_b, 1, torch.clamp(
+                    allowed, 0, KU).long()[:, None])[:, 0] - 1
+            else:
+                allowed = _searchsorted(tb.prio_by_q[qbl], prio_b)
+                hi_b = tb.pos_q[qbl, torch.clamp(allowed, 0,
+                                                 M - 1).long()] - 1
+            hi_b = torch.where(allowed > 0, hi_b, -1)
+
+        # ---- lane gates -------------------------------------------------
+        nonpre_b = ~g.preemptible[gsafe_b]
+        gate_np_b = _ancestor_gate(q.parent, q_b, num_levels, qan, q.quota,
+                                   lane_req)
+        gate_b = torch.where(nonpre_b, gate_np_b, True)
+        gate_b = gate_b & cand_valid & (K_raw <= hi_b) & ~insufficient_b
+
+        # ---- pod -> lane assignment + per-lane freed pools (K8) ---------
+        live0 = cand0 & (unit_rank > c[pod_leaf])
+        if reclaim:
+            may = (q_b[None, :] != qidx[:, None]) & cand_valid[None, :]
+            nxt = torch.where(may, lanes[None, :], B)
+            next_ok = torch.flip(torch.cummin(torch.flip(nxt, (1,)), 1)
+                                 .values, (1,))
+            next_ok = torch.cat([next_ok, torch.full(
+                (Q, 1), B, dtype=i32, device=dev)], 1)
+            lane0 = _searchsorted(K_b, unit_rank)
+            lane_of_pod = torch.where(
+                live0, next_ok[pod_leaf, torch.clamp(lane0, max=B).long()], B)
+        else:
+            K_wm = torch.where(
+                same_q_b & (lanes_l[None, :] <= lanes_l[:, None])
+                & cand_valid[None, :], K_raw[None, :], -1).amax(1)
+            cand_lane = ((pod_leaf[:, None] == qbl[None, :])
+                         & cand_valid[None, :]
+                         & (K_wm[None, :] >= urank_safe[:, None]))
+            lane_of_pod = torch.where(
+                live0, torch.where(cand_lane, lanes[None, :], B).amin(1), B)
+        lane_of_pod = lane_of_pod.to(i32)
+        freed_n_b, freed_q_b, own_incr_b = freed_by_lane(
+            state, lane_of_pod, B, chain, compose=not tb.sparse,
+            pods=act.pods)
+        extra_b = extra[None] + freed_n_b                        # [B, N, R]
+        qa_eff_b = qa[None] - freed_q_b                          # [B, Q, R]
+        if reclaim:
+            gate_b = gate_b & _ancestor_gate_lanes(
+                q.parent, q_b, num_levels, qa_eff_b, fair_share, lane_req)
+        lead = cand_valid & (torch.cumsum(cand_valid.to(i32), 0) == 1)
+        bias_b = W_OWN_FREED * own_incr_b.to(f32)
+        if not reclaim:
+            bias_b = torch.where(lead[:, None], 0.0, bias_b)
+
+        # ---- every lane's placement: K2 one row per lane, K3 ------------
+        ty_b = g.task_type[gsafe_b, 0].long()
+        tables = type_tables(n, free, extra_b, g.type_req[ty_b],
+                             g.type_selector[ty_b], g.type_class[ty_b],
+                             pcfg.placement)
+        qa2_b, qan2_b, nodes_b, pipe_b, _ = uniform_fill(
+            gsafe_b.to(i32), torch.full((B, T), -1, dtype=i32, device=dev),
+            torch.full((B,), T, dtype=i32, device=dev), qa_eff_b, qan,
+            limit_eff_q, quota_eff_q, chain, act.lanes, tables, n.soft_scores,
+            n.valid, dense=pcfg.dense_feasibility,
+            stride=max(1, N // max(1, pcfg.batch_size)), hoisted=False,
+            rows=lanes, score_bias=bias_b)
+        placed_b = nodes_b >= 0
+        # the reference's legacy protocol: min_needed tasks placed
+        succ_b = placed_b.sum(1, dtype=i32) >= g.min_needed[gsafe_b]
+        ok_pre = gate_b & succ_b
+        okm = ok_pre[:, None, None]
+        d_qa = torch.where(okm, qa2_b - qa_eff_b, 0.0)
+        d_qan = torch.where(okm, qan2_b - qan[None], 0.0)
+        cum_qa = cumsum_blocked(d_qa)
+        cum_qan = cumsum_blocked(d_qan)
+        req_b = g.task_req[gsafe_b, 0]                           # [B, R]
+
+        if tb.sparse:
+            # sparse accept: each claim against chunk-start capacity plus
+            # the lane-prefix of the freed deltas at its node (K4)
+            ent_ok = ok_pre[:, None] & placed_b
+            nsafe_e = torch.where(ent_ok, nodes_b, N).reshape(-1)
+            nsafe_e = torch.clamp(nsafe_e, max=N - 1).long()
+            lane_e_l = torch.arange(B * T, device=dev) // T
+            credit = cumsum_blocked(freed_n_b[:, nsafe_e])[
+                lane_e_l, torch.arange(B * T, device=dev)]
+            first_bad_cap, node_e, lane_e = sparse_accept(
+                nodes_b, ent_ok, pipe_b, req_b, free,
+                free + n.releasing + extra, N, credit=credit.contiguous())
+            accept = lanes < first_bad_cap
+            qa_comp = qa[None] - cumsum_blocked(freed_q_b) + cum_qa
+            nsafe_bt = torch.where(ent_ok, nodes_b, N).long()
+            cnt_bn = torch.zeros((B, N + 1), dtype=f32, device=dev)
+            cnt_bn.scatter_add_(1, nsafe_bt, torch.ones(
+                (B, T), dtype=f32, device=dev))
+            leftover_b = ((freed_n_b - cnt_bn[:, :N, None] * req_b[:, None, :])
+                          > EPS).flatten(1).any(1)
+        else:
+            # dense accept: the accepted lanes' free/bind deltas (rebuilt
+            # from the placements) must fit the composed pools
+            cnt = torch.zeros((B, N + 1), dtype=i32, device=dev)
+            nidx = torch.where(placed_b, nodes_b, N).long()
+            cnt.scatter_add_(1, nidx, placed_b.to(i32))
+            bind_cnt = torch.zeros((B, N + 1), dtype=i32, device=dev)
+            bind_cnt.scatter_add_(1, nidx, (placed_b & ~pipe_b).to(i32))
+            free2_b = free[None] - cnt[:, :N, None].to(f32) * req_b[:, None, :]
+            bind_b = bind_cnt[:, :N, None].to(f32) * req_b[:, None, :]
+            d_free = torch.where(okm, free[None] - free2_b, 0.0)
+            d_bind = torch.where(okm, bind_b, 0.0)
+            cum_free_d = cumsum_blocked(d_free)
+            cum_bind = cumsum_blocked(d_bind)
+            rel_floor_b = -(n.releasing[None] + extra_b) - EPS
+            ok_node = (free[None] - cum_free_d >= rel_floor_b).flatten(1).all(1)
+            ok_bind = (cum_bind <= torch.clamp(free[None], min=0.0)
+                       + EPS).flatten(1).all(1)
+            accept = ok_node & ok_bind
+            qa_comp = qa[None] - freed_q_b + cum_qa
+            if not reclaim:
+                own_n = freed_n_b - torch.cat(
+                    [torch.zeros_like(freed_n_b[:1]), freed_n_b[:-1]])
+                leftover_b = (own_n - d_free > EPS).flatten(1).any(1)
+        ok_qa = ((qa_comp <= limit_eff_q[None] + EPS)
+                 | (cum_qa <= EPS)).flatten(1).all(1)
+        ok_qan = ((qan[None] + cum_qan <= quota_eff_q[None] + EPS)
+                  | (cum_qan <= EPS)).flatten(1).all(1)
+        accept = accept & ok_qa & ok_qan
+        if reclaim:
+            chain_b = chain[qbl]
+            accept = accept & ((qa_comp <= fair_share[None] + EPS)
+                               | ~chain_b[:, :, None]).flatten(1).all(1)
+
+        # ---- strict accept prefix (ref :1494-1549) -----------------------
+        fail_own = cand_valid & ~(ok_pre & accept)
+        if reclaim:
+            prev_lo = torch.zeros((B,), dtype=torch.bool, device=dev)
+        else:
+            # leftover demotion: lanes after the first accepted lane whose
+            # victims free more than its claims retry next chunk
+            lo_i = (ok_pre & accept & leftover_b).to(i32)
+            prev_lo = (torch.cumsum(lo_i, 0, dtype=i32) - lo_i) > 0
+        bad = fail_own | (cand_valid & prev_lo)
+        bad_i = bad.to(i32)
+        bad_cum = torch.cumsum(bad_i, 0, dtype=i32)
+        take = cand_valid & (bad_cum == 0)
+        demoted = cand_valid & prev_lo & ok_pre & accept
+        # every chunk retires >= 1 lane: the leading lane's accept is
+        # implied by ok_pre (the reference's termination invariant)
+        first_bad = bad & ((bad_cum - bad_i) == 0)
+        if tb.sparse:
+            first_fail = first_bad & ~ok_pre & lead
+        else:
+            first_fail = first_bad & ~ok_pre & ~prev_lo
+        any_take = take.any()
+        star = torch.argmax(torch.where(take, lanes, -1)).reshape(1)
+        victims = (lane_of_pod <= star) & any_take
+        if reclaim:
+            M_v = torch.where(take[None, :] & may, K_b[None, :], -1).amax(1)
+        else:
+            M_v = torch.full((Q + 1,), -1, dtype=i32, device=dev)
+            M_v = M_v.scatter_reduce(
+                0, torch.where(cand_valid, q_b, Q).long(),
+                torch.where(take & cand_valid, K_wm, -1).to(i32),
+                reduce="amax")[:Q]
+        c = torch.maximum(c, M_v)
+
+        # ---- commit -----------------------------------------------------
+        w = take.to(f32)
+        if tb.sparse:
+            le = lane_e.long()
+            take_e = take[le] & ent_ok.reshape(-1)
+            upd = torch.zeros((N + 1, R_), dtype=f32, device=dev)
+            upd.index_add_(0, node_e.long(),
+                           torch.where(take_e[:, None], req_b[le], 0.0))
+            new_free = free - upd[:N]
+            new_extra = extra + _lane_sum(w, freed_n_b)
+            new_qa = (qa - _lane_sum(w, freed_q_b)) + _lane_sum(w, d_qa)
+        else:
+            new_free = free - _lane_sum(w, d_free)
+            new_extra = torch.where(any_take, extra_b[star][0], extra)
+            new_qa = (torch.where(any_take, qa_eff_b[star][0], qa)
+                      + _lane_sum(w, d_qa))
+        res = dataclasses.replace(
+            res, free=new_free, releasing_extra=new_extra,
+            queue_allocated=new_qa,
+            queue_allocated_nonpreemptible=qan + _lane_sum(w, d_qan),
+            victim=res.victim | victims)
+        tk = take[:, None]
+        placements[cand_g] = torch.where(tk, nodes_b, placements[cand_g])
+        placement_device[cand_g] = torch.where(tk, -1,
+                                               placement_device[cand_g])
+        pipelined[cand_g] = torch.where(tk, pipe_b, pipelined[cand_g])
+        allocated[cand_g] = allocated[cand_g] | take
+        attempted[cand_g] = attempted[cand_g] | take | first_fail
+        fit_reason[cand_g] = torch.where(first_fail, 3, fit_reason[cand_g])
+        wstats[row].add_(torch.stack([
+            one, cand_valid.sum(dtype=i32), one * B, one * 0,
+            demoted.sum(dtype=i32)]))
+        done_b = take | first_fail
+        remaining[cand_g] = remaining[cand_g] & ~done_b
+        if depth is not None:
+            q_att = q_att.index_add(0, qbl, done_b.to(i32))
+            remaining[:G] = remaining[:G] & (q_att[gql] < depth)
+        if reclaim:
+            # live strategy-viability drop (see the sequential path)
+            qa_l = res.queue_allocated
+            under_g = _ancestor_gate(q.parent, gq, num_levels, qa_l, q.quota,
+                                     task_req_g)
+            lqs = torch.clamp(lq_tab, min=0).long()
+            no_lq = lq_tab < 0
+            over_fs_vc = no_lq | (qa_l[lqs] > fair_share[lqs] + EPS).any(-1)
+            over_qt_vc = no_lq | (qa_l[lqs] > quota_eff_q[lqs] + EPS).any(-1)
+            has_v = (cnt_q > 0)[:, None] & (qidx[:, None] != qidx[None, :])
+            ev_fs_c = (has_v & over_fs_vc).any(0)
+            ev_qt_c = (has_v & over_qt_vc).any(0)
+            remaining[:G] = remaining[:G] & (ev_fs_c[gql]
+                                             | (under_g & ev_qt_c[gql]))
+        fuel -= 1
+
+    stats.syncs += 1
+    delta = (wstats[row] - result.wavefront_stats[row]).tolist()
+    stats.attempts += delta[1]
+    stats.demotions += delta[4]
+    stats.fallbacks += int(fell_back)
+    return dataclasses.replace(
+        res, placements=placements[:G], placement_device=placement_device[:G],
+        pipelined=pipelined[:G], allocated=allocated[:G],
+        attempted=attempted[:G], fit_reason=fit_reason[:G],
+        wavefront_stats=wstats)
+
+
+# ---------------------------------------------------------------------------
 # the action
 # ---------------------------------------------------------------------------
 
 def _check_ported(mode: str, config: VictimConfig) -> None:
     if mode not in ("reclaim", "preempt", "consolidate"):
         raise ValueError(f"unknown victim action mode: {mode!r}")
-    if (config.batch_size > 1 and mode in ("reclaim", "preempt")
-            and (mode != "reclaim" or config.chunk_reclaim)):
-        raise NotImplementedError(
-            f"{mode}: batch_size>1 (the chunked victim wavefront) is not "
-            f"ported to the PyTorch package yet; use "
-            f"VictimConfig(batch_size=1)")
     # dynamic_order is read only by the allocate loop
     check_supported(dataclasses.replace(config.placement, dynamic_order=True))
 
@@ -793,6 +1499,13 @@ def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
         diff = qidx[:, None] != qidx[None, :]
         has_v = (cnt_q > 0)[:, None] & diff
 
+    if (config.batch_size > 1 and mode in ("reclaim", "preempt")
+            and (mode != "reclaim" or config.chunk_reclaim)):
+        return _run_victim_action_chunked(
+            state, fair_share, result, num_levels=num_levels, mode=mode,
+            config=config, remaining0=remaining, act=act,
+            lq_tab=lq_tab if mode == "reclaim" else None, cnt_q=cnt_q,
+            task_req_g=task_req_g), stats
     res = dataclasses.replace(result)
     q_att = torch.zeros((Q,), dtype=i32, device=dev)
     fuel = G

@@ -20,6 +20,14 @@ tree, level by level:
 
 A left-to-right compensated sum (or ``torch.cumsum``) differs from the
 reference in the last bit, so neither stands in for the other.
+
+:func:`cumsum_blocked` is the reference's *plain* ``jnp.cumsum`` order on
+the CPU: XLA rewrites the cumulative reduce-window into blocks of
+:data:`SCAN_BLOCK` (each summed left to right from +0.0), scans the block
+totals the same way, and adds each block's exclusive prefix.  Neither
+``torch.cumsum`` (which accumulates f32 in double on the CPU and in no
+fixed order on CUDA) nor a plain left-to-right sum gives those bits once
+the values carry fractions.
 """
 from __future__ import annotations
 
@@ -80,6 +88,40 @@ def cumsum_ds(x: Tensor, axis: int = 0) -> Tensor:
     else:
         out = _cumsum_ds_cuda(x)
     return out.movedim(0, axis) if axis != 0 else out
+
+
+#: block length of XLA:CPU's cumulative-sum rewrite (``jnp.cumsum``)
+SCAN_BLOCK = 16
+
+
+def _cumsum_seq(x: Tensor) -> Tensor:
+    """Left-to-right f32 prefix sums along axis 0 from +0.0."""
+    out = torch.empty_like(x)
+    acc = torch.zeros_like(x[0])
+    for i in range(x.shape[0]):
+        acc = acc + x[i]
+        out[i] = acc
+    return out
+
+
+def cumsum_blocked(x: Tensor, axis: int = 0) -> Tensor:
+    """``jnp.cumsum(x, axis)`` in the reference's f32 order on the CPU (see
+    the module docstring), in PyTorch ops — the same bits on any device.
+    Integer and whole-unit inputs may use ``torch.cumsum`` instead."""
+    if axis != 0:
+        return cumsum_blocked(x.movedim(axis, 0)).movedim(0, axis)
+    n = x.shape[0]
+    if n <= SCAN_BLOCK:
+        return _cumsum_seq(x)
+    nb = -(-n // SCAN_BLOCK)
+    pad = torch.zeros((nb * SCAN_BLOCK - n,) + x.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    xb = torch.cat([x, pad]).reshape((nb, SCAN_BLOCK) + x.shape[1:])
+    inner = _cumsum_seq(xb.movedim(1, 0)).movedim(0, 1)  # [nb, 16, ...]
+    tot = cumsum_blocked(inner[:, -1])
+    excl = torch.cat([torch.zeros_like(tot[:1]), tot[:-1]])
+    out = inner + excl[:, None]
+    return out.reshape((nb * SCAN_BLOCK,) + x.shape[1:])[:n]
 
 
 def _cumsum_ds_cuda(x: Tensor) -> Tensor:

@@ -1,8 +1,8 @@
 """Where the time of one cycle of the PyTorch port goes, on one NVIDIA
 GPU.
 
-    python3 scripts/profile_torch_cycle.py \
-        [--shape headline|contended|saturated|fragmented]
+    python3 scripts/profile_torch_cycle.py [--shape headline|contended|
+        saturated|saturated_sequential|preempt_many_queues|fragmented]
 
 Runs the cycle of ``chip_smoke.py``'s shape once to warm up, then once
 under ``torch.profiler`` (CPU and CUDA activities), and prints:
@@ -10,8 +10,10 @@ under ``torch.profiler`` (CPU and CUDA activities), and prints:
 - the cycle's wall time (the warm-up run's too: the profiler's own
   per-op cost inflates the profiled one) and its phases
   (``CycleResult.phase_seconds``); for the victim cells (``saturated``,
-  ``fragmented``: the five default actions with the sequential victim
-  engine) the per-action seconds, steps, scenario attempts and syncs;
+  ``saturated_sequential``, ``preempt_many_queues``, ``fragmented``, as
+  ``chip_smoke.py`` configures them) the per-action seconds, steps
+  (wavefront chunks for a chunked action), scenario attempts (lanes) and
+  syncs;
 - the device's busy time — the union of every kernel (ours and
   PyTorch's), copy and memset interval in the trace — and its idle share
   of the cycle, 1 - busy / wall;
@@ -72,28 +74,33 @@ def device_activity(trace_path: str, top_n: int = 20):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", default="headline", choices=(
-        "headline", "contended", "saturated", "fragmented"))
+        "headline", "contended", *chip_smoke.VICTIM_CELLS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_cycle: no CUDA device", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    victim = args.shape in ("saturated", "fragmented")
+    victim = args.shape in chip_smoke.VICTIM_CELLS
     card = chip_smoke.card_line()
-    from kai_scheduler_tpu_torch.framework.scheduler import Scheduler
+    from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
+                                                             SchedulerConfig)
     if victim:
-        shape = (chip_smoke.SATURATED if args.shape == "saturated"
-                 else chip_smoke.FRAGMENTED)
+        shape = {"saturated": chip_smoke.SATURATED,
+                 "preempt_many_queues": chip_smoke.PREEMPT_MANY,
+                 "fragmented": chip_smoke.FRAGMENTED}[
+                     chip_smoke.VICTIM_CELLS[args.shape][0]]
         _, _, warm = chip_smoke.run_victim_cycle(args.shape, "cuda")
         cluster = chip_smoke.victim_cluster(args.shape)
-        sched = Scheduler(chip_smoke.victim_config(), device="cuda")
+        sched = Scheduler(chip_smoke.victim_config(args.shape),
+                          device="cuda")
     else:
         shape = (chip_smoke.HEADLINE if args.shape == "headline"
                  else chip_smoke.CONTENDED)
         _, _, warm = chip_smoke.run_cycle(shape, "cuda")   # build + warm
         cluster = chip_smoke.fresh_cluster(shape)
-        sched = Scheduler(device="cuda")
+        sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+                          device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

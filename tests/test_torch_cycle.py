@@ -2,8 +2,9 @@
 ``Scheduler(device="cpu").run_once`` vs the reference ``Scheduler`` with
 no incremental snapshot, no analytics and no repack, on twin clusters
 built from the same seed — with ``actions=("allocate",)``, and with the
-five default actions at ``VictimConfig(batch_size=1)`` (the sequential
-victim engine) on a saturated and a fragmented cluster.  Compared: the
+five default actions on a saturated and a fragmented cluster, both at
+``VictimConfig(batch_size=1)`` (the sequential victim engine) and at the
+default config (reclaim and preempt through the chunked wavefront).  Compared: the
 packed i16 commit byte for byte, the BindRequests (pod, node, order and
 every field), the evictions and moved victims' rebinds, and the Cluster
 state after the binder applies them — over two cycles, so the second
@@ -133,7 +134,7 @@ def test_cycle_matches_reference(name, pad32):
     ref_sched = RefScheduler(RefSchedulerConfig(
         actions=("allocate",), incremental=False, analytics_every=0,
         repack_enable=False))
-    sched = Scheduler(SchedulerConfig(), device="cpu")
+    sched = Scheduler(SchedulerConfig(actions=("allocate",)), device="cpu")
     for cycle in range(2):
         want = ref_sched.run_once(ref_cluster)
         got = sched.run_once(cluster)
@@ -170,20 +171,24 @@ VICTIM_SHAPES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(VICTIM_SHAPES))
-def test_victim_cycle_matches_reference(name, pad32):
+@pytest.mark.parametrize("name,batch_size", [
+    pytest.param(name, b, id=name if b == 1 else f"{name}-default")
+    for b in (1, VictimConfig().batch_size) for name in sorted(VICTIM_SHAPES)])
+def test_victim_cycle_matches_reference(name, batch_size, pad32):
     """The five default actions over two cycles with a tick between them
     (evicted pods vanish or, when moved, restart pending and bind on their
     planned node): commit, binds, evictions, move rebinds and the cluster
-    state equal the reference's."""
+    state equal the reference's — with the sequential victim engine (the
+    shape's plain id) and at the default config."""
     ref_cluster = VICTIM_SHAPES[name](ref_apis, ref_make, RefCluster)
     cluster = VICTIM_SHAPES[name](port_apis, make_cluster, Cluster)
     ref_sched = RefScheduler(RefSchedulerConfig(
         incremental=False, analytics_every=0, repack_enable=False,
-        session=RefSessionConfig(victims=RefVictimConfig(batch_size=1))))
+        session=RefSessionConfig(victims=RefVictimConfig(
+            batch_size=batch_size))))
     sched = Scheduler(SchedulerConfig(
         actions=DEFAULT_ACTIONS,
-        session=SessionConfig(victims=VictimConfig(batch_size=1))),
+        session=SessionConfig(victims=VictimConfig(batch_size=batch_size))),
         device="cpu")
     evicted = 0
     for cycle in range(2):
@@ -213,23 +218,29 @@ def test_cycle_seed_matches_reference():
             assert cycle_seed_for(seed, i) == ref_seed(seed, i)
 
 
-def test_unported_actions_raise():
-    """Every action of the reference is registered now; what stays
-    unported is the chunked victim wavefront the reference's default
-    ``VictimConfig(batch_size=64)`` selects for reclaim — it raises
-    instead of running something else — and any unknown action name."""
+def test_unported_actions_raise(pad32):
+    """An unknown action name raises; the default ``Scheduler()`` runs the
+    reference's five actions at the reference's default ``VictimConfig``
+    (reclaim through the chunked wavefront) and matches the reference."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Scheduler(SchedulerConfig(actions=("allocate", "repack")),
                   device="cpu")
-    sched = Scheduler(SchedulerConfig(actions=("allocate", "reclaim")),
-                      device="cpu")
-    cluster = Cluster.from_objects(*make_cluster(
-        num_nodes=8, node_accel=4.0, num_gangs=10, tasks_per_gang=4,
-        running_fraction=0.8, partition_queues_by_running=True))
-    with pytest.raises(NotImplementedError,
-                       match="batch_size>1 \\(the chunked victim wavefront"):
-        sched.run_once(cluster)
     assert DEFAULT_ACTIONS == RefSchedulerConfig().actions
+    assert SchedulerConfig().actions == DEFAULT_ACTIONS
+    shape = dict(num_nodes=8, node_accel=4.0, num_gangs=10, tasks_per_gang=4,
+                 running_fraction=0.8, partition_queues_by_running=True)
+    ref_cluster = RefCluster.from_objects(*ref_make(**shape))
+    cluster = Cluster.from_objects(*make_cluster(**shape))
+    want = RefScheduler(RefSchedulerConfig(
+        incremental=False, analytics_every=0,
+        repack_enable=False)).run_once(ref_cluster)
+    got = Scheduler(device="cpu").run_once(cluster)
+    assert got.victim_stats["reclaim"].steps >= 1
+    assert got.evictions
+    assert got.packed.tobytes() == pad32["packed"].tobytes()
+    for field in ("bind_requests", "evictions", "move_bind_requests"):
+        assert [dataclasses.asdict(b) for b in getattr(got, field)] == \
+            [dataclasses.asdict(b) for b in getattr(want, field)], field
 
 
 def test_bitpack_round_trip():

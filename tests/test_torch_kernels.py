@@ -14,6 +14,7 @@ from kai_scheduler_tpu_torch.framework.scheduler import Scheduler
 from kai_scheduler_tpu_torch.framework.session import Session
 from kai_scheduler_tpu_torch.ops import allocate as A
 from kai_scheduler_tpu_torch.ops import drf
+from kai_scheduler_tpu_torch.ops.scoring import PlacementConfig
 from kai_scheduler_tpu_torch.runtime.cluster import Cluster
 from kai_scheduler_tpu_torch.state import make_cluster
 
@@ -320,6 +321,129 @@ def test_replace_victims_matches_plain(cuda):
             assert not bool(got[4]) and int(mask.sum()) > 16
 
 
+# ---------------------------------------------------------------------------
+# the chunked victim wavefront's kernels: K8 freed_by_lane and the per-lane
+# modes of K2, K3 and K4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("compose", [True, False])
+@pytest.mark.parametrize("B", [4, 64, 300])
+def test_freed_by_lane_matches_plain(cuda, compose, B):
+    """K8 on fractional requests with pods of one node or queue scattered
+    over the pod axis, past one block of 16 lanes and past 256 lanes (two
+    levels of block totals in the lane prefix)."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    st, ses = _victim_state(cuda, num_nodes=300, num_gangs=400,
+                            tasks_per_gang=4, running_fraction=0.8,
+                            num_departments=3, queues_per_department=3)
+    chain = A._chain_membership(st.queues.parent, ses.config.num_levels)
+    rng = np.random.default_rng(B)
+    M = st.running.m
+    lane = np.where(rng.random(M) < 0.7, rng.integers(0, B, M), B)
+    lane = torch.from_numpy(lane.astype(np.int32)).to(cuda)
+    before = kernels.KERNELS["freed_by_lane"].launches
+    got = V.freed_by_lane(st, lane, B, chain, compose=compose)
+    assert kernels.KERNELS["freed_by_lane"].launches == before + 1
+    want = V.freed_by_lane_plain(_cpu_state(st), lane.cpu(), B, chain.cpu(),
+                                 compose=compose)
+    assert_same(got, want)
+
+
+def _victim_lanes(cuda, B=48):
+    """One victim-wavefront chunk's lane inputs: per-lane pools (K2's rows
+    by lane, each lane's gang type), per-lane queue tables and the
+    own-freed score band on a few nodes."""
+    st, lt, args, kw = _lanes(cuda)
+    g, n, q = st.gangs, st.nodes, st.queues
+    rng = np.random.default_rng(7)
+    cand = args[0][:B]
+    extra_b = torch.from_numpy(rng.choice(
+        [0.0, 0.0, 1.0, 2.5], (B, n.n, 3)).astype(np.float32)).to(cuda)
+    ty = g.task_type[cand.long(), 0].long()
+    tables = A.type_tables(n, n.free, extra_b, g.type_req[ty],
+                           g.type_selector[ty], g.type_class[ty],
+                           PlacementConfig())
+    qa_b = (q.allocated[None] - torch.from_numpy(rng.choice(
+        [0.0, 1.0, 0.5], (B, q.q, 3)).astype(np.float32)).to(cuda))
+    bias = torch.from_numpy(np.where(rng.random((B, n.n)) < 0.05, 9.5,
+                                     0.0).astype(np.float32)).to(cuda)
+    rows = torch.arange(B, dtype=torch.int32, device=cuda)
+    largs = (cand, args[1][:B], torch.full((B,), g.t, dtype=torch.int32,
+                                           device=cuda), qa_b) + args[4:9] \
+        + (tables,) + args[10:]
+    return st, n, extra_b, ty, largs, dict(rows=rows, score_bias=bias)
+
+
+def test_type_tables_per_row_extra_matches_plain(cuda):
+    st, n, extra_b, ty, _, _ = _victim_lanes(cuda)
+    g = st.gangs
+    g_args = (n, n.free, extra_b, g.type_req[ty], g.type_selector[ty],
+              g.type_class[ty], PlacementConfig())
+    before = kernels.KERNELS["type_tables"].launches
+    out = A.type_tables(*g_args)
+    assert kernels.KERNELS["type_tables"].launches == before + 1
+    assert_same(out, A.type_tables_plain(*g_args))
+
+
+@pytest.mark.parametrize("hoisted", [True, False])
+def test_uniform_fill_lane_modes_match_plain(cuda, hoisted):
+    """K3 with per-lane queue tables, explicit table rows and the score
+    bias, in both f32 orders of the bands."""
+    _, _, _, _, largs, lkw = _victim_lanes(cuda)
+    kw = dict(lkw, dense=False, stride=1, hoisted=hoisted)
+    before = kernels.KERNELS["uniform_fill"].launches
+    out = A.uniform_fill(*largs, **kw)
+    assert kernels.KERNELS["uniform_fill"].launches == before + 1
+    assert_same(out, A.uniform_fill_plain(*largs, **kw))
+
+
+@pytest.mark.parametrize("B,T", [(64, 8), (256, 32)])
+def test_sparse_accept_credit_matches_plain(cuda, B, T):
+    """K4 with the victim wavefront's per-entry freed credit."""
+    N = 1000
+    sa = [torch.from_numpy(a).to(cuda) for a in _claims(B, T, N, seed=3)]
+    rng = np.random.default_rng(4)
+    credit = torch.from_numpy(np.where(
+        rng.random((B * T, 3)) < 0.3, rng.uniform(0, 3, (B * T, 3)),
+        0.0).astype(np.float32)).to(cuda)
+    out = A.sparse_accept(*sa, N, credit=credit)
+    assert_same(out, A.sparse_accept_plain(*sa, N, credit=credit))
+
+
+@pytest.mark.parametrize("mode", ["reclaim", "preempt"])
+def test_chunked_wavefront_reads_the_host_once_per_chunk(cuda, mode):
+    """The chunk body branches on no device value: under
+    ``torch.cuda.set_sync_debug_mode("warn")`` the action's
+    synchronizing calls are exactly the reads it counts (the action's
+    setup read, the sparse/dense choice, one loop test per chunk plus the
+    last, the final stats read)."""
+    import warnings
+
+    from kai_scheduler_tpu_torch.ops import victims as V
+    name = "saturated" if mode == "reclaim" else "preempt_many_queues"
+    cluster, _ = _victim_cluster(name)
+    ses = Session.open(*cluster.snapshot_lists(), device=cuda)
+    st = ses.state
+    res0 = A.init_result(st)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res, stats = V.run_victim_action_counted(
+                st, st.queues.fair_share, res0,
+                num_levels=ses.config.num_levels, mode=mode,
+                config=ses.config.victims)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (switching the debug mode itself reports one, from torch.cuda)
+    syncs = [f"{w.filename}:{w.lineno}" for w in seen
+             if "synchroniz" in str(w.message)
+             and not w.filename.endswith("torch/cuda/__init__.py")]
+    assert stats.steps >= 1 and bool(res.victim.any())
+    assert len(syncs) == stats.syncs, "\n".join(syncs)
+
+
 def _victim_cluster(name):
     """The chip smoke test's victim cells at a few hundred nodes."""
     from kai_scheduler_tpu_torch.framework.scheduler import DEFAULT_ACTIONS
@@ -328,6 +452,11 @@ def _victim_cluster(name):
             num_nodes=256, node_accel=4.0, num_gangs=160, tasks_per_gang=8,
             running_fraction=0.8, queue_accel_quota=25.0,
             partition_queues_by_running=True))
+    elif name == "preempt_many_queues":
+        cluster = Cluster.from_objects(*make_cluster(
+            num_nodes=256, node_accel=8.0, num_gangs=320, tasks_per_gang=8,
+            running_fraction=256 / 320, num_departments=2,
+            queues_per_department=32, pending_priority_boost=100))
     else:
         import chip_smoke
         nodes, queues, groups, pods, now = chip_smoke.fragmented_objects(
@@ -337,11 +466,18 @@ def _victim_cluster(name):
     return cluster, DEFAULT_ACTIONS
 
 
-@pytest.mark.parametrize("name", ["saturated", "fragmented"])
-def test_cuda_victim_cycle_equals_cpu_cycle(cuda, name):
-    """The five default actions at the sequential victim engine: the card
-    (K2, K3, K5-K7) equals the CPU (plain versions) in the packed commit,
-    the evictions with their move targets and the move rebinds."""
+@pytest.mark.parametrize("name,batch_size", [
+    pytest.param("saturated", 1, id="saturated"),
+    pytest.param("fragmented", 1, id="fragmented"),
+    pytest.param("saturated", 64, id="saturated-default"),
+    pytest.param("preempt_many_queues", 64, id="preempt_many_queues-default"),
+])
+def test_cuda_victim_cycle_equals_cpu_cycle(cuda, name, batch_size):
+    """The five default actions, at the sequential victim engine and at
+    the default config (reclaim and preempt through the chunked
+    wavefront): the card (K2, K3, K5-K8) equals the CPU (plain versions)
+    in the packed commit, the evictions with their move targets and the
+    move rebinds."""
     from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
     from kai_scheduler_tpu_torch.framework.session import SessionConfig
     from kai_scheduler_tpu_torch.ops.victims import VictimConfig
@@ -351,11 +487,14 @@ def test_cuda_victim_cycle_equals_cpu_cycle(cuda, name):
         kernels.reset_launch_counts()
         out[str(dev)] = Scheduler(SchedulerConfig(
             actions=actions, session=SessionConfig(
-                victims=VictimConfig(batch_size=1))), device=dev).run_once(
-                    cluster)
+                victims=VictimConfig(batch_size=batch_size))),
+            device=dev).run_once(cluster)
         if dev is cuda:
             counts = kernels.launch_counts()
-            assert counts["cumsum_ds"] > 0 and counts["freed_by_mask"] > 0
+            if batch_size > 1:
+                assert counts["freed_by_lane"] > 0, counts
+            else:
+                assert counts["cumsum_ds"] > 0 and counts["freed_by_mask"] > 0
             if name == "fragmented":
                 assert counts["replace_victims"] > 0
     gpu, cpu = out["cuda"], out["cpu"]

@@ -2,8 +2,9 @@
 (``tests/scenarios/``, traceable to the reference's Go suites) through
 both packages: one cycle of each case with the reference's auto-tuned
 config — allocate only for the allocate and hierarchy catalogs, the five
-default actions with the sequential victim engine (``VictimConfig(
-batch_size=1)``) for the victim catalog.  Where the port implements that
+default actions for the victim catalog, both with the sequential victim
+engine (``VictimConfig(batch_size=1)``) and at the default config (reclaim
+and preempt through the chunked wavefront).  Where the port implements that
 config, the packed i16 commit, the BindRequests, the evictions (with
 their move targets) and the moves' pipelined rebinds must be equal; where
 it does not, the port must refuse with ``NotImplementedError`` — never a
@@ -104,11 +105,12 @@ def test_scenario_cycle_matches_reference_or_is_refused(name, pad32):
         supported = True
     except NotImplementedError:
         supported = False
+    sched = Scheduler(SchedulerConfig(actions=("allocate",)), device="cpu")
     if not supported:
         with pytest.raises(NotImplementedError):
-            Scheduler(device="cpu").run_once(cluster)
+            sched.run_once(cluster)
         return
-    got = Scheduler(device="cpu").run_once(cluster)
+    got = sched.run_once(cluster)
     assert got.packed.tobytes() == pad32["packed"].tobytes()
     assert [dataclasses.asdict(b) for b in got.bind_requests] == \
         [dataclasses.asdict(b) for b in want.bind_requests]
@@ -135,9 +137,9 @@ def _supported(cfg) -> bool:
     return True
 
 
-def _victim_cycle(name):
+def _victim_cycle(name, batch_size):
     """One five-action cycle of a victim-catalog case on the reference
-    (sequential victim engine), and the port's twin cluster."""
+    (at the given victim wavefront width), and the port's twin cluster."""
     case = VICTIM_CASES[name]
     ref_cluster = _build(case)
     patch = test_victim_scenarios._prepare(case)
@@ -146,17 +148,25 @@ def _victim_cycle(name):
     cluster = _port_cluster(ref_cluster)
     want = RefScheduler(RefSchedulerConfig(
         incremental=False, analytics_every=0, repack_enable=False,
-        session=RefSessionConfig(victims=RefVictimConfig(batch_size=1)))
-    ).run_once(ref_cluster)
+        session=RefSessionConfig(victims=RefVictimConfig(
+            batch_size=batch_size)))).run_once(ref_cluster)
     return want, cluster
 
 
-@pytest.mark.parametrize("name", sorted(VICTIM_CASES))
-def test_victim_scenario_cycle_matches_reference_or_is_refused(name, pad32):
-    want, cluster = _victim_cycle(name)
+#: the sequential victim engine (the case's plain id) and the default
+#: config, whose reclaim and preempt run the chunked wavefront
+VICTIM_WIDTHS = [
+    pytest.param(name, b, id=name if b == 1 else f"{name}-default")
+    for b in (1, VictimConfig().batch_size) for name in sorted(VICTIM_CASES)]
+
+
+@pytest.mark.parametrize("name,batch_size", VICTIM_WIDTHS)
+def test_victim_scenario_cycle_matches_reference_or_is_refused(
+        name, batch_size, pad32):
+    want, cluster = _victim_cycle(name, batch_size)
     sched = Scheduler(SchedulerConfig(
         actions=DEFAULT_ACTIONS,
-        session=SessionConfig(victims=VictimConfig(batch_size=1))),
+        session=SessionConfig(victims=VictimConfig(batch_size=batch_size))),
         device="cpu")
     if not (_supported(pad32["config"])
             and _supported(dataclasses.replace(pad32["victims"].placement,

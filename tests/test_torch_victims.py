@@ -432,20 +432,6 @@ def test_reclaim_without_chunking_is_sequential_at_any_batch_size():
     assert_results_equal(want, got)
 
 
-@pytest.mark.parametrize("mode,overrides", [
-    ("reclaim", dict(batch_size=64, chunk_reclaim=True)),
-    ("preempt", dict(batch_size=8)),
-])
-def test_chunked_wavefront_raises(mode, overrides):
-    c = case("two_queue")
-    cfg = dataclasses.replace(c.config, **overrides)
-    with pytest.raises(NotImplementedError,
-                       match="batch_size>1 \\(the chunked victim wavefront"):
-        V.run_victim_action(c.port, c.port.queues.fair_share,
-                            init_result(c.port), num_levels=c.num_levels,
-                            mode=mode, config=cfg)
-
-
 def test_unported_placement_raises():
     c = case("two_queue")
     cfg = dataclasses.replace(c.config, placement=dataclasses.replace(
