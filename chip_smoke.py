@@ -6,7 +6,7 @@ Drives ``kai_scheduler_tpu_torch`` end to end on the card and fails
 (non-zero exit, no result line) on any build error, launch error or
 mismatch:
 
-1. builds the eight hand-written CUDA kernels from ``csrc/`` (one
+1. builds the ten hand-written CUDA kernels from ``csrc/`` (one
    ``nvcc`` per source, all started together) and prints the card's name
    and power limit;
 2. runs one warm-up allocate cycle of the headline cluster (10,000 nodes
@@ -23,7 +23,20 @@ mismatch:
    with ``device="cpu"``, i.e. the kernels' plain versions);
 4. does the same (three runs) on a contended cluster: the same backlog
    on 4,000 nodes, four departments of four queues, three priorities;
-5. runs the five default actions (allocate, consolidation, reclaim,
+5. runs the *sharing* cell, allocate only, on the per-task path: a
+   GPU-sharing fleet of 10,000 nodes x 8 devices (80 GiB each), a
+   half-used device 0 on the first 5,000; pending training gangs of 8
+   whole-device pods, one-pod fractions (0.5), one-pod memory-based shares
+   (24 GiB) and launcher-plus-workers gangs in the proportions 2,500 :
+   16,000 : 8,000 : 1,000, cut by ``SHARING_CUT`` — a warm-up run under
+   the profiler's CUDA activity with K9's (``pertask_fill``) and K10's
+   (``dense_accept``) inputs captured, then three timed runs on fresh
+   clusters with the launch counts reset just before and read just
+   after; K9 and K10 must launch in every run, and the packed commit, the
+   BindRequests and their device indices must equal the CPU oracle's;
+   then K9 and K10 are held against their plain versions on the captured
+   inputs (tolerance 0) and timed;
+6. runs the five default actions (allocate, consolidation, reclaim,
    preempt, stalegangeviction) on four victim cells: first a run under
    the profiler's CUDA activity with K5-K8's (and the victim wavefront's
    K2-K4) inputs captured (each kernel's in-cycle device time), then the
@@ -51,7 +64,7 @@ mismatch:
    modes of K2-K4 (per-lane pools, per-lane queue tables and score bias,
    the freed credit) are held against their plain versions on the
    captured inputs and timed;
-6. prints one JSON line of per-kernel numbers, the card line, and last
+7. prints one JSON line of per-kernel numbers, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Longer output (the compiler's register/spill report, per-phase numbers)
@@ -123,7 +136,9 @@ class Capture:
                        (victims, "freed_by_lane", "freed_by_lane"),
                        (victims, "type_tables", "type_tables:lanes"),
                        (victims, "uniform_fill", "uniform_fill:lanes"),
-                       (victims, "sparse_accept", "sparse_accept:credit"))
+                       (victims, "sparse_accept", "sparse_accept:credit"),
+                       (allocate, "pertask_fill", "pertask_fill"),
+                       (allocate, "dense_accept", "dense_accept"))
         self._orig = {k: getattr(mod, a) for mod, a, k in self._sites}
         self._saved = [(mod, a, getattr(mod, a)) for mod, a, _ in self._sites]
 
@@ -412,6 +427,32 @@ VICTIM_NEED = {
 }
 
 
+#: the GPU-sharing cell at full size: 10,000 nodes x 8 devices of 80 GiB,
+#: a half-used device 0 on the first 5,000; pending 2,500 training gangs
+#: of 8 whole-device pods, 16,000 one-pod fractions (0.5), 8,000 one-pod
+#: memory-based shares (24 GiB = 0.3 of a device) and 1,000 launchers
+#: with 5 one-device workers — 50,000 pods, 35,400 devices of demand
+SHARING_FULL = dict(training=2_500, fractions=16_000, memory=8_000,
+                    launchers=1_000)
+#: the common factor the four gang counts are cut by: the per-task
+#: wavefront accepts about two lanes a chunk on this fleet (binpack sends
+#: every lane of a type to the same fullest node), so the full backlog is
+#: thousands of chunks, and the CPU oracle's plain versions take a large
+#: fraction of a second a chunk at 10,000 nodes x 256 lanes
+SHARING_CUT = 25
+SHARING = dict(num_nodes=10_000, shared_nodes=5_000,
+               **{k: v // SHARING_CUT for k, v in SHARING_FULL.items()})
+SHARING_RUNS = 3
+#: K9 and K10 calls kept in the sharing warm-up: the first chunk (every
+#: lane on the fresh fleet) and a later one
+SHARING_KEEP = {"pertask_fill": (0, 20), "dense_accept": (0, 20)}
+#: the kernels a sharing (per-task) allocate cycle launches
+SHARING_KERNELS = ("drf_water_fill", "pertask_fill", "dense_accept")
+#: the cells with a profiled run (each kernel's in-cycle device time)
+PROFILED_CELLS = ("sharing", "saturated", "saturated_sequential",
+                  "preempt_many_queues", "fragmented")
+
+
 def fragmented_objects(apis, *, num_nodes: int, pending: int, stale: int,
                        node_accel: float = 8.0, victim_accel: float = 2.0,
                        pending_accel: float = 6.0, now: float = 1000.0):
@@ -455,6 +496,81 @@ def fragmented_objects(apis, *, num_nodes: int, pending: int, stale: int,
                                                         4.0),
                              creation_timestamp=now + k))
     return nodes, queues, groups, pods, now
+
+
+def sharing_objects(apis, *, num_nodes: int, shared_nodes: int,
+                    training: int, fractions: int, memory: int,
+                    launchers: int, node_accel: int = 8,
+                    accel_memory_gib: float = 80.0, seed: int = 0):
+    """A GPU-sharing fleet, built with the object API: ``num_nodes`` nodes
+    of ``node_accel`` devices (64 CPU, 256 GiB, ``accel_memory_gib`` per
+    device); two departments of two leaf queues with ``make_cluster``'s
+    quota rule (each leaf deserves a quarter of the devices); one running
+    pod at ``accel_portion=0.5`` on device 0 of each of the first
+    ``shared_nodes`` nodes; pending, round-robin over the four leaves with
+    priorities 0-2 drawn from ``seed``: ``training`` gangs of 8
+    whole-device pods, ``fractions`` one-pod gangs at
+    ``accel_portion=0.5``, ``memory`` one-pod gangs at
+    ``accel_memory_gib=24`` and ``launchers`` gangs of one launcher pod
+    (no device, 4 CPU, 16 GiB) plus 5 one-device workers, interleaved in
+    that proportion.  Returns ``(nodes, queues, groups, pods)``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nodes = [apis.Node(f"node-{i}", apis.ResourceVec(float(node_accel), 64.0,
+                                                     256.0),
+                       labels={"kubernetes.io/hostname": f"node-{i}"},
+                       accel_memory_gib=accel_memory_gib)
+             for i in range(num_nodes)]
+    quota = num_nodes * node_accel / 4
+    queues = []
+    for d in range(2):
+        queues.append(apis.Queue(f"dept-{d}",
+                                 accel=apis.QueueResource(quota=2 * quota),
+                                 creation_timestamp=float(d)))
+    leaves = [f"queue-{d}-{j}" for d in range(2) for j in range(2)]
+    for k, name in enumerate(leaves):
+        queues.append(apis.Queue(name, parent=f"dept-{k // 2}",
+                                 accel=apis.QueueResource(quota=quota),
+                                 creation_timestamp=float(k)))
+    groups, pods = [], []
+    for i in range(shared_nodes):
+        name = f"shared-{i}"
+        groups.append(apis.PodGroup(name, queue=leaves[i % 4], min_member=1,
+                                    last_start_timestamp=0.0))
+        pods.append(apis.Pod(f"{name}-0", name,
+                             resources=apis.ResourceVec(0.0, 1.0, 4.0),
+                             accel_portion=0.5,
+                             status=apis.PodStatus.RUNNING,
+                             node=f"node-{i}", accel_devices=[0]))
+    kinds = (["training"] * training + ["fraction"] * fractions
+             + ["memory"] * memory + ["launcher"] * launchers)
+    # interleave the kinds evenly over the creation order
+    total = len(kinds)
+    counts = {"training": training, "fraction": fractions,
+              "memory": memory, "launcher": launchers}
+    order = sorted(
+        (((j + 0.5) / n, k) for k, n in counts.items() for j in range(n)))
+    for g, (_, kind) in enumerate(order[:total]):
+        name = f"{kind}-{g}"
+        queue = leaves[g % 4]
+        prio = int(rng.integers(0, 3))
+        if kind == "training":
+            specs = [dict(resources=apis.ResourceVec(1.0, 4.0, 16.0))] * 8
+        elif kind == "fraction":
+            specs = [dict(resources=apis.ResourceVec(0.0, 1.0, 4.0),
+                          accel_portion=0.5)]
+        elif kind == "memory":
+            specs = [dict(resources=apis.ResourceVec(0.0, 1.0, 4.0),
+                          accel_memory_gib=24.0)]
+        else:
+            specs = ([dict(resources=apis.ResourceVec(0.0, 4.0, 16.0))]
+                     + [dict(resources=apis.ResourceVec(1.0, 4.0, 16.0))] * 5)
+        groups.append(apis.PodGroup(name, queue=queue, min_member=len(specs),
+                                    priority=prio,
+                                    creation_timestamp=float(g)))
+        pods += [apis.Pod(f"{name}-{t}", name, creation_timestamp=float(g),
+                          **spec) for t, spec in enumerate(specs)]
+    return nodes, queues, groups, pods
 
 
 def fresh_cluster(shape: dict):
@@ -509,6 +625,138 @@ def check_cycle(name: str, shape: dict, gpu, cpu, cluster) -> dict:
         action_seconds=res.action_seconds, shape=shape,
         nodes=shape["num_nodes"],
         pending_pods=shape["num_gangs"] * shape["tasks_per_gang"])
+
+# ---------------------------------------------------------------------------
+# the GPU-sharing cell (the per-task path)
+# ---------------------------------------------------------------------------
+
+def sharing_cluster():
+    from kai_scheduler_tpu_torch.apis import types as apis
+    from kai_scheduler_tpu_torch.runtime.cluster import Cluster
+    return Cluster.from_objects(*sharing_objects(apis, **SHARING))
+
+
+def run_sharing_cycle(device: str):
+    from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
+                                                             SchedulerConfig)
+    cluster = sharing_cluster()
+    t0 = time.perf_counter()
+    res = Scheduler(SchedulerConfig(actions=("allocate",)),
+                    device=device).run_once(cluster)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, cluster, time.perf_counter() - t0
+
+
+def check_sharing_cycle(gpu, cpu, cluster, counts: dict) -> dict:
+    """The GPU sharing cycle equals the CPU oracle (packed commit,
+    BindRequests with their device indices), every bound gang is whole,
+    fractions bind to a device, and K9 and K10 launched."""
+    res, secs = gpu
+    if res.packed.tobytes() != cpu.packed.tobytes():
+        diff = int((res.packed != cpu.packed).sum())
+        raise AssertionError(f"sharing: packed commit differs from the CPU "
+                             f"oracle in {diff} of {res.packed.size} i16")
+    if _binds(res.bind_requests) != _binds(cpu.bind_requests):
+        raise AssertionError("sharing: BindRequests (or their device "
+                             "indices) differ from the oracle")
+    per_gang: dict[str, int] = {}
+    frac = 0
+    for br in res.bind_requests:
+        pod = cluster.pods[br.pod_name]
+        per_gang[pod.group] = per_gang.get(pod.group, 0) + 1
+        if pod.accel_portion > 0 or pod.accel_memory_gib > 0:
+            frac += 1
+            if len(br.selected_accel_groups) != 1:
+                raise AssertionError(f"sharing: fraction {br.pod_name} "
+                                     f"bound without one device")
+    for g, n in per_gang.items():
+        if n != cluster.pod_groups[g].min_member:
+            raise AssertionError(f"sharing: gang {g} bound {n} of "
+                                 f"{cluster.pod_groups[g].min_member} pods")
+    missing = [k for k in SHARING_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"sharing: kernels never launched: {missing}")
+    if frac == 0:
+        raise AssertionError("sharing: no fractional binds")
+    t = res.tensors
+    if not bool(torch.isfinite(t.queue_allocated).all()):
+        raise AssertionError("sharing: non-finite queue allocation")
+    return dict(
+        cycle_seconds=secs, binds=len(res.bind_requests),
+        fractional_binds=frac, pods_bound_per_s=len(res.bind_requests) / secs,
+        gangs_allocated=int(t.allocated.sum()),
+        gangs_attempted=int(t.attempted.sum()),
+        fit_reason_counts={int(k): int(v) for k, v in zip(
+            *torch.unique(t.fit_reason.cpu(), return_counts=True))},
+        chunks=res.chunks, phase_seconds=res.phase_seconds,
+        action_seconds=res.action_seconds, shape=SHARING, launches=counts)
+
+
+def sharing_kernel_checks(cap: Capture) -> dict:
+    """K9 and K10 on the inputs captured from the sharing warm-up vs their
+    plain versions, both on the card (tolerance 0), kernel and plain
+    times, and the least time the card could take for these inputs."""
+    from kai_scheduler_tpu_torch.ops import allocate as A
+    out = {}
+
+    # K9 — reads the node tables and the lanes' gang rows once, writes the
+    # lane outputs; per task step that placed, ~60 f32 operations a node
+    # (the fit on both pools with the device table, the bands, the score)
+    errs = []
+    for args, kw in cap.calls["pertask_fill"]:
+        k_out = cap._orig["pertask_fill"](*args, **kw).fields()
+        p_out = A.attempt_gang_in_domain_plain(*args, **kw).fields()
+        errs.append(_max_abs_err(k_out, p_out))
+    args, kw = cap.calls["pertask_fill"][0]
+    nodes, tt, cand, prior, free, dev, qa = args[:7]
+    B, T = prior.shape
+    N, D = dev.shape
+    Q = qa.shape[0]
+    steps = int((A.attempt_gang_in_domain_plain(*args, **kw).nodes_t
+                 >= 0).sum())
+    ms = _time_ms(lambda: cap._orig["pertask_fill"](*args, **kw))
+    plain_ms = _time_ms(
+        lambda: A.attempt_gang_in_domain_plain(*args, **kw), 5)
+    K = nodes.labels.shape[1]
+    X = nodes.filter_masks.shape[0]
+    L = nodes.topology.shape[1]
+    node_bytes = N * (5 * 12 + 3 * 4 * D + 1 + 4 * K + 5 * X + 4 + 4 * L)
+    lane_bytes = B * (8 + T * (12 + 1 + 4 * K + 4 * 5))
+    out_bytes = B * (2 * Q * 12 + T * 9 + 1 + T * (24 + 8 * D))
+    b, by = bound(node_bytes + lane_bytes + out_bytes, steps * N * 60)
+    out["pertask_fill"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, checked=len(errs),
+        shape=f"B={B} T={T} N={N} D={D} Q={Q} placed steps={steps}")
+
+    # K10 — the touched entries' rows and the pools at their nodes once,
+    # the lane deltas of the queue tables once; per touching (lane, node)
+    # ~2 (6 + 2 D) operations for the cumulative tests and the commit
+    errs = []
+    for args, kw in cap.calls["dense_accept"]:
+        k_out = cap._orig["dense_accept"](*args, **kw)
+        p_out = A.dense_accept_plain(*args, **kw)
+        errs.append(_max_abs_err(k_out, p_out))
+    args, kw = cap.calls["dense_accept"][0]
+    nodes_b, ok = args[0], args[1]
+    B, T = nodes_b.shape
+    D = args[8].shape[1]
+    Q = args[13].shape[0]
+    ent = ok[:, None] & (nodes_b >= 0)
+    E = int(ent.sum())
+    U = int(torch.unique(nodes_b[ent]).numel())
+    ms = _time_ms(lambda: cap._orig["dense_accept"](*args, **kw))
+    plain_ms = _time_ms(lambda: A.dense_accept_plain(*args, **kw), 5)
+    nb = (B * T * (4 + 2 * 12 + 2 * 4 * D) + U * 2 * (2 * 12 + 2 * 4 * D)
+          + B * (2 + 2 * Q * 12) + 4 * Q * 12)
+    b, by = bound(nb, E * 2 * (6 + 2 * D))
+    out["dense_accept"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, checked=len(errs),
+        shape=f"B={B} T={T} D={D} Q={Q} entries={E} nodes={U}")
+    return out
+
 
 # ---------------------------------------------------------------------------
 # the victim cells
@@ -921,12 +1169,54 @@ def main() -> int:
         log("  phases (last run): " + ", ".join(
             f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
 
-    # -- 5. the victim cells: one GPU run each (counts reset just before,
+    # -- 5. the GPU-sharing cell (the per-task path): a warm-up run under
+    # the profiler's CUDA activity with K9's and K10's inputs captured, then
+    # timed runs (counts reset just before, read just after), one CPU
+    # oracle run ------------------------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+    with Capture(SHARING_KEEP) as scap, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, warm_s = run_sharing_cycle("cuda")
+    sharing_in_cycle = in_cycle_device_ms(prof)
+    del prof
+    runs = []
+    for _ in range(SHARING_RUNS):
+        kernels.reset_launch_counts()
+        res, cluster, secs = run_sharing_cycle("cuda")
+        runs.append((res, cluster, secs, kernels.launch_counts()))
+    cpu, _, cpu_s = run_sharing_cycle("cpu")
+    recs = [check_sharing_cycle((res, secs), cpu, cluster, counts)
+            for res, cluster, secs, counts in runs]
+    secs_all = sorted(r["cycle_seconds"] for r in recs)
+    rec = dict(recs[-1])
+    rec.update(runs=len(recs), cycle_seconds_all=secs_all,
+               cycle_seconds_median=statistics.median(secs_all),
+               pods_bound_per_s_median=rec["binds"]
+               / statistics.median(secs_all),
+               warm_up_seconds=warm_s, cpu_oracle_seconds=cpu_s,
+               in_cycle_ms=sharing_in_cycle)
+    report["sharing"] = rec
+    log(f"sharing: {len(recs)} cycles, median "
+        f"{rec['cycle_seconds_median']:.4f} s (min {secs_all[0]:.4f}, max "
+        f"{secs_all[-1]:.4f}; profiled warm-up {warm_s:.3f}), "
+        f"{rec['binds']} binds ({rec['fractional_binds']} fractional, "
+        f"{rec['pods_bound_per_s_median']:.0f} pods/s), "
+        f"{rec['gangs_allocated']} gangs allocated of "
+        f"{rec['gangs_attempted']} attempted, {rec['chunks']} chunks, fit "
+        f"reasons {rec['fit_reason_counts']}, launches {rec['launches']}; "
+        f"every commit, BindRequest and device index == CPU oracle "
+        f"({cpu_s:.1f} s)")
+    log("  phases (last run): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+    log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+    checks.update(sharing_kernel_checks(scap))
+    del scap
+
+    # -- 6. the victim cells: one GPU run each (counts reset just before,
     # read just after), one CPU oracle run --------------------------------
     # (a first GPU run, not timed, under the profiler's CUDA activity
     # with the victim kernels' inputs captured, gives each kernel's
     # in-cycle device time)
-    from torch.profiler import ProfilerActivity, profile
     caps = {}
     for cell in VICTIM_CELLS:
         with Capture(VICTIM_KEEP[cell]) as cap, \
@@ -976,7 +1266,9 @@ def main() -> int:
     for k, cell in (("cumsum_ds", "saturated_sequential"),
                     ("freed_by_mask", "saturated_sequential"),
                     ("replace_victims", "fragmented"),
-                    ("freed_by_lane", "saturated")):
+                    ("freed_by_lane", "saturated"),
+                    ("pertask_fill", "sharing"),
+                    ("dense_accept", "sharing")):
         path_of[k] = (cell, report[cell]["launches"])
     #: the victim wavefront's modes of K2-K4 and the cell they run in
     mode_path = {"type_tables:lanes": "saturated",
@@ -993,13 +1285,13 @@ def main() -> int:
         in_cyc = ", ".join(
             f"{v} {report[v]['in_cycle_ms'][base]['ms']:.3f} ms / "
             f"{report[v]['in_cycle_ms'][base]['launches']} launches"
-            for v in VICTIM_CELLS)
+            for v in PROFILED_CELLS)
         log(f"kernel {name}: equal to its plain version (max_abs_err "
             f"{c['max_abs_err']}), {c['ms']:.4f} ms kernel, "
             f"{c['plain_ms']:.4f} ms plain, {counts[base]} launches per "
             f"{cell} cycle, bound {c['bound_ms']:.6f} ms by "
             f"{c['bound_by']} [{c['shape']}]{lib}; in-cycle device time "
-            f"in the profiled victim runs: {in_cyc}")
+            f"in the profiled runs: {in_cyc}")
     log(f"launch floor (one PyTorch call on one element): "
         f"{report['launch_floor_ms']:.4f} ms")
     report["kernel_checks"] = dict(checks, **lane_checks)
@@ -1015,7 +1307,7 @@ def main() -> int:
                    launches_path=cell,
                    nearest_library_ms=c.get("nearest_library_ms"),
                    in_cycle_ms={v: report[v]["in_cycle_ms"][name]["ms"]
-                                for v in VICTIM_CELLS})
+                                for v in PROFILED_CELLS})
         mode = f"{name}:lanes" if f"{name}:lanes" in lane_checks else \
             f"{name}:credit"
         if mode in lane_checks:

@@ -76,6 +76,12 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("freed_by_lane",
                    "kai_scheduler_tpu_torch/csrc/freed_by_lane.cu",
                    "kai_scheduler_tpu/ops/victims.py:738"),
+        KernelInfo("pertask_fill",
+                   "kai_scheduler_tpu_torch/csrc/pertask_fill.cu",
+                   "kai_scheduler_tpu/ops/allocate.py:517"),
+        KernelInfo("dense_accept",
+                   "kai_scheduler_tpu_torch/csrc/dense_accept.cu",
+                   "kai_scheduler_tpu/ops/allocate.py:1730"),
     )
 }
 
@@ -113,6 +119,8 @@ _SIGNATURES = {
     "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
     + [_P],
     "kai_freed_by_lane": [_P] * 7 + [_I] * 5 + [_P] * 4 + [_P],
+    "kai_pertask_fill": [_P] * 34 + [_I] * 14 + [_F] + [_P] * 10 + [_P],
+    "kai_dense_accept": [_P] * 15 + [_I] * 6 + [_P] * 6 + [_P],
 }
 
 _LIB = None

@@ -1,10 +1,13 @@
 """The allocate action — gang all-or-nothing placement as a wavefront.
 
-Port of ``kai_scheduler_tpu/ops/allocate.py``, first sub-slice: the
-auto-tuned variant that the repo's headline cluster (and every snapshot
-whose gangs are uniform replicas with no fractions, extended resources,
-topology or affinity terms) runs — the uniform whole-gang kernel under the
-sparse wavefront with hoisted per-type tables and the dynamic pop order.
+Port of ``kai_scheduler_tpu/ops/allocate.py``: the auto-tuned variants
+the reference runs on snapshots without topology, affinity terms or
+extended resources — the uniform whole-gang kernel under the sparse
+wavefront with hoisted per-type tables (gangs of identical replicas, no
+device shares, binpack), and the per-task path under the dense wavefront
+(GPU sharing: fractional and memory-based shares with the device table;
+heterogeneous gangs, subgroups, nominated nodes, anti-self domains, the
+preferred-level band, spread scoring) — both with the dynamic pop order.
 
 Reference hot path (``actions/allocate/allocate.go:52-156``): pop jobs
 from the fairness heap; place each gang whole or not at all.  Here each
@@ -14,7 +17,7 @@ accepts the maximal order-prefix whose cumulative claims fit; the
 reference's ``lax.while_loop`` over chunks is a host loop with one sync
 per chunk.
 
-Three device programs of the chunk body are hand-written CUDA kernels,
+Five device programs of the chunk body are hand-written CUDA kernels,
 each with its plain PyTorch version in this module (the wrapper runs the
 plain version only for CPU tensors):
 
@@ -30,11 +33,18 @@ plain version only for CPU tensors):
   node sort of the chunk's claims and the first lane that over-subscribes
   a node; replaces ``sparse_entry_tables`` + ``sparse_accept_first_bad``
   (ref ``:283``, ``:313``).
+- **K9** :func:`pertask_fill` (``csrc/pertask_fill.cu``) — every lane's
+  per-task placement, T task steps in order against the lane's live
+  pools; replaces ``_attempt_gang_in_domain`` under the lane vmap (ref
+  ``:517``, ``:1699``).
+- **K10** :func:`dense_accept` (``csrc/dense_accept.cu``) — the dense
+  accept prefix over the lanes' cumulative node and device claims and
+  the weighted commit (ref ``:1730-1795``).
 
 Everything else in the chunk is elementwise work, scatters and sorts and
 stays as PyTorch ops.  JAX's out-of-bounds-dropping scatters at the junk
 gang index ``G`` become writes into one extra buffer row that is sliced
-off.  A configuration this slice does not implement raises
+off.  A configuration the port does not implement raises
 ``NotImplementedError`` naming the flag; it never silently returns a
 different result.
 """
@@ -48,8 +58,12 @@ from .. import kernels
 from ..apis.types import UNLIMITED
 from ..state.cluster_state import ClusterState, NodeState
 from . import ordering
-from .predicates import feasible_nodes, feasible_nodes_dual
-from .scoring import BIG_NEG, DEFAULT_TIERS, PlacementConfig, score_bands
+from ..utils.numerics import cumsum_blocked
+from .predicates import (_accel_pool_ok, feasible_nodes, feasible_nodes_dual,
+                         node_portion, resource_fit_mask, selector_mask)
+from .scoring import (BIG_NEG, DEFAULT_TIERS, W_NOMINATED, W_TOPOLOGY,
+                      PlacementConfig, gpu_sharing_score, pick_device,
+                      score_bands, score_nodes_for_task)
 
 Tensor = torch.Tensor
 EPS = 1e-6
@@ -142,14 +156,22 @@ class AllocateConfig:
 
 def check_supported(config: AllocateConfig) -> None:
     """Raise ``NotImplementedError`` naming the first setting that needs
-    a path this slice has not ported."""
+    a path the allocate action has not ported (and ``ValueError`` for the
+    combination the reference itself rejects).
+
+    The per-task path (``uniform_tasks=False``) takes the device share
+    table (``track_devices``) and the preferred-topology band, which it
+    always computes (ref ``:765-767``; ``config.preferred_topology`` is
+    read only by the uniform kernel, ``:1135``).  The victim actions keep
+    their own, narrower check (``victims.check_placement_ported``)."""
+    if config.uniform_tasks and config.track_devices:
+        raise ValueError(
+            "uniform_tasks fast path requires track_devices=False")
     unsupported = [
-        (not config.uniform_tasks,
-         "uniform_tasks=False (the per-task placement path)"),
-        (config.track_devices, "track_devices=True (device share table)"),
         (config.subgroup_topology,
          "subgroup_topology=True (subgroup / required topology)"),
-        (config.preferred_topology, "preferred_topology=True"),
+        (config.uniform_tasks and config.preferred_topology,
+         "preferred_topology=True"),
         (config.extended, "extended=True (MIG/DRA scalar resources)"),
         (config.anti_groups, "anti_groups=True"),
         (config.attract_groups, "attract_groups=True"),
@@ -615,6 +637,557 @@ def sparse_accept(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K9: the per-task fill, one lane per gang attempt
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TaskTables:
+    """Gang-side inputs of the per-task fill, one row per gang (the
+    lanes read their gang's row)."""
+
+    task_req: Tensor           # f32 [G, T, R]
+    task_valid: Tensor         # bool [G, T]
+    task_selector: Tensor      # i32 [G, T, K]
+    task_portion: Tensor       # f32 [G, T]
+    task_accel_mem: Tensor     # f32 [G, T]
+    task_class: Tensor         # i32 [G, T]
+    task_nominated: Tensor     # i32 [G, T]
+    task_subgroup: Tensor      # i32 [G, T]
+    subgroup_min_needed: Tensor  # i32 [G, S]
+    min_needed: Tensor         # i32 [G]
+    queue: Tensor              # i32 [G]
+    preemptible: Tensor        # bool [G]
+    anti_self: Tensor          # i32 [G]
+    preferred_level: Tensor    # i32 [G]
+
+    @classmethod
+    def of(cls, state: ClusterState) -> "TaskTables":
+        g = state.gangs
+        return cls(**{k: v.contiguous() for k, v in dict(
+            task_req=g.task_req, task_valid=g.task_valid,
+            task_selector=g.task_selector, task_portion=g.task_portion,
+            task_accel_mem=g.task_accel_mem,
+            task_class=g.task_filter_class,
+            task_nominated=g.task_nominated,
+            task_subgroup=g.task_subgroup,
+            subgroup_min_needed=g.subgroup_min_needed,
+            min_needed=g.min_needed, queue=g.queue,
+            preemptible=g.preemptible, anti_self=g.anti_self_level,
+            preferred_level=g.preferred_level).items()})
+
+
+@dataclasses.dataclass
+class PerTaskOut:
+    """What every lane of the per-task fill returns.  The pools come as
+    the lane's FINAL rows at the nodes it placed on (row ``t`` belongs to
+    ``nodes_t[:, t]``; zeros where that task was not placed): a lane
+    touches at most T nodes, and the accept needs ``free - free2`` (ref
+    ``:1731``), which is not the sum of the task deltas in f32."""
+
+    qa2: Tensor            # f32 [B, Q, R]
+    qan2: Tensor           # f32 [B, Q, R]
+    nodes_t: Tensor        # i32 [B, T]
+    dev_t: Tensor          # i32 [B, T]  device of a fractional task
+    pipe_t: Tensor         # bool [B, T]
+    success: Tensor        # bool [B]
+    free_rows: Tensor      # f32 [B, T, R]
+    dev_rows: Tensor       # f32 [B, T, D]
+    bind_rows: Tensor      # f32 [B, T, R]  bind-now claims
+    devbind_rows: Tensor   # f32 [B, T, D]
+
+    def fields(self) -> tuple:
+        return tuple(getattr(self, f.name)
+                     for f in dataclasses.fields(self))
+
+
+def _device_rows(nodes: NodeState, dev: Tensor, extra_dev: Tensor,
+                 dev_l: Tensor, ix: Tensor, nodes_t: Tensor, t: int,
+                 req0: Tensor, por: Tensor, mem: Tensor):
+    """The device table's part of task ``t``'s step for the active lanes
+    ``ix``, [k, N] each: the pool tests on idle and on idle+releasing share
+    (``_accel_pool_ok``), the gpusharingorder band and the node portion.
+    They are computed once per distinct (portion, memory, request) against
+    the chunk-start device pool and patched at the nodes each lane already
+    took this attempt (its live rows): the per-lane values, without a
+    [k, N, D] pass."""
+    key = torch.stack([por, mem, req0], -1)
+    uk, inv = torch.unique(key, dim=0, return_inverse=True)
+    u_frac = (uk[:, 0] > 0) | (uk[:, 1] > 0)
+    p_u = node_portion(nodes, uk[:, 0], uk[:, 1])            # [U, N]
+    dev_pipe = (dev + nodes.device_releasing) + extra_dev
+    ok_idle = _accel_pool_ok(dev, p_u, u_frac, uk[:, 2])[inv]
+    ok_pipe = _accel_pool_ok(dev_pipe, p_u, u_frac, uk[:, 2])[inv]
+    gsh = gpu_sharing_score(dev, p_u, u_frac)[inv]
+    portion_n = p_u[inv]
+    j, s = torch.nonzero(nodes_t[ix, :t] >= 0, as_tuple=True)
+    if j.numel():
+        # one extra node axis of size 1 keeps the tensor functions' shapes
+        pn = nodes_t[ix[j], s].long()
+        live = dev_l[ix[j], pn][:, None]                     # [P, 1, D]
+        live_pipe = ((live + nodes.device_releasing[pn][:, None])
+                     + extra_dev[pn][:, None])
+        p_live = portion_n[j, pn][:, None]
+        frac = (por[j] > 0) | (mem[j] > 0)
+        ok_idle[j, pn] = _accel_pool_ok(live, p_live, frac, req0[j])[:, 0]
+        ok_pipe[j, pn] = _accel_pool_ok(live_pipe, p_live, frac,
+                                        req0[j])[:, 0]
+        gsh[j, pn] = gpu_sharing_score(live, p_live, frac)[:, 0]
+    return ok_idle, ok_pipe, gsh, portion_n
+
+
+def attempt_gang_in_domain_plain(
+        nodes: NodeState, tt: TaskTables, cand: Tensor, prior: Tensor,
+        free: Tensor, dev: Tensor, qa: Tensor, qan: Tensor, extra: Tensor,
+        extra_dev: Tensor, chain: Tensor, limit_eff: Tensor,
+        quota_eff: Tensor, *, placement: PlacementConfig,
+        track_devices: bool) -> PerTaskOut:
+    """Plain PyTorch version of K9: the reference's
+    ``_attempt_gang_in_domain`` (``:517``) for every lane ``b`` of a chunk
+    (gang ``cand[b]``, tie-break lane ``b``, prior placements ``prior[b]``),
+    against the chunk-start pools — the re-push protocol's subgroup quorum
+    and eligible set, the hoisted queue prefix gates, anti-self domains,
+    the nominated-node, soft, preferred-topology and tie-jitter bands,
+    the gpusharingorder band, ``pick_device`` for fractions, the
+    whole-device rank-and-take and the bind-now / pipelined bookkeeping.
+    The subgroup-topology and extended branches stay out (``allocate``
+    refuses them).  Batched over the B lanes; T task steps in order."""
+    B, T = prior.shape
+    N, R_ = free.shape
+    D = dev.shape[1]
+    L = nodes.topology.shape[1]
+    dv = free.device
+    i32, f32 = torch.int32, torch.float32
+    gi = cand.long()
+    arB = torch.arange(B, device=dv)
+    ar_n = torch.arange(N, dtype=i32, device=dv)
+    task_req = tt.task_req[gi]                               # [B, T, R]
+    task_valid = tt.task_valid[gi]
+    task_sel = tt.task_selector[gi]
+    portion = tt.task_portion[gi]
+    mem = tt.task_accel_mem[gi]
+    tclass = tt.task_class[gi]
+    tnom = tt.task_nominated[gi]
+    nonpre = ~tt.preemptible[gi]
+    topo_t = nodes.topology.t()                              # [L, N]
+    # gang-internal anti-affinity: no two tasks in one domain at the level
+    asl = tt.anti_self[gi]
+    has_asl = asl >= 0
+    doms_self = torch.where((asl >= L)[:, None], ar_n[None],
+                            topo_t[torch.clamp(asl, 0, L - 1).long()])
+    already = prior >= 0
+    unplaced_t = task_valid & ~already
+    forbidden = torch.zeros((B, N), dtype=torch.bool, device=dv)
+    if bool((has_asl[:, None] & already).any()):
+        prior_doms = doms_self.gather(1, torch.clamp(prior, min=0).long())
+        forbidden = has_asl[:, None] & (
+            (doms_self[:, :, None] == prior_doms[:, None, :])
+            & already[:, None, :]).any(-1)                   # [B, N]
+    pl = tt.preferred_level[gi]
+    has_pref = pl >= 0
+    pref_doms = topo_t[torch.clamp(pl, min=0).long()]        # [B, N]
+    first_prior = already.to(i32).argmax(-1, keepdim=True)
+    pref_dom = torch.where(
+        already.any(-1),
+        pref_doms.gather(1, torch.clamp(prior.gather(1, first_prior),
+                                        min=0).long())[:, 0], -1)
+
+    # subgroup quorum: while any subgroup is below quorum the eligible set
+    # is the union of per-subgroup quorum chunks (+ extra tasks for a gang
+    # minMember above their sum); once quorate, one scale-up task
+    sub = tt.task_subgroup[gi].long()
+    S = tt.subgroup_min_needed.shape[1]
+    n_already = already.sum(-1, dtype=i32)
+    already_s = torch.zeros((B, S), dtype=i32, device=dv).scatter_add_(
+        1, sub, already.to(i32))
+    deficit = torch.clamp(tt.subgroup_min_needed[gi] - already_s, min=0)
+    min_needed = tt.min_needed[gi]
+    in_quorum = (deficit > 0).any(-1) | (n_already < min_needed)
+    ar_t = torch.arange(T, device=dv)
+    earlier_same = ((sub[:, None, :] == sub[:, :, None])
+                    & (ar_t[None, :] < ar_t[:, None])[None])
+    rank_in_sub = (earlier_same & unplaced_t[:, None, :]).sum(-1, dtype=i32)
+    elig_quorum = unplaced_t & (rank_in_sub < deficit.gather(1, sub))
+    extra_needed = torch.clamp(
+        min_needed - n_already - deficit.sum(-1, dtype=i32), min=0)
+    rest = unplaced_t & ~elig_quorum
+    rank_rest = torch.cumsum(rest.to(i32), -1, dtype=i32) - 1
+    elig_quorum = elig_quorum | (rest & (rank_rest < extra_needed[:, None]))
+    first_unplaced = unplaced_t & (
+        torch.cumsum(unplaced_t.to(i32), -1, dtype=i32) - 1 < 1)
+    eligible = torch.where(in_quorum[:, None], elig_quorum, first_unplaced)
+    goal = eligible.sum(-1, dtype=i32)
+
+    # queue capacity gates for every task prefix, hoisted out of the loop
+    anc = chain[tt.queue[gi].long()]                         # [B, Q]
+    req_valid = torch.where(eligible[..., None], task_req, 0.0)
+    cum_req = cumsum_blocked(req_valid, 1)                   # [B, T, R]
+    exempt = ~anc[:, None, :, None]
+    gate_lim = ((qa + cum_req[:, :, None, :] <= limit_eff + EPS)
+                | exempt).flatten(2).all(-1)                 # [B, T]
+    gate_quota = ((qan + cum_req[:, :, None, :] <= quota_eff + EPS)
+                  | exempt).flatten(2).all(-1)
+    gate_t = gate_lim & torch.where(nonpre[:, None], gate_quota, True)
+
+    free_l = free.expand(B, N, R_).clone()
+    dev_l = dev.expand(B, N, D).clone()
+    bind = torch.zeros_like(free_l)
+    dbind = torch.zeros_like(dev_l)
+    nodes_t = torch.full((B, T), -1, dtype=i32, device=dv)
+    dev_t = torch.full((B, T), -1, dtype=i32, device=dv)
+    pipe_t = torch.zeros((B, T), dtype=torch.bool, device=dv)
+    count = torch.zeros((B,), dtype=i32, device=dv)
+    q_delta = torch.zeros((B, R_), dtype=f32, device=dv)
+    jitter_scale = _jitter_scale(N).to(dv)
+    lanes = torch.arange(B, dtype=i32, device=dv)
+    ar_d = torch.arange(D, device=dv)
+    for t in range(T):
+        # a lane whose task t is not eligible or fails its queue gate
+        # changes nothing this step (placed is False), so the step runs on
+        # the active lanes only
+        ix = torch.nonzero(eligible[:, t] & gate_t[:, t]).flatten()
+        if ix.numel() == 0:
+            continue
+        k_ = ix.numel()
+        arK = torch.arange(k_, device=dv)
+        req = task_req[ix, t]
+        por, me = portion[ix, t], mem[ix, t]
+        cls = tclass[ix, t]
+        is_frac = (por > 0) | (me > 0)
+        fl = free_l[ix]
+        if track_devices:
+            # feasible_nodes_dual's device branch, with the device table's
+            # share of the work done once per distinct share request
+            ok_idle, ok_pipe, gsh, portion_n = _device_rows(
+                nodes, dev, extra_dev, dev_l, ix, nodes_t, t, req[:, 0],
+                por, me)
+            req_nosum = req.clone()
+            req_nosum[:, 0] = torch.where(is_frac, 0.0, req[:, 0])
+            sel = (selector_mask(nodes.labels, task_sel[ix, t])
+                   & nodes.valid) & nodes.filter_masks[cls.long()]
+            fit_idle = (resource_fit_mask(fl, req_nosum) & ok_idle) & sel
+            fit_pipe = (resource_fit_mask((fl + nodes.releasing) + extra,
+                                          req_nosum) & ok_pipe) & sel
+        else:
+            fit_idle, fit_pipe = feasible_nodes_dual(
+                nodes, req, task_sel[ix, t], por, me, free=fl,
+                device_free=None, extra_releasing=extra,
+                extra_device_releasing=None, devices=False,
+                task_class=cls)
+        allowed = nodes.valid[None] & ~forbidden[ix]
+        fit_idle = fit_idle & allowed
+        fit_pipe = fit_pipe & allowed
+        # bands in the reference's f32 order: ((((topology + domain) +
+        # jitter) + soft) + nominated) + gpusharingorder, then
+        # compose_scores' (0 + tiers) + extra; the domain band is zero
+        # without subgroup topology
+        pd = pref_dom[ix]
+        topo_band = torch.where(
+            (has_pref[ix] & (pd >= 0))[:, None]
+            & (pref_doms[ix] == pd[:, None]), W_TOPOLOGY, 0.0)
+        rank_feas = torch.cumsum(fit_pipe.to(i32), -1, dtype=i32) - 1
+        jitter = jitter_scale * torch.remainder(
+            rank_feas - lanes[ix, None], N).to(f32)
+        extra_bands = (((topo_band + jitter)
+                        + nodes.soft_scores[cls.long()])
+                       + torch.where(ar_n[None] == tnom[ix, t, None],
+                                     W_NOMINATED, 0.0))
+        if track_devices:
+            extra_bands = extra_bands + gsh
+        scores = score_nodes_for_task(nodes, fl, req, fit_idle, fit_pipe,
+                                      placement, extra=extra_bands)
+        node = scores.argmax(-1)                             # first max
+        placed = fit_pipe.any(-1)
+        is_pipe = placed & ~fit_idle[arK, node]
+        if track_devices:
+            dev_row = dev_l[ix, node]                        # [k, D]
+            dev_rel_row = (nodes.device_releasing[node]
+                           + extra_dev[node])
+            p = portion_n[arK, node]
+            frac_row = torch.where(is_pipe[:, None], dev_row + dev_rel_row,
+                                   dev_row)
+            frac_dev = pick_device(frac_row, p,
+                                   pack=placement.device_pack)
+            k = torch.round(req[:, 0]).to(i32)
+            elig_d = dev_row + dev_rel_row >= 1.0 - EPS
+            key = torch.where(elig_d, -dev_row, _INF)
+            rank = ((key[:, None, :] < key[:, :, None])
+                    | ((key[:, None, :] == key[:, :, None])
+                       & (ar_d[None, :] < ar_d[:, None]))).sum(-1)
+            take_whole = elig_d & (rank < k[:, None])
+            dev_delta = torch.where(
+                is_frac[:, None],
+                p[:, None] * (ar_d[None] == frac_dev[:, None]).to(f32),
+                take_whole.to(f32))
+            dev_delta = torch.where(placed[:, None], dev_delta, 0.0)
+            dev_l[ix, node] = dev_row + (-dev_delta)
+            dbind[ix, node] = dbind[ix, node] + torch.where(
+                is_pipe[:, None], 0.0, dev_delta)
+        else:
+            p = req[:, 0]
+            frac_dev = torch.full((k_,), -1, dtype=i32, device=dv)
+        delta = torch.where(placed[:, None], req, 0.0)
+        # the node's accel debit uses its own share (memory-based
+        # portions differ per node); the queue debit stays canonical
+        delta_node = delta.clone()
+        delta_node[:, 0] = torch.where(
+            placed, torch.where(is_frac, p, req[:, 0]), 0.0)
+        free_l[ix, node] = fl[arK, node] + (-delta_node)
+        bind[ix, node] = bind[ix, node] + torch.where(
+            is_pipe[:, None], 0.0, delta_node)
+        q_delta[ix] = q_delta[ix] + delta
+        ds = doms_self[ix]
+        forbidden[ix] = forbidden[ix] | ((has_asl[ix] & placed)[:, None] & (
+            ds == ds.gather(1, node[:, None])))
+        nodes_t[ix, t] = torch.where(placed, node.to(i32), -1)
+        dev_t[ix, t] = torch.where(placed & is_frac, frac_dev, -1)
+        pipe_t[ix, t] = is_pipe
+        count[ix] = count[ix] + placed.to(i32)
+        pref_dom[ix] = torch.where(placed & (pd < 0),
+                                   pref_doms[ix, node], pd)
+
+    ancf = anc.to(f32)[:, :, None] * q_delta[:, None, :]     # [B, Q, R]
+    qa2 = qa[None] + ancf
+    qan2 = qan[None] + torch.where(nonpre[:, None, None], ancf, 0.0)
+    success = (goal > 0) & (count >= goal)
+    at = torch.clamp(nodes_t, min=0).long()
+    hit = (nodes_t >= 0)[..., None]
+
+    def rows(pool):
+        return torch.where(hit, pool[arB[:, None], at], 0.0)
+    return PerTaskOut(qa2=qa2, qan2=qan2, nodes_t=nodes_t, dev_t=dev_t,
+                      pipe_t=pipe_t, success=success, free_rows=rows(free_l),
+                      dev_rows=rows(dev_l), bind_rows=rows(bind),
+                      devbind_rows=rows(dbind))
+
+
+#: most task slots per gang, devices per node and subgroups per gang K9
+#: keeps per lane
+PERTASK_MAX_T = 64
+PERTASK_MAX_D = 32
+PERTASK_MAX_S = 32
+#: widest chunk K10 takes: its lane walk reproduces XLA:CPU's blocked
+#: cumsum with one level of block totals (up to 16 blocks of 16 lanes)
+DENSE_ACCEPT_MAX_B = 256
+
+
+def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
+                 prior: Tensor, free: Tensor, dev: Tensor, qa: Tensor,
+                 qan: Tensor, extra: Tensor, extra_dev: Tensor, chain: Tensor,
+                 limit_eff: Tensor, quota_eff: Tensor, *,
+                 placement: PlacementConfig,
+                 track_devices: bool) -> PerTaskOut:
+    """K9 — every lane's per-task placement (see
+    :func:`attempt_gang_in_domain_plain` for the contract).  CPU tensors
+    run the plain version; CUDA tensors launch one block per lane or
+    raise."""
+    if not kernels.on_card(free):
+        return attempt_gang_in_domain_plain(
+            nodes, tt, cand, prior, free, dev, qa, qan, extra, extra_dev,
+            chain, limit_eff, quota_eff, placement=placement,
+            track_devices=track_devices)
+    if tuple(placement.tiers) != DEFAULT_TIERS:
+        raise NotImplementedError(
+            f"pertask_fill: the CUDA kernel composes the default tiers "
+            f"{DEFAULT_TIERS}, not {tuple(placement.tiers)}")
+    B, T = prior.shape
+    N, R_ = free.shape
+    D = dev.shape[1]
+    G, _, K = tt.task_selector.shape
+    S = tt.subgroup_min_needed.shape[1]
+    X = nodes.filter_masks.shape[0]
+    L = nodes.topology.shape[1]
+    Q = qa.shape[0]
+    if (R_ != 3 or T > PERTASK_MAX_T or D > PERTASK_MAX_D
+            or S > PERTASK_MAX_S):
+        raise ValueError(
+            f"pertask_fill: R={R_}, T={T}, D={D}, S={S} outside the "
+            f"kernel's 3, {PERTASK_MAX_T}, {PERTASK_MAX_D}, {PERTASK_MAX_S}")
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    gang = dict(task_req=tt.task_req, task_valid=tt.task_valid,
+                task_selector=tt.task_selector, task_portion=tt.task_portion,
+                task_accel_mem=tt.task_accel_mem, task_class=tt.task_class,
+                task_nominated=tt.task_nominated,
+                task_subgroup=tt.task_subgroup,
+                subgroup_min_needed=tt.subgroup_min_needed,
+                min_needed=tt.min_needed, queue=tt.queue,
+                preemptible=tt.preemptible, anti_self=tt.anti_self,
+                preferred_level=tt.preferred_level)
+    node = dict(free=free, dev=dev, releasing=nodes.releasing, extra=extra,
+                device_releasing=nodes.device_releasing, extra_dev=extra_dev,
+                allocatable=nodes.allocatable, valid=nodes.valid,
+                labels=nodes.labels, filter_masks=nodes.filter_masks,
+                soft_scores=nodes.soft_scores,
+                device_memory_gib=nodes.device_memory_gib,
+                topology=nodes.topology)
+    queue = dict(qa=qa, qan=qan, limit_eff=limit_eff, quota_eff=quota_eff,
+                 chain=chain)
+    lane = dict(cand=cand, prior=prior)
+    dtypes = dict(task_req=f32, task_valid=b, task_selector=i32,
+                  task_portion=f32, task_accel_mem=f32, task_class=i32,
+                  task_nominated=i32, task_subgroup=i32,
+                  subgroup_min_needed=i32, min_needed=i32, queue=i32,
+                  preemptible=b, anti_self=i32, preferred_level=i32,
+                  free=f32, dev=f32, releasing=f32, extra=f32,
+                  device_releasing=f32, extra_dev=f32, allocatable=f32,
+                  valid=b, labels=i32, filter_masks=b, soft_scores=f32,
+                  device_memory_gib=f32, topology=i32, qa=f32, qan=f32,
+                  limit_eff=f32, quota_eff=f32, chain=b, cand=i32,
+                  prior=i32)
+    ts = dict(**gang, **node, **queue, **lane)
+    dv = kernels.require_cuda("pertask_fill", ts, dtypes)
+    out = PerTaskOut(
+        qa2=torch.empty((B, Q, R_), dtype=f32, device=dv),
+        qan2=torch.empty((B, Q, R_), dtype=f32, device=dv),
+        nodes_t=torch.empty((B, T), dtype=i32, device=dv),
+        dev_t=torch.empty((B, T), dtype=i32, device=dv),
+        pipe_t=torch.empty((B, T), dtype=b, device=dv),
+        success=torch.empty((B,), dtype=b, device=dv),
+        free_rows=torch.empty((B, T, R_), dtype=f32, device=dv),
+        dev_rows=torch.empty((B, T, D), dtype=f32, device=dv),
+        bind_rows=torch.empty((B, T, R_), dtype=f32, device=dv),
+        devbind_rows=torch.empty((B, T, D), dtype=f32, device=dv))
+    rc = kernels.library().kai_pertask_fill(
+        *(kernels.ptr(v) for v in ts.values()),
+        B, T, N, D, K, X, L, S, Q, G, int(placement.binpack_accel),
+        int(placement.binpack_cpu), int(placement.device_pack),
+        int(track_devices), float(_jitter_scale(N)),
+        *(kernels.ptr(v) for v in out.fields()), kernels.stream_of(free))
+    kernels.check(rc, "pertask_fill")
+    kernels.count_launch("pertask_fill")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K10: the dense accept prefix and the weighted commit
+# ---------------------------------------------------------------------------
+
+def _lane_sum(w: Tensor, d: Tensor) -> Tensor:
+    """``einsum("b,b...->...", w, d)`` for 0/1 weights, added in ascending
+    lane order from +0.0 (XLA:CPU's order for up to 32 lanes)."""
+    acc = torch.zeros_like(d[0])
+    for bi in torch.nonzero(w > 0).flatten().tolist():
+        acc = acc + d[bi]
+    return acc
+
+
+def _dense_rows(pool: Tensor, nodes_b: Tensor, rows: Tensor,
+                cols: Tensor | None = None) -> Tensor:
+    """[B, U, C]: ``pool`` rows at nodes ``cols`` (all nodes when None) for
+    every lane, with each lane's rows written at its placed nodes
+    (duplicates carry the same row)."""
+    B, T = nodes_b.shape
+    base = pool if cols is None else pool[cols]
+    out = base.expand((B,) + base.shape).clone()
+    bi, ti = torch.nonzero(nodes_b >= 0, as_tuple=True)
+    nb = nodes_b[bi, ti].long()
+    at = nb if cols is None else torch.searchsorted(cols, nb)
+    out[bi, at] = rows[bi, ti]
+    return out
+
+
+def dense_accept_plain(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
+                       free_rows: Tensor, dev_rows: Tensor, bind_rows: Tensor,
+                       devbind_rows: Tensor, free: Tensor, dev: Tensor,
+                       rel_floor: Tensor, dev_floor: Tensor, d_qa: Tensor,
+                       d_qan: Tensor, qa: Tensor, qan: Tensor, *,
+                       track_devices: bool):
+    """Plain PyTorch version of K10 (ref ``:1728-1795``, the dense branch):
+    the lanes' cumulative claims (``jnp.cumsum`` over lanes in XLA:CPU's
+    blocked order) must keep every node above its releasing floor, the
+    bind-now claims within the chunk-start idle pool and, with the device
+    table, the same for every device; ``take = ok & gate_ok & accept``;
+    the taken lanes' claims and queue deltas are committed.  ``ok`` is
+    the lanes' success, ``gate_ok`` the joint queue gates.  Returns
+    ``(take [B], free [N, R], dev [N, D], qa [Q, R], qan [Q, R])``.
+
+    Only the nodes some successful lane placed on carry claims: the
+    reference's [B, N, *] cumulatives are built over those columns, and
+    every other node is tested with its zero claim (``free - 0 >=
+    floor``, the same test for every lane)."""
+    placed = ok[:, None] & (nodes_b >= 0)
+    cols = torch.unique(nodes_b[placed]).long()              # sorted
+    nodes_u = torch.where(placed, nodes_b, -1)
+    okm = ok[:, None, None]
+    free_u = free[cols]
+    d_free = torch.where(
+        okm, free_u - _dense_rows(free, nodes_u, free_rows, cols), 0.0)
+    d_bind = torch.where(okm, _dense_rows(
+        torch.zeros_like(free), nodes_u, bind_rows, cols), 0.0)
+    cum_free = cumsum_blocked(d_free, 0)
+    cum_bind = cumsum_blocked(d_bind, 0)
+    accept = gate_ok & bool((free >= rel_floor).all()) \
+        & (free_u - cum_free >= rel_floor[cols]).flatten(1).all(1) \
+        & (cum_bind <= torch.clamp(free_u, min=0.0) + EPS).flatten(1).all(1)
+    if track_devices:
+        dev_u = dev[cols]
+        d_dev = torch.where(
+            okm, dev_u - _dense_rows(dev, nodes_u, dev_rows, cols), 0.0)
+        d_devbind = torch.where(okm, _dense_rows(
+            torch.zeros_like(dev), nodes_u, devbind_rows, cols), 0.0)
+        cum_dev = cumsum_blocked(d_dev, 0)
+        cum_devbind = cumsum_blocked(d_devbind, 0)
+        accept = accept & bool((dev >= dev_floor).all()) \
+            & (dev_u - cum_dev >= dev_floor[cols]).flatten(1).all(1) \
+            & (cum_devbind <= torch.clamp(dev_u, min=0.0) + EPS
+               ).flatten(1).all(1)
+    take = ok & accept
+    w = take.to(torch.float32)
+    free = free.clone()
+    free[cols] = free_u - _lane_sum(w, d_free)
+    if track_devices:
+        dev = dev.clone()
+        dev[cols] = dev_u - _lane_sum(w, d_dev)
+    return (take, free, dev, qa + _lane_sum(w, d_qa),
+            qan + _lane_sum(w, d_qan))
+
+
+def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
+                 free_rows: Tensor, dev_rows: Tensor, bind_rows: Tensor,
+                 devbind_rows: Tensor, free: Tensor, dev: Tensor,
+                 rel_floor: Tensor, dev_floor: Tensor, d_qa: Tensor,
+                 d_qan: Tensor, qa: Tensor, qan: Tensor, *,
+                 track_devices: bool):
+    """K10 — the dense accept prefix and the commit (see
+    :func:`dense_accept_plain` for the contract).  CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise.  The kernel
+    walks, per node, only the lanes that placed there (K9's rows) and
+    never builds the [B, N, R] / [B, N, D] cumulatives."""
+    args = (nodes_b, ok, gate_ok, free_rows, dev_rows, bind_rows,
+            devbind_rows, free, dev, rel_floor, dev_floor, d_qa, d_qan, qa,
+            qan)
+    if not kernels.on_card(free):
+        return dense_accept_plain(*args, track_devices=track_devices)
+    B, T = nodes_b.shape
+    N, R_ = free.shape
+    D = dev.shape[1]
+    Q = qa.shape[0]
+    if R_ != 3 or B > DENSE_ACCEPT_MAX_B or D > PERTASK_MAX_D:
+        raise ValueError(f"dense_accept: R={R_}, B={B}, D={D} outside the "
+                         f"kernel's 3, {DENSE_ACCEPT_MAX_B}, {PERTASK_MAX_D}")
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    names = ("nodes_b", "ok", "gate_ok", "free_rows", "dev_rows",
+             "bind_rows", "devbind_rows", "free", "dev", "rel_floor",
+             "dev_floor", "d_qa", "d_qan", "qa", "qan")
+    ts = dict(zip(names, args))
+    dv = kernels.require_cuda("dense_accept", ts, dict(
+        nodes_b=i32, ok=b, gate_ok=b, free_rows=f32, dev_rows=f32,
+        bind_rows=f32, devbind_rows=f32, free=f32, dev=f32, rel_floor=f32,
+        dev_floor=f32, d_qa=f32, d_qan=f32, qa=f32, qan=f32))
+    first_bad = torch.full((1,), B, dtype=i32, device=dv)
+    take = torch.empty((B,), dtype=b, device=dv)
+    free2, dev2 = free.clone(), dev.clone()
+    qa2, qan2 = torch.empty_like(qa), torch.empty_like(qan)
+    rc = kernels.library().kai_dense_accept(
+        *(kernels.ptr(t) for t in args), B, T, N, D, Q, int(track_devices),
+        kernels.ptr(first_bad), kernels.ptr(take), kernels.ptr(free2),
+        kernels.ptr(dev2), kernels.ptr(qa2), kernels.ptr(qan2),
+        kernels.stream_of(free))
+    kernels.check(rc, "dense_accept")
+    kernels.count_launch("dense_accept")
+    return take, free2, dev2, qa2, qan2
+
+
+# ---------------------------------------------------------------------------
 # the action
 # ---------------------------------------------------------------------------
 
@@ -772,7 +1345,8 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         0.0).sum(1)                                          # [G, R]
     ord2 = ordering.lexsort((static_job_rank.to(f32), gq0.to(f32)))
     req2 = gang_req_all[ord2]
-    cs_excl = torch.cumsum(req2, 0) - req2
+    # fractional and memory-based requests: XLA:CPU's cumsum order
+    cs_excl = cumsum_blocked(req2, 0) - req2
     qm = gq0[ord2]
     is_first = torch.ones_like(qm, dtype=torch.bool)
     is_first[1:] = qm[1:] != qm[:-1]
@@ -791,9 +1365,20 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         pop_fs.to(f32)))
 
     chain = _chain_membership(q.parent, num_levels)
+    # the uniform kernel's lanes emit placements only and the chunk accepts
+    # on K = B*T sparse claim entries (K3, K4); the per-task lanes emit
+    # their pools' rows at the nodes they touched and the chunk runs the
+    # dense accept (K9, K10) — the reference's rule (ref :1537)
+    sparse = (config.uniform_tasks and not config.extended
+              and not config.track_devices and config.sparse_wavefront
+              and not config.subgroup_topology)
     Yu = g.type_req.shape[0]
     hoisted = config.hoist_type_tables and Yu <= B
     lt = LaneTables.of(state)
+    tt = None if sparse else TaskTables.of(state)
+    extra_dev = init.device_releasing_extra
+    rel_floor = -(n.releasing + extra) - EPS
+    dev_floor = -(n.device_releasing + extra_dev) - EPS
 
     # loop state; row G of each gang buffer is the junk row
     placements = _pad_row(init.placements, -1)
@@ -806,6 +1391,7 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
     failed_sig = torch.zeros((G,), dtype=i32, device=dev)
     free, qa, qan = (init.free, init.queue_allocated,
                      init.queue_allocated_nonpreemptible)
+    dev_free = init.device_free
     gq = g.queue.long()
     sig = g.sig.long()
     lanes_b = torch.arange(B, dtype=i32, device=dev)
@@ -837,44 +1423,68 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         need = g.min_needed[cand_c]
         quota_b = torch.where(placed_cnt < need, need - placed_cnt, 1).to(i32)
 
-        tables = type_tables(n, free, extra, g.type_req, g.type_selector,
-                             g.type_class, config.placement)
-        qa2_b, qan2_b, nodes_b, pipe_b, succ_b = _attempt_gang(
-            state, cand_c.to(i32), prior_b, quota_b, qa, qan,
-            config=config, chain=chain,
-            limit_eff=limit_eff, quota_eff=quota_eff, lt=lt, tables=tables,
-            hoisted=hoisted)
+        if sparse:
+            tables = type_tables(n, free, extra, g.type_req, g.type_selector,
+                                 g.type_class, config.placement)
+            qa2_b, qan2_b, nodes_b, pipe_b, succ_b = _attempt_gang(
+                state, cand_c.to(i32), prior_b, quota_b, qa, qan,
+                config=config, chain=chain, limit_eff=limit_eff,
+                quota_eff=quota_eff, lt=lt, tables=tables, hoisted=hoisted)
+            devt_b = None
+        else:
+            lanes_out = pertask_fill(
+                n, tt, cand_c.to(i32), prior_b, free, dev_free, qa, qan,
+                extra, extra_dev, chain, limit_eff, quota_eff,
+                placement=config.placement,
+                track_devices=config.track_devices)
+            qa2_b, qan2_b, nodes_b, pipe_b, succ_b, devt_b = (
+                lanes_out.qa2, lanes_out.qan2, lanes_out.nodes_t,
+                lanes_out.pipe_t, lanes_out.success, lanes_out.dev_t)
         succ_b = succ_b & cand_valid
 
         ok = succ_b[:, None, None]
         d_qa = torch.where(ok, qa2_b - qa, 0.0)              # [B, Q, R]
         d_qan = torch.where(ok, qan2_b - qan, 0.0)
-        cum_qa = torch.cumsum(d_qa, 0)
-        cum_qan = torch.cumsum(d_qan, 0)
-        # sparse prefix test on the K = B*T claim entries
-        req_b = lt.task_req0[cand_c]                         # [B, R]
-        ent_ok = succ_b[:, None] & (nodes_b >= 0)
-        first_bad, node_e, lane_e = sparse_accept(
-            nodes_b, ent_ok, pipe_b, req_b, free,
-            (free + n.releasing) + extra, N)
-        prefix_ok = lanes_b < first_bad
+        if sparse:
+            cum_qa = torch.cumsum(d_qa, 0)
+            cum_qan = torch.cumsum(d_qan, 0)
+        else:
+            # fractional and memory-based deltas: XLA:CPU's cumsum order,
+            # both tables in one pass
+            cum_qa, cum_qan = cumsum_blocked(
+                torch.stack([d_qa, d_qan], 1), 0).unbind(1)
         ok_qa = ((qa[None] + cum_qa <= limit_eff[None] + EPS)
                  | (cum_qa <= EPS)).flatten(1).all(1)
         ok_qan = ((qan[None] + cum_qan <= quota_eff[None] + EPS)
                   | (cum_qan <= EPS)).flatten(1).all(1)
-        take = succ_b & prefix_ok & ok_qa & ok_qan
+        if sparse:
+            # sparse prefix test on the K = B*T claim entries
+            req_b = lt.task_req0[cand_c]                     # [B, R]
+            ent_ok = succ_b[:, None] & (nodes_b >= 0)
+            first_bad, node_e, lane_e = sparse_accept(
+                nodes_b, ent_ok, pipe_b, req_b, free,
+                (free + n.releasing) + extra, N)
+            prefix_ok = lanes_b < first_bad
+            take = succ_b & prefix_ok & ok_qa & ok_qan
 
-        # commit: the accepted lanes' claims leave the idle pool (whole
-        # units, so the scatter-add order is exact)
-        le = lane_e.long()
-        take_e = take[le] & ent_ok.reshape(-1)
-        upd = torch.zeros((N + 1, free.shape[1]), dtype=f32, device=dev)
-        upd.index_add_(0, node_e.long(),
-                       torch.where(take_e[:, None], req_b[le], 0.0))
-        free = free - upd[:N]
-        w = take.to(f32)[:, None, None]
-        qa = qa + (w * d_qa).sum(0)
-        qan = qan + (w * d_qan).sum(0)
+            # commit: the accepted lanes' claims leave the idle pool
+            # (whole units, so the scatter-add order is exact)
+            le = lane_e.long()
+            take_e = take[le] & ent_ok.reshape(-1)
+            upd = torch.zeros((N + 1, free.shape[1]), dtype=f32, device=dev)
+            upd.index_add_(0, node_e.long(),
+                           torch.where(take_e[:, None], req_b[le], 0.0))
+            free = free - upd[:N]
+            w = take.to(f32)[:, None, None]
+            qa = qa + (w * d_qa).sum(0)
+            qan = qan + (w * d_qan).sum(0)
+        else:
+            take, free, dev_free, qa, qan = dense_accept(
+                nodes_b, succ_b, ok_qa & ok_qan, lanes_out.free_rows,
+                lanes_out.dev_rows, lanes_out.bind_rows,
+                lanes_out.devbind_rows, free, dev_free, rel_floor,
+                dev_floor, d_qa, d_qan, qa, qan,
+                track_devices=config.track_devices)
 
         nodes_b = torch.where(take[:, None], nodes_b, -1)
         pipe_b = torch.where(take[:, None], pipe_b, False)
@@ -889,8 +1499,9 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
             fail_fresh, 3, torch.where(take, 0, fit_reason[cand])).to(i32)
         new_t = nodes_b >= 0
         placements[cand] = torch.where(new_t, nodes_b, placements[cand])
-        placement_device[cand] = torch.where(new_t, -1,
-                                             placement_device[cand]).to(i32)
+        placement_device[cand] = torch.where(
+            new_t, -1 if devt_b is None else devt_b,
+            placement_device[cand]).to(i32)
         pipelined[cand] = torch.where(new_t, pipe_b, pipelined[cand])
         allocated[cand] = allocated[cand] | (take & (total_cnt >= need))
         attempted[cand] = attempted[cand] | cand_valid
@@ -909,5 +1520,6 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         init, placements=placements[:G], placement_device=placement_device[:G],
         pipelined=pipelined[:G], allocated=allocated[:G],
         attempted=attempted[:G], fit_reason=fit_reason[:G], free=free,
-        queue_allocated=qa, queue_allocated_nonpreemptible=qan)
+        device_free=dev_free, queue_allocated=qa,
+        queue_allocated_nonpreemptible=qan)
     return result, chunks

@@ -9,8 +9,9 @@ always dominates all lower bands combined.
 The f32 order of every operation follows the reference (``(na - mn) /
 max(span, 1e-30)``, ``1 - frac``, ``9 * raw``, bands summed from 0 in tier
 order, then ``+ extra``), so the scores are bit-identical to it.  The
-device-granular bands (gpusharingorder, ``pick_device``) belong to the
-per-task path and wait for its slice.
+device-granular functions of the per-task path — the gpusharingorder band
+and ``pick_device`` — are plain tensor functions here; the per-task
+kernel (K9, ``csrc/pertask_fill.cu``) repeats their arithmetic.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ W_NOMINATED = 1_000_000.0
 W_OWN_FREED = 9.5
 
 BIG_NEG = -1e30
+_INF = float("inf")
 
 #: the default scoring tiers (ref ``conf_util/scheduler_conf_util.go:40-60``)
 DEFAULT_TIERS = ("nodeplacement", "resourcetype", "nodeavailability")
@@ -51,6 +53,41 @@ class PlacementConfig:
     device_pack: bool = True
     #: the scoring plugin tiers (registry names, ordered)
     tiers: tuple[str, ...] = DEFAULT_TIERS
+
+
+def pick_device(device_row: Tensor, portion: Tensor, *,
+                pack: bool) -> Tensor:
+    """The device a fractional task takes on its node — the GpuOrderFn
+    (gpupack / gpuspread): pack prefers the most-used device that still
+    fits, spread the least-used.  ``device_row`` f32 [..., D], ``portion``
+    f32 [...]; returns i32 [...] (the first such device; 0 when none fits
+    — callers mask)."""
+    fits = device_row >= (portion - 1e-6)[..., None]
+    if pack:
+        key = torch.where(fits, device_row, _INF)
+        return _first_arg(key, key.amin(-1, keepdim=True))
+    key = torch.where(fits, device_row, -_INF)
+    return _first_arg(key, key.amax(-1, keepdim=True))
+
+
+def _first_arg(key: Tensor, best: Tensor) -> Tensor:
+    """Index of the first entry of each row equal to ``best`` — the tie
+    order of ``jnp.argmin`` / ``jnp.argmax``."""
+    D = key.shape[-1]
+    idx = torch.arange(D, dtype=torch.int32, device=key.device)
+    return torch.where(key == best, idx, D).amin(-1).to(torch.int32)
+
+
+def gpu_sharing_score(device_free: Tensor, portion_n: Tensor,
+                      is_frac: Tensor) -> Tensor:
+    """gpusharingorder plugin: +W_GPU_SHARING on nodes where the fraction
+    can join an already-shared (partially used) device.  ``device_free``
+    f32 [..., N, D] (one pool, or one per leading index), ``portion_n``
+    f32 [..., N], ``is_frac`` bool [...] -> f32 [..., N]."""
+    partially_used = (device_free > 1e-6) & (device_free < 1.0 - 1e-6)
+    shared_fit = (partially_used
+                  & (device_free >= (portion_n - 1e-6)[..., None])).any(-1)
+    return torch.where(is_frac[..., None] & shared_fit, W_GPU_SHARING, 0.0)
 
 
 def density_score(non_allocated: Tensor, allocatable: Tensor,
@@ -76,14 +113,16 @@ def placement_score(nodes: NodeState, free: Tensor, task_req: Tensor,
                     fit_mask: Tensor,
                     config: PlacementConfig = PlacementConfig()) -> Tensor:
     """nodeplacement plugin: density on the task's dominant resource —
-    accel density for accel tasks, cpu density for cpu-only tasks."""
-    non_alloc = free + nodes.releasing
+    accel density for accel tasks, cpu density for cpu-only tasks.
+    ``free`` is one [N, R] pool or one per leading index of ``task_req``
+    ([..., N, R]: the per-task path's lane pools)."""
+    non_alloc = free + nodes.releasing                   # [..., N, R]
     is_accel_task = task_req[..., RESOURCE_ACCEL] > 0
     accel_s = density_score(
-        non_alloc[:, RESOURCE_ACCEL], nodes.allocatable[:, RESOURCE_ACCEL],
+        non_alloc[..., RESOURCE_ACCEL], nodes.allocatable[:, RESOURCE_ACCEL],
         fit_mask, binpack=config.binpack_accel)
     cpu_s = density_score(
-        non_alloc[:, RESOURCE_CPU], nodes.allocatable[:, RESOURCE_CPU],
+        non_alloc[..., RESOURCE_CPU], nodes.allocatable[:, RESOURCE_CPU],
         fit_mask, binpack=config.binpack_cpu)
     return torch.where(is_accel_task[..., None], accel_s, cpu_s)
 

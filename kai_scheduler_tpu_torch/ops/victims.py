@@ -1406,11 +1406,28 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
 # the action
 # ---------------------------------------------------------------------------
 
+def check_placement_ported(placement: AllocateConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first placement setting the
+    victim actions have not ported: on top of allocate's refusals, the
+    per-task path and the device share table (their scenario solver and
+    wavefront run the uniform whole-gang kernel only)."""
+    for bad, what in (
+            (not placement.uniform_tasks,
+             "uniform_tasks=False (the per-task placement path)"),
+            (placement.track_devices,
+             "track_devices=True (device share table)")):
+        if bad:
+            raise NotImplementedError(
+                f"victim actions: {what} is not ported to the PyTorch "
+                f"package yet")
+    # dynamic_order is read only by the allocate loop
+    check_supported(dataclasses.replace(placement, dynamic_order=True))
+
+
 def _check_ported(mode: str, config: VictimConfig) -> None:
     if mode not in ("reclaim", "preempt", "consolidate"):
         raise ValueError(f"unknown victim action mode: {mode!r}")
-    # dynamic_order is read only by the allocate loop
-    check_supported(dataclasses.replace(config.placement, dynamic_order=True))
+    check_placement_ported(config.placement)
 
 
 def run_victim_action(state: ClusterState, fair_share: Tensor,

@@ -27,7 +27,11 @@ the CPU: XLA rewrites the cumulative reduce-window into blocks of
 totals the same way, and adds each block's exclusive prefix.  Neither
 ``torch.cumsum`` (which accumulates f32 in double on the CPU and in no
 fixed order on CUDA) nor a plain left-to-right sum gives those bits once
-the values carry fractions.
+the values carry fractions.  The same blocks hold along axis 0 of a 3-D
+array — the allocate chunk's cumulatives over lanes, ``[B, N, R]``,
+``[B, N, D]`` and ``[B, Q, R]`` — fitted against ``jnp.cumsum`` at 8 to
+300 lanes and up to 10,000 x 3 columns; K10 (``csrc/dense_accept.cu``)
+walks its lanes in that order.
 """
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 GPU.
 
     python3 scripts/profile_torch_cycle.py [--shape headline|contended|
-        saturated|saturated_sequential|preempt_many_queues|fragmented]
+        sharing|saturated|saturated_sequential|preempt_many_queues|
+        fragmented]
 
 Runs the cycle of ``chip_smoke.py``'s shape once to warm up, then once
 under ``torch.profiler`` (CPU and CUDA activities), and prints:
@@ -21,9 +22,10 @@ under ``torch.profiler`` (CPU and CUDA activities), and prints:
 
 The numbers go to ``chiprun_out/profile_<shape>_summary.json``; the trace
 (Chrome trace format) to ``chiprun_out/profile_<shape>.json`` for the
-allocate cells and to ``build/profile_<shape>.json`` for the victim
-cells, whose traces hold hundreds of thousands of events.  Needs a CUDA
-device; imports nothing of JAX.
+headline and contended cells and to ``build/profile_<shape>.json`` for the
+sharing cell (the per-task path, ``chip_smoke.py``'s GPU-sharing fleet)
+and the victim cells, whose traces hold hundreds of thousands of events.
+Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -74,7 +76,7 @@ def device_activity(trace_path: str, top_n: int = 20):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", default="headline", choices=(
-        "headline", "contended", *chip_smoke.VICTIM_CELLS))
+        "headline", "contended", "sharing", *chip_smoke.VICTIM_CELLS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_cycle: no CUDA device", file=sys.stderr)
@@ -85,7 +87,13 @@ def main() -> int:
     card = chip_smoke.card_line()
     from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
                                                              SchedulerConfig)
-    if victim:
+    if args.shape == "sharing":
+        shape = chip_smoke.SHARING
+        _, _, warm = chip_smoke.run_sharing_cycle("cuda")  # build + warm
+        cluster = chip_smoke.sharing_cluster()
+        sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+                          device="cuda")
+    elif victim:
         shape = {"saturated": chip_smoke.SATURATED,
                  "preempt_many_queues": chip_smoke.PREEMPT_MANY,
                  "fragmented": chip_smoke.FRAGMENTED}[
@@ -110,7 +118,8 @@ def main() -> int:
         wall = time.perf_counter() - t0
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    trace_dir = os.path.join(ROOT, "build") if victim else out_dir
+    trace_dir = (os.path.join(ROOT, "build")
+                 if victim or args.shape == "sharing" else out_dir)
     os.makedirs(trace_dir, exist_ok=True)
     trace_path = os.path.join(trace_dir, f"profile_{args.shape}.json")
     prof.export_chrome_trace(trace_path)

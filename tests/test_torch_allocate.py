@@ -162,6 +162,11 @@ def test_topk_tie_order_matches_lax_top_k():
         list(range(8))]
 
 
+#: settings the per-task path lifted from allocate; the victim actions
+#: still refuse them (their placement check)
+VICTIM_ONLY = ("uniform_tasks", "track_devices")
+
+
 @pytest.mark.parametrize("flag,value", [
     ("uniform_tasks", False), ("track_devices", True),
     ("subgroup_topology", True), ("preferred_topology", True),
@@ -176,5 +181,22 @@ def test_unported_settings_raise_naming_the_flag(flag, value):
     ref_state, _ = ref_cs.build_snapshot(*ref_make(num_nodes=4,
                                                    num_gangs=2), pad=32)
     port = state_from_numpy(ref_leaves(ref_state), "cpu")
+    if flag in VICTIM_ONLY:
+        from kai_scheduler_tpu_torch.ops import victims as V
+        with pytest.raises(NotImplementedError, match=flag):
+            V.run_victim_action(
+                port, port.queues.fair_share, A.init_result(port),
+                num_levels=2, mode="reclaim",
+                config=V.VictimConfig(placement=cfg))
+        return
     with pytest.raises(NotImplementedError, match=flag):
         A.allocate(port, port.queues.fair_share, num_levels=2, config=cfg)
+
+
+def test_uniform_fill_with_device_table_is_rejected():
+    """The whole-gang fill does not track devices: the reference rejects
+    that combination with a ValueError, and so does the port."""
+    cfg = A.AllocateConfig(track_devices=True, uniform_tasks=True,
+                           subgroup_topology=False)
+    with pytest.raises(ValueError, match="track_devices=False"):
+        A.check_supported(cfg)

@@ -503,3 +503,148 @@ def test_cuda_victim_cycle_equals_cpu_cycle(cuda, name, batch_size):
     for field in ("bind_requests", "evictions", "move_bind_requests"):
         assert [dataclasses.astuple(b) for b in getattr(gpu, field)] == \
             [dataclasses.astuple(b) for b in getattr(cpu, field)], field
+
+
+# ---------------------------------------------------------------------------
+# K9 pertask_fill and K10 dense_accept (the per-task path)
+# ---------------------------------------------------------------------------
+
+def _sharing_lanes(cuda, *, B: int, num_nodes: int, placement: dict,
+                   seed: int):
+    """A GPU-sharing snapshot on the card (``chip_smoke.sharing_objects``
+    plus 40-pod training gangs) with random partial pools and
+    victim-freed capacity on a fifth of the nodes, and B lanes of random
+    gangs, a third of them with prior placements; returns the K9
+    arguments."""
+    import chip_smoke
+    objs = chip_smoke.sharing_objects(
+        apis, num_nodes=num_nodes, shared_nodes=num_nodes // 2, training=6,
+        fractions=24, memory=12, launchers=4, seed=seed)
+    nodes, queues, groups, pods = objs
+    for k in range(3):
+        name = f"wide-{k}"
+        groups.append(apis.PodGroup(name, queue=groups[-1].queue,
+                                    min_member=40, creation_timestamp=900.0))
+        pods += [apis.Pod(f"{name}-{t}", name,
+                          resources=apis.ResourceVec(1.0, 1.0, 4.0))
+                 for t in range(40)]
+    ses = Session.open(nodes, queues, groups, pods, device=cuda)
+    st = ses.state
+    g, n = st.gangs, st.nodes
+    rng = np.random.default_rng(seed)
+    N, D = n.device_free.shape
+    dev = n.device_free.cpu().numpy().copy()
+    used = rng.choice(np.array([0.0, 0.25, 0.5, 0.3, 1.0], np.float32),
+                      size=dev.shape, p=[0.3, 0.15, 0.15, 0.1, 0.3])
+    dev = np.where(dev > 0, np.maximum(dev - used, 0.0), dev)
+    extra_dev = np.zeros_like(dev)
+    freed = rng.random(N) < 0.2
+    dev[freed] = 0.0
+    extra_dev[freed, 2:4] = 1.0
+    free = n.free.cpu().numpy().copy()
+    free[:, 0] = np.minimum(free[:, 0], dev.sum(-1))
+    extra = np.zeros_like(free)
+    extra[freed, 0] = 2.0
+    ng = len(ses.index.gang_names)
+    G, T = g.task_valid.shape
+    cand = rng.integers(0, ng, B).astype(np.int32)
+    prior = np.full((B, T), -1, np.int32)
+    tasks = g.task_valid.sum(-1).cpu().numpy()
+    for b in range(0, B, 3):
+        if tasks[cand[b]] > 1:   # an earlier attempt placed task 0
+            prior[b, 0] = rng.integers(0, num_nodes)
+    q = st.queues
+    inf = float("inf")
+
+    def t(x):
+        return torch.from_numpy(x).to(cuda)
+    args = (n, A.TaskTables.of(st), t(cand), t(prior), t(free), t(dev),
+            q.allocated, q.allocated_nonpreemptible, t(extra), t(extra_dev),
+            A._chain_membership(q.parent, ses.config.num_levels),
+            torch.where(q.limit <= -0.5, inf, q.limit),
+            torch.where(q.quota <= -0.5, inf, q.quota))
+    return args, dict(placement=PlacementConfig(**placement),
+                      track_devices=True)
+
+
+#: (lanes, nodes, placement): up to 256 lanes, 40 task slots and 8
+#: devices, binpack/gpupack and spread/gpuspread, and a fleet of 12 nodes
+#: that every lane crowds onto
+PERTASK_CASES = [
+    (64, 400, {}),
+    (256, 400, dict(binpack_accel=False, binpack_cpu=False,
+                    device_pack=False)),
+    (256, 12, {}),
+    (200, 12, dict(device_pack=False)),
+]
+
+
+@pytest.mark.parametrize("B,num_nodes,placement", PERTASK_CASES)
+def test_pertask_fill_matches_plain(cuda, B, num_nodes, placement):
+    args, kw = _sharing_lanes(cuda, B=B, num_nodes=num_nodes,
+                              placement=placement, seed=B + num_nodes)
+    before = kernels.KERNELS["pertask_fill"].launches
+    out = A.pertask_fill(*args, **kw)
+    assert kernels.KERNELS["pertask_fill"].launches == before + 1
+    assert_same(out.fields(),
+                A.attempt_gang_in_domain_plain(*args, **kw).fields())
+    assert bool((out.nodes_t >= 0).any()) and bool((out.dev_t >= 0).any())
+    kw2 = dict(kw, track_devices=False)    # the no-device-table path
+    assert_same(A.pertask_fill(*args, **kw2).fields(),
+                A.attempt_gang_in_domain_plain(*args, **kw2).fields())
+
+
+@pytest.mark.parametrize("B,num_nodes,placement", PERTASK_CASES)
+def test_dense_accept_matches_plain(cuda, B, num_nodes, placement):
+    """K10 on K9's lanes: every lane successful (many lanes on one node
+    at 12 nodes) and a random subset; random queue gates."""
+    args, kw = _sharing_lanes(cuda, B=B, num_nodes=num_nodes,
+                              placement=placement, seed=B + num_nodes)
+    lanes = A.pertask_fill(*args, **kw)
+    n = args[0]
+    free, dev, qa, qan, extra, extra_dev = args[4:10]
+    rng = np.random.default_rng(B)
+    rel_floor = -(n.releasing + extra) - A.EPS
+    dev_floor = -(n.device_releasing + extra_dev) - A.EPS
+    for subset in (1.0, 0.7):
+        ok = lanes.success & torch.from_numpy(
+            rng.random(B) < subset).to(cuda)
+        gate = torch.from_numpy(rng.random(B) < 0.95).to(cuda)
+        okm = ok[:, None, None]
+        d_qa = torch.where(okm, lanes.qa2 - qa, 0.0)
+        d_qan = torch.where(okm, lanes.qan2 - qan, 0.0)
+        for track in (True, False):
+            dargs = (lanes.nodes_t, ok, gate, lanes.free_rows,
+                     lanes.dev_rows, lanes.bind_rows, lanes.devbind_rows,
+                     free, dev, rel_floor, dev_floor, d_qa, d_qan, qa, qan)
+            before = kernels.KERNELS["dense_accept"].launches
+            out = A.dense_accept(*dargs, track_devices=track)
+            assert kernels.KERNELS["dense_accept"].launches == before + 1
+            assert_same(out, A.dense_accept_plain(*dargs,
+                                                  track_devices=track))
+
+
+def test_cuda_sharing_cycle_equals_cpu_cycle(cuda):
+    """A small sharing cell through the Scheduler on the card and on the
+    CPU: the packed commit and the BindRequests (device indices included)
+    are equal, and the cycle went through K9 and K10."""
+    import chip_smoke
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    shape = dict(num_nodes=300, shared_nodes=150, training=20,
+                 fractions=120, memory=60, launchers=8)
+    out, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        cluster = Cluster.from_objects(*chip_smoke.sharing_objects(
+            apis, **shape))
+        kernels.reset_launch_counts()
+        out[device] = Scheduler(SchedulerConfig(actions=("allocate",)),
+                                device=device).run_once(cluster)
+        counts[device] = kernels.launch_counts()
+    assert counts["cuda"]["pertask_fill"] > 0
+    assert counts["cuda"]["dense_accept"] > 0
+    assert counts["cpu"]["pertask_fill"] == 0
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.packed.tobytes() == cpu.packed.tobytes()
+    assert [dataclasses.astuple(b) for b in gpu.bind_requests] == \
+        [dataclasses.astuple(b) for b in cpu.bind_requests]
+    assert any(b.selected_accel_groups for b in gpu.bind_requests)

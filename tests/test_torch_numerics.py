@@ -58,3 +58,30 @@ def test_cumsum_ds_is_not_a_plain_scan():
     got = NU.cumsum_ds(torch.from_numpy(x)).numpy()
     plain = np.cumsum(x, axis=0, dtype=np.float32)
     assert got.tobytes() != plain.tobytes()
+
+
+#: (lanes, nodes, columns): the allocate chunk's axis-0 cumulatives over
+#: lanes — [B, N, R] node claims, [B, N, D] device claims, [B, Q, R] queue
+#: deltas — at widths on both sides of one block (16) and of one level of
+#: block totals (256)
+LANE_SHAPES = ((8, 50, 3), (20, 7, 3), (33, 5, 8), (64, 40, 3),
+               (256, 40, 8), (300, 4, 3))
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+def test_cumsum_blocked_matches_jnp_cumsum_over_lanes(shape):
+    """``jnp.cumsum(x, axis=0)`` of a 3-D array on XLA:CPU adds in the same
+    blocks of 16 as the 1-D case (fitted again for the per-task path's
+    dense accept): sparse fractional claims, where a left-to-right scan
+    differs in the last bit."""
+    rng = np.random.default_rng(shape[0])
+    v = rng.choice(np.array([0.3, 0.7, 0.5, 0.1, 1 / 3, 2.7], np.float32),
+                   size=shape)
+    x = np.where(rng.random(shape) < 0.6, v, 0).astype(np.float32) \
+        * rng.random(shape).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jax.numpy.cumsum(a, axis=0))(x))
+    got = NU.cumsum_blocked(torch.from_numpy(x), 0).numpy()
+    assert want.tobytes() == got.tobytes()
+    if shape[0] > NU.SCAN_BLOCK:
+        seq = NU._cumsum_seq(torch.from_numpy(x)).numpy()
+        assert seq.tobytes() != want.tobytes()

@@ -1,7 +1,8 @@
-"""The reference's allocate, hierarchy and victim scenario catalogs
-(``tests/scenarios/``, traceable to the reference's Go suites) through
-both packages: one cycle of each case with the reference's auto-tuned
-config — allocate only for the allocate and hierarchy catalogs, the five
+"""The reference's allocate, hierarchy, GPU-sharing, topology and victim
+scenario catalogs (``tests/scenarios/``, traceable to the reference's Go
+suites) through both packages: one cycle of each case with the reference's
+auto-tuned config — allocate only for the allocate, hierarchy, sharing and
+topology catalogs, the five
 default actions for the victim catalog, both with the sequential victim
 engine (``VictimConfig(batch_size=1)``) and at the default config (reclaim
 and preempt through the chunked wavefront).  Where the port implements that
@@ -33,16 +34,20 @@ from kai_scheduler_tpu_torch.framework.scheduler import (DEFAULT_ACTIONS,
 from kai_scheduler_tpu_torch.framework.session import SessionConfig
 from kai_scheduler_tpu_torch.ops.allocate import AllocateConfig, \
     check_supported
-from kai_scheduler_tpu_torch.ops.victims import VictimConfig
+from kai_scheduler_tpu_torch.ops.victims import (VictimConfig,
+                                                 check_placement_ported)
 from kai_scheduler_tpu_torch.runtime.cluster import Cluster
 from scenarios import (test_allocate_scenarios,
                        test_hierarchy_order_scenarios,
+                       test_sharing_scenarios, test_topology_scenarios,
                        test_victim_scenarios)
 from scenarios.harness import _build
 from jax_executables import release_jax_executables  # noqa: F401
 
 CASES = {c.name: c for c in (test_allocate_scenarios.CASES
-                             + test_hierarchy_order_scenarios.CASES)}
+                             + test_hierarchy_order_scenarios.CASES
+                             + test_sharing_scenarios.CASES
+                             + test_topology_scenarios.CASES)}
 VICTIM_CASES = {c.name: c for c in test_victim_scenarios.CASES}
 
 
@@ -125,11 +130,12 @@ def _port_cluster(ref_cluster) -> Cluster:
     return cluster
 
 
-def _supported(cfg) -> bool:
+def _supported(cfg, check=check_supported) -> bool:
     """The port implements the reference's auto-tuned placement config
-    (``dynamic_order`` is read only by the allocate loop)."""
+    (allocate's check by default; ``check_placement_ported`` for the
+    victim actions' placement)."""
     try:
-        check_supported(AllocateConfig(**{
+        check(AllocateConfig(**{
             f.name: getattr(cfg, f.name)
             for f in dataclasses.fields(cfg) if f.name != "placement"}))
     except NotImplementedError:
@@ -169,8 +175,8 @@ def test_victim_scenario_cycle_matches_reference_or_is_refused(
         session=SessionConfig(victims=VictimConfig(batch_size=batch_size))),
         device="cpu")
     if not (_supported(pad32["config"])
-            and _supported(dataclasses.replace(pad32["victims"].placement,
-                                               dynamic_order=True))):
+            and _supported(pad32["victims"].placement,
+                           check_placement_ported)):
         with pytest.raises(NotImplementedError):
             sched.run_once(cluster)
         return
@@ -199,3 +205,68 @@ def test_catalog_cases_run_on_the_port():
         except NotImplementedError:
             pass
     assert supported >= len(CASES) // 2, (supported, len(CASES))
+
+
+def _auto_config(case):
+    """The reference's auto-tuned allocate config for a catalog case."""
+    cluster = _build(case)
+    _, index = ref_cs.build_snapshot(*cluster.snapshot_lists(), pad=32,
+                                     now=cluster.now)
+    return ref_session._auto_tune(ref_session.SessionConfig(), index, 32,
+                                  32).allocate
+
+
+def test_per_task_catalog_cases_run_on_the_port():
+    """The per-task path runs the sharing catalog's fractional and
+    memory-based cases, the hierarchy catalog's fractional reclaim cases
+    and the topology catalog's subgroup-quorum cases; MIG (extended),
+    required/subgroup topology and the preferred level on the uniform path
+    stay refused."""
+    runs, refused = set(), {}
+    for case in CASES.values():
+        cfg = _auto_config(case)
+        if _supported(cfg):
+            if not cfg.uniform_tasks:
+                runs.add(case.name)
+        else:
+            try:
+                check_supported(AllocateConfig(**{
+                    f.name: getattr(cfg, f.name)
+                    for f in dataclasses.fields(cfg)
+                    if f.name != "placement"}))
+            except NotImplementedError as e:
+                refused[case.name] = str(e)
+    sharing = {c.name for c in test_sharing_scenarios.CASES}
+    topology = {c.name for c in test_topology_scenarios.CASES}
+    hierarchy = {c.name for c in test_hierarchy_order_scenarios.CASES}
+    assert len(runs & sharing) == 9
+    assert len(runs & hierarchy) == 3
+    assert runs & topology == {
+        "subgroups_quorum_both_sides",
+        "subgroup_quorum_unsatisfiable_fails_whole_gang",
+        "multiple_subgroup_jobs", "unbalanced_subgroup_hierarchy"}
+    assert all("extended=True" in refused[n] for n in sharing - runs)
+    assert "preferred_topology=True" in refused[
+        "preferred_rack_keeps_gang_local"]
+    assert all("subgroup_topology=True" in refused[n]
+               for n in topology - runs - {"preferred_rack_keeps_gang_local"})
+
+
+@pytest.mark.parametrize("name", sorted(VICTIM_CASES))
+def test_victim_cycle_on_per_task_snapshot_is_refused(name, pad32):
+    """Spread scoring sends every snapshot down the per-task path (the
+    whole-gang fill is the sequential greedy under binpack only); the
+    victim actions have not ported it, so the five-action cycle refuses
+    instead of running the uniform victim code on it."""
+    case = VICTIM_CASES[name]
+    ref_cluster = _build(case)
+    patch = test_victim_scenarios._prepare(case)
+    if patch is not None:
+        patch(ref_cluster)
+    spread = AllocateConfig(placement=dataclasses.replace(
+        AllocateConfig().placement, binpack_accel=False, binpack_cpu=False))
+    sched = Scheduler(SchedulerConfig(
+        actions=DEFAULT_ACTIONS, session=SessionConfig(allocate=spread)),
+        device="cpu")
+    with pytest.raises(NotImplementedError):
+        sched.run_once(_port_cluster(ref_cluster))

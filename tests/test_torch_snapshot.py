@@ -21,8 +21,11 @@ SECTIONS = ("nodes", "queues", "gangs", "running")
 
 #: small cousins of the headline shape, a contended one, a 4-department
 #: hierarchy with three priorities, one with running gangs, and one with
-#: topology levels and a required level (snapshot-only), and the features
-#: cluster (selectors, a taint, a host port, elastic gangs)
+#: topology levels and a required level (snapshot-only), the features
+#: cluster (selectors, a taint, a host port, elastic gangs), and a
+#: GPU-sharing cluster (the device table: running and terminating
+#: fractions on their devices, fractional and memory-based requests on
+#: nodes of two device sizes, subgroups, a zone level)
 SHAPES = {
     "headline_small": dict(num_nodes=48, node_accel=8.0, num_gangs=40,
                            tasks_per_gang=8),
@@ -37,6 +40,7 @@ SHAPES = {
                      seed=2),
     "features": dict(num_nodes=16, num_gangs=36, tasks_per_gang=4,
                      running_fraction=0.25, seed=4, features=True),
+    "sharing": dict(seed=6, sharing=True),
 }
 
 
@@ -71,7 +75,10 @@ def decorate(objs, apis):
 
 def objects(shape: dict, make, apis):
     """``make(**shape)``, decorated into the features cluster when the
-    shape asks for it."""
+    shape asks for it (the sharing cluster is made by its own function)."""
+    if shape.get("sharing"):
+        from test_torch_pertask import sharing_objects
+        return sharing_objects(apis, shape["seed"], topology=True)
     kw = {k: v for k, v in shape.items() if k != "features"}
     objs = make(**kw)
     return decorate(objs, apis) if shape.get("features") else objs
