@@ -6,9 +6,9 @@ Drives ``kai_scheduler_tpu_torch`` end to end on the card and fails
 (non-zero exit, no result line) on any build error, launch error or
 mismatch:
 
-1. builds the ten hand-written CUDA kernels from ``csrc/`` (one
-   ``nvcc`` per source, all started together) and prints the card's name
-   and power limit;
+1. builds the hand-written CUDA kernels K1-K11 from ``csrc/`` (one
+   ``nvcc`` per source, all started together; twelve entry points: K11
+   is a build and an update) and prints the card's name and power limit;
 2. runs one warm-up allocate cycle of the headline cluster (10,000 nodes
    x 6,250 gangs x 8 replicas = 50,000 pending pods) through
    ``Scheduler(device="cuda").run_once``, capturing the inputs each
@@ -36,7 +36,27 @@ mismatch:
    BindRequests and their device indices must equal the CPU oracle's;
    then K9 and K10 are held against their plain versions on the captured
    inputs (tolerance 0) and timed;
-6. runs the five default actions (allocate, consolidation, reclaim,
+6. runs the two topology cells, allocate only, the same way (a profiled
+   warm-up with the inputs captured, three timed runs on fresh clusters
+   with the counts reset just before and read just after, one CPU oracle
+   run; every commit, BindRequest and retry count equal to the oracle's,
+   every bound gang — every subgroup — in one rack; each mode below
+   launched in every timed run, by the counts its wrapper takes per mode
+   at the launch):
+   - *topology*: BASELINE config 4, uncut — 5,000 nodes in 8 blocks x 16
+     racks, 2,500 rack-required gangs of 8 replicas — the uniform path
+     with the domain tables (K11), K3's topology mode and K10 without the
+     device table;
+   - *topology_subgroups*: the per-task path on the same tree, racks of
+     different fill, mixed gangs and two-subgroup gangs each required at
+     the rack level (the gang preferring its block), 600 gangs —
+     K9's subgroup-topology mode (64 lanes) with the in-cycle retry,
+     K10;
+   then K11, K3's topology and preferred modes, K9's topology and banned
+   modes (the retry on its first launch's scratch and on its own) and
+   K10's mode without the device table are held against their plain
+   versions on the captured inputs (tolerance 0) and timed;
+7. runs the five default actions (allocate, consolidation, reclaim,
    preempt, stalegangeviction) on four victim cells: first a run under
    the profiler's CUDA activity with K5-K8's (and the victim wavefront's
    K2-K4) inputs captured (each kernel's in-cycle device time), then the
@@ -64,8 +84,9 @@ mismatch:
    modes of K2-K4 (per-lane pools, per-lane queue tables and score bias,
    the freed credit) are held against their plain versions on the
    captured inputs and timed;
-7. prints one JSON line of per-kernel numbers, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. prints one JSON line of per-kernel numbers (a row per kernel and per
+   topology mode), the card line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Longer output (the compiler's register/spill report, per-phase numbers)
 goes to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
@@ -138,7 +159,10 @@ class Capture:
                        (victims, "uniform_fill", "uniform_fill:lanes"),
                        (victims, "sparse_accept", "sparse_accept:credit"),
                        (allocate, "pertask_fill", "pertask_fill"),
-                       (allocate, "dense_accept", "dense_accept"))
+                       (allocate, "dense_accept", "dense_accept"),
+                       (allocate, "topo_tables_build", "topo_tables_build"),
+                       (allocate, "topo_tables_update",
+                        "topo_tables_update"))
         self._orig = {k: getattr(mod, a) for mod, a, k in self._sites}
         self._saved = [(mod, a, getattr(mod, a)) for mod, a, _ in self._sites]
 
@@ -180,6 +204,12 @@ def _global_names(source: str) -> list[str]:
                       r"\s+)?(\w+)", text)
 
 
+#: entry points that share a source with another one: their functions
+SOURCE_FUNCTIONS = {
+    "topo_tables_build": ("tt_counts_kernel", "tt_domains_kernel"),
+    "topo_tables_update": ("tt_update_kernel",)}
+
+
 def in_cycle_device_ms(prof) -> dict[str, dict]:
     """Each kernel's device time and launches inside a profiled run, from
     the profiler's per-name totals (its ``__global__`` functions summed;
@@ -195,7 +225,7 @@ def in_cycle_device_ms(prof) -> dict[str, dict]:
         totals[name] = (c + e.count, t + us)
     out = {}
     for k, info in kernels.KERNELS.items():
-        fns = _global_names(info.source)
+        fns = SOURCE_FUNCTIONS.get(k) or _global_names(info.source)
         calls = [totals[f] for f in fns if f in totals]
         out[k] = dict(ms=sum(t for _, t in calls) / 1e3,
                       launches=max((c for c, _ in calls), default=0),
@@ -385,7 +415,7 @@ PREEMPT_MANY = dict(num_nodes=10_000, node_accel=8.0, num_gangs=10_512,
                     tasks_per_gang=8, running_fraction=10_000 / 10_512,
                     num_departments=2, queues_per_department=256,
                     pending_priority_boost=100)
-#: see fragmented_objects
+#: see ``state.fleets.fragmented_objects``
 FRAGMENTED = dict(num_nodes=10_000, pending=256, stale=16)
 #: the victim cells, in the order they run: (cluster, victim wavefront
 #: width — None for the default VictimConfig, 1 for the sequential engine)
@@ -448,129 +478,40 @@ SHARING_RUNS = 3
 SHARING_KEEP = {"pertask_fill": (0, 20), "dense_accept": (0, 20)}
 #: the kernels a sharing (per-task) allocate cycle launches
 SHARING_KERNELS = ("drf_water_fill", "pertask_fill", "dense_accept")
+#: the topology cell: BASELINE config 4 (bench.py:240), uncut — 5,000
+#: nodes of 8 accelerators in 8 blocks x 16 racks, 2,500 rack-required
+#: gangs of 8 replicas (20,000 pods); the uniform path with the domain
+#: tables (K11), K3's topology mode and the dense accept (K10)
+TOPOLOGY = dict(num_nodes=5_000, node_accel=8.0, num_gangs=2_500,
+                tasks_per_gang=8, topology_levels=(8, 16),
+                required_level="topo/level1")
+TOPOLOGY_RUNS = 3
+#: kernel calls kept in its warm-up: the build, the first and the fifth
+#: chunk
+TOPOLOGY_KEEP = {"topo_tables_build": (0,), "topo_tables_update": (0, 4),
+                 "uniform_fill": (0, 4), "dense_accept": (0, 4)}
+TOPOLOGY_KERNELS = ("drf_water_fill", "type_tables", "uniform_fill",
+                    "uniform_fill:topology", "dense_accept",
+                    "dense_accept:no_devices", "topo_tables_build",
+                    "topo_tables_update")
+#: the topology_subgroups cell (the per-task path) on the same tree:
+#: ``state.fleets.topology_subgroup_objects`` with 600 gangs, uncut — a
+#: cycle is one chunk per one to two gangs (every lane's domain-binpack
+#: band picks the same fullest fitting rack), and the CPU oracle's plain
+#: K9 takes about 0.12 s a chunk at 5,000 nodes x 64 lanes on the card's
+#: host (20.7 s for 300 gangs), within the 120 s the oracle may take
+TOPO_SUB = dict(num_nodes=5_000, levels=(8, 16), gangs=600)
+TOPO_SUB_RUNS = 3
+#: K9's calls alternate between a chunk's first attempt and its retry
+#: launch: keep the first chunk's pair and the twentieth's
+TOPO_SUB_KEEP = {"pertask_fill": (0, 1, 40, 41), "dense_accept": (0, 20)}
+TOPO_SUB_KERNELS = ("drf_water_fill", "pertask_fill",
+                    "pertask_fill:topology", "pertask_fill:banned",
+                    "dense_accept")
 #: the cells with a profiled run (each kernel's in-cycle device time)
-PROFILED_CELLS = ("sharing", "saturated", "saturated_sequential",
-                  "preempt_many_queues", "fragmented")
-
-
-def fragmented_objects(apis, *, num_nodes: int, pending: int, stale: int,
-                       node_accel: float = 8.0, victim_accel: float = 2.0,
-                       pending_accel: float = 6.0, now: float = 1000.0):
-    """A fragmented full cluster, built with the object API: every node
-    runs two preemptible one-pod gangs of ``victim_accel``, created node
-    by node (so newest-first victim ranks free one node at a time);
-    ``pending`` one-pod gangs of ``pending_accel`` fit no node idle but fit
-    the cluster's spare capacity; the first gang on each of the first
-    ``stale`` nodes declares a quorum of 2 with one pod left, stale since
-    ``now - 120`` s (past the 60 s grace).  One department and one leaf
-    queue, every quota unlimited.  Returns ``(nodes, queues, groups, pods,
-    now)``."""
-    unl = apis.QueueResource(quota=-1.0)
-    queues = [apis.Queue("dept", accel=unl),
-              apis.Queue("q0", parent="dept", accel=unl)]
-    nodes, groups, pods = [], [], []
-    for i in range(num_nodes):
-        node = f"node-{i}"
-        nodes.append(apis.Node(node, apis.ResourceVec(node_accel, 64.0,
-                                                      256.0),
-                               labels={"kubernetes.io/hostname": node}))
-        for j in range(2):
-            name = f"run-{i}-{j}"
-            is_stale = j == 0 and i < stale
-            groups.append(apis.PodGroup(
-                name, queue="q0", min_member=2 if is_stale else 1,
-                creation_timestamp=float(2 * i + j),
-                last_start_timestamp=float(2 * i + j),
-                stale_since=now - 120.0 if is_stale else None))
-            pods.append(apis.Pod(
-                f"{name}-0", name,
-                resources=apis.ResourceVec(victim_accel, 1.0, 4.0),
-                status=apis.PodStatus.RUNNING, node=node,
-                creation_timestamp=float(2 * i + j)))
-    for k in range(pending):
-        name = f"want-{k}"
-        groups.append(apis.PodGroup(name, queue="q0", min_member=1,
-                                    creation_timestamp=now + k))
-        pods.append(apis.Pod(f"{name}-0", name,
-                             resources=apis.ResourceVec(pending_accel, 1.0,
-                                                        4.0),
-                             creation_timestamp=now + k))
-    return nodes, queues, groups, pods, now
-
-
-def sharing_objects(apis, *, num_nodes: int, shared_nodes: int,
-                    training: int, fractions: int, memory: int,
-                    launchers: int, node_accel: int = 8,
-                    accel_memory_gib: float = 80.0, seed: int = 0):
-    """A GPU-sharing fleet, built with the object API: ``num_nodes`` nodes
-    of ``node_accel`` devices (64 CPU, 256 GiB, ``accel_memory_gib`` per
-    device); two departments of two leaf queues with ``make_cluster``'s
-    quota rule (each leaf deserves a quarter of the devices); one running
-    pod at ``accel_portion=0.5`` on device 0 of each of the first
-    ``shared_nodes`` nodes; pending, round-robin over the four leaves with
-    priorities 0-2 drawn from ``seed``: ``training`` gangs of 8
-    whole-device pods, ``fractions`` one-pod gangs at
-    ``accel_portion=0.5``, ``memory`` one-pod gangs at
-    ``accel_memory_gib=24`` and ``launchers`` gangs of one launcher pod
-    (no device, 4 CPU, 16 GiB) plus 5 one-device workers, interleaved in
-    that proportion.  Returns ``(nodes, queues, groups, pods)``."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    nodes = [apis.Node(f"node-{i}", apis.ResourceVec(float(node_accel), 64.0,
-                                                     256.0),
-                       labels={"kubernetes.io/hostname": f"node-{i}"},
-                       accel_memory_gib=accel_memory_gib)
-             for i in range(num_nodes)]
-    quota = num_nodes * node_accel / 4
-    queues = []
-    for d in range(2):
-        queues.append(apis.Queue(f"dept-{d}",
-                                 accel=apis.QueueResource(quota=2 * quota),
-                                 creation_timestamp=float(d)))
-    leaves = [f"queue-{d}-{j}" for d in range(2) for j in range(2)]
-    for k, name in enumerate(leaves):
-        queues.append(apis.Queue(name, parent=f"dept-{k // 2}",
-                                 accel=apis.QueueResource(quota=quota),
-                                 creation_timestamp=float(k)))
-    groups, pods = [], []
-    for i in range(shared_nodes):
-        name = f"shared-{i}"
-        groups.append(apis.PodGroup(name, queue=leaves[i % 4], min_member=1,
-                                    last_start_timestamp=0.0))
-        pods.append(apis.Pod(f"{name}-0", name,
-                             resources=apis.ResourceVec(0.0, 1.0, 4.0),
-                             accel_portion=0.5,
-                             status=apis.PodStatus.RUNNING,
-                             node=f"node-{i}", accel_devices=[0]))
-    kinds = (["training"] * training + ["fraction"] * fractions
-             + ["memory"] * memory + ["launcher"] * launchers)
-    # interleave the kinds evenly over the creation order
-    total = len(kinds)
-    counts = {"training": training, "fraction": fractions,
-              "memory": memory, "launcher": launchers}
-    order = sorted(
-        (((j + 0.5) / n, k) for k, n in counts.items() for j in range(n)))
-    for g, (_, kind) in enumerate(order[:total]):
-        name = f"{kind}-{g}"
-        queue = leaves[g % 4]
-        prio = int(rng.integers(0, 3))
-        if kind == "training":
-            specs = [dict(resources=apis.ResourceVec(1.0, 4.0, 16.0))] * 8
-        elif kind == "fraction":
-            specs = [dict(resources=apis.ResourceVec(0.0, 1.0, 4.0),
-                          accel_portion=0.5)]
-        elif kind == "memory":
-            specs = [dict(resources=apis.ResourceVec(0.0, 1.0, 4.0),
-                          accel_memory_gib=24.0)]
-        else:
-            specs = ([dict(resources=apis.ResourceVec(0.0, 4.0, 16.0))]
-                     + [dict(resources=apis.ResourceVec(1.0, 4.0, 16.0))] * 5)
-        groups.append(apis.PodGroup(name, queue=queue, min_member=len(specs),
-                                    priority=prio,
-                                    creation_timestamp=float(g)))
-        pods += [apis.Pod(f"{name}-{t}", name, creation_timestamp=float(g),
-                          **spec) for t, spec in enumerate(specs)]
-    return nodes, queues, groups, pods
+PROFILED_CELLS = ("sharing", "topology", "topology_subgroups", "saturated",
+                  "saturated_sequential", "preempt_many_queues",
+                  "fragmented")
 
 
 def fresh_cluster(shape: dict):
@@ -633,6 +574,7 @@ def check_cycle(name: str, shape: dict, gpu, cpu, cluster) -> dict:
 def sharing_cluster():
     from kai_scheduler_tpu_torch.apis import types as apis
     from kai_scheduler_tpu_torch.runtime.cluster import Cluster
+    from kai_scheduler_tpu_torch.state.fleets import sharing_objects
     return Cluster.from_objects(*sharing_objects(apis, **SHARING))
 
 
@@ -706,18 +648,18 @@ def sharing_kernel_checks(cap: Capture) -> dict:
     errs = []
     for args, kw in cap.calls["pertask_fill"]:
         k_out = cap._orig["pertask_fill"](*args, **kw).fields()
-        p_out = A.attempt_gang_in_domain_plain(*args, **kw).fields()
+        p_out = A.pertask_fill_plain(*args, **kw).fields()
         errs.append(_max_abs_err(k_out, p_out))
     args, kw = cap.calls["pertask_fill"][0]
     nodes, tt, cand, prior, free, dev, qa = args[:7]
     B, T = prior.shape
     N, D = dev.shape
     Q = qa.shape[0]
-    steps = int((A.attempt_gang_in_domain_plain(*args, **kw).nodes_t
+    steps = int((A.pertask_fill_plain(*args, **kw).nodes_t
                  >= 0).sum())
     ms = _time_ms(lambda: cap._orig["pertask_fill"](*args, **kw))
     plain_ms = _time_ms(
-        lambda: A.attempt_gang_in_domain_plain(*args, **kw), 5)
+        lambda: A.pertask_fill_plain(*args, **kw), 5)
     K = nodes.labels.shape[1]
     X = nodes.filter_masks.shape[0]
     L = nodes.topology.shape[1]
@@ -759,6 +701,283 @@ def sharing_kernel_checks(cap: Capture) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the topology cells (required, subgroup and preferred levels)
+# ---------------------------------------------------------------------------
+
+def topology_cluster(cell: str):
+    from kai_scheduler_tpu_torch.apis import types as apis
+    from kai_scheduler_tpu_torch.runtime.cluster import Cluster
+    from kai_scheduler_tpu_torch.state import make_cluster
+    from kai_scheduler_tpu_torch.state import fleets
+    if cell == "topology":
+        return Cluster.from_objects(*make_cluster(**TOPOLOGY))
+    return Cluster.from_objects(*fleets.topology_subgroup_objects(
+        apis, make_cluster, **TOPO_SUB))
+
+
+def run_topology_cycle(cell: str, device: str):
+    from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
+                                                             SchedulerConfig)
+    cluster = topology_cluster(cell)
+    t0 = time.perf_counter()
+    res = Scheduler(SchedulerConfig(actions=("allocate",)),
+                    device=device).run_once(cluster)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, cluster, time.perf_counter() - t0
+
+
+def check_topology_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
+    """The GPU topology cycle equals the CPU oracle (packed commit,
+    BindRequests, retries), every bound gang is whole and every bound
+    gang — every subgroup, where the gang declares them — sits in one rack
+    (``topo/level1`` under its ``topo/level0`` block), and the cell's
+    kernels launched."""
+    res, secs = gpu
+    if res.packed.tobytes() != cpu.packed.tobytes():
+        diff = int((res.packed != cpu.packed).sum())
+        raise AssertionError(f"{cell}: packed commit differs from the CPU "
+                             f"oracle in {diff} of {res.packed.size} i16")
+    if _binds(res.bind_requests) != _binds(cpu.bind_requests):
+        raise AssertionError(f"{cell}: BindRequests differ from the oracle")
+    if (res.retries, res.retry_chunks) != (cpu.retries, cpu.retry_chunks):
+        raise AssertionError(
+            f"{cell}: {res.retries} retries in {res.retry_chunks} chunks, "
+            f"the oracle {cpu.retries} in {cpu.retry_chunks}")
+    per_gang: dict[str, int] = {}
+    racks: dict[tuple, set] = {}
+    for br in res.bind_requests:
+        pod = cluster.pods[br.pod_name]
+        per_gang[pod.group] = per_gang.get(pod.group, 0) + 1
+        labels = cluster.nodes[br.selected_node].labels
+        rack = (labels["topo/level0"], labels["topo/level1"])
+        racks.setdefault((pod.group, pod.subgroup), set()).add(rack)
+    for g, n in per_gang.items():
+        if n != cluster.pod_groups[g].min_member:
+            raise AssertionError(f"{cell}: gang {g} bound {n} of "
+                                 f"{cluster.pod_groups[g].min_member} pods")
+    spread = [k for k, v in racks.items() if len(v) != 1]
+    if spread:
+        raise AssertionError(f"{cell}: {len(spread)} rack-required gangs "
+                             f"or subgroups span racks, e.g. {spread[0]}")
+    need = TOPOLOGY_KERNELS if cell == "topology" else TOPO_SUB_KERNELS
+    missing = [k for k in need if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{cell}: kernels never launched: {missing}")
+    if not per_gang:
+        raise AssertionError(f"{cell}: nothing bound")
+    t = res.tensors
+    if not bool(torch.isfinite(t.queue_allocated).all()):
+        raise AssertionError(f"{cell}: non-finite queue allocation")
+    return dict(
+        cycle_seconds=secs, binds=len(res.bind_requests),
+        pods_bound_per_s=len(res.bind_requests) / secs,
+        gangs_allocated=int(t.allocated.sum()),
+        gangs_attempted=int(t.attempted.sum()),
+        racks_used=len({r for v in racks.values() for r in v}),
+        fit_reason_counts={int(k): int(v) for k, v in zip(
+            *torch.unique(t.fit_reason.cpu(), return_counts=True))},
+        chunks=res.chunks, retries=res.retries,
+        retry_chunks=res.retry_chunks, phase_seconds=res.phase_seconds,
+        action_seconds=res.action_seconds,
+        shape=TOPOLOGY if cell == "topology" else TOPO_SUB, launches=counts)
+
+
+def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
+    """K11 and the topology modes of K3, K9 and K10 on the inputs captured
+    from the two topology warm-ups vs their plain versions, both on the
+    card (tolerance 0), kernel and plain times, and the least time the
+    card could take for these inputs."""
+    from kai_scheduler_tpu_torch.ops import allocate as A
+    out = {}
+
+    def held(key, plain, calls):
+        k_fn = tcap._orig[key]
+        errs = [_max_abs_err(k_fn(*a, **kw), plain(*a, **kw))
+                for a, kw in calls]
+        return max(errs), len(errs)
+
+    # K11 build — reads the pools, the fit table and the CSR once, writes
+    # the three tables; ~12 operations per (type, node) for the counts,
+    # one add per CSR entry for the aggregate and per (type, entry) for
+    # the caps
+    calls = tcap.calls["topo_tables_build"]
+    err, n = held("topo_tables_build", A.topo_tables_build_plain, calls)
+    args, kw = calls[0]
+    st, fp_build, avail, valid, type_req = args
+    Y, N = fp_build.shape
+    L = st.dom_of.shape[0]
+    ND, M = N * L, st.dom_nodes.numel()
+    k_fn = tcap._orig["topo_tables_build"]
+    ms = _time_ms(lambda: k_fn(*args, **kw))
+    plain_ms = _time_ms(lambda: A.topo_tables_build_plain(*args, **kw))
+    ids = st.dom_of[0].long()
+    acc = avail[:, 0].contiguous()
+    lib_ms = _time_ms(lambda: torch.zeros(
+        (ND + 1,), device=acc.device).index_add_(0, ids, acc))
+    nb = (_nbytes(fp_build, avail, type_req, st.dom_ptr, st.dom_nodes)
+          + Y * ND * 4 + ND * 4 + Y * (N + 1) * 4)
+    b, by = bound(nb, Y * N * 12 + M * (1 + Y))
+    out["topo_tables_build"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        nearest_library_ms=lib_ms,
+        nearest_library="index_add_ of one level's aggregate (atomic order)",
+        checked=n, shape=f"Y={Y} N={N} L={L} ND={ND}")
+
+    # K11 update — the three tables in and out, the taken entries and the
+    # touched nodes' rows once; per touched (type, node) ~12 operations
+    # for the count, per level one add per entry and per changed count
+    calls = tcap.calls["topo_tables_update"]
+    err, n = held("topo_tables_update", A.topo_tables_update_plain, calls)
+    args, kw = calls[-1]
+    (st, fp_build, caps, agg, c_y, avail, take, nodes_b, req0_b,
+     type_req) = args
+    B, T = nodes_b.shape
+    placed = take[:, None] & (nodes_b >= 0)
+    K = int(placed.sum())
+    U = int(torch.unique(nodes_b[placed]).numel())
+    k_fn = tcap._orig["topo_tables_update"]
+    ms = _time_ms(lambda: k_fn(*args, **kw))
+    plain_ms = _time_ms(lambda: A.topo_tables_update_plain(*args, **kw))
+    nb = (2 * _nbytes(caps, agg, c_y) + _nbytes(nodes_b, take, req0_b)
+          + U * (12 + Y + 4 * L))
+    b, by = bound(nb, Y * U * (12 + L) + K * L)
+    out["topo_tables_update"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        checked=n, shape=f"B={B} T={T} entries={K} nodes={U} Y={Y} ND={ND}")
+
+    # K3 topology mode — as kernel_checks' K3 plus, per lane, the pick's
+    # walk over the ND domains (order, caps, level: each table read once)
+    # and the rows out
+    calls = tcap.calls["uniform_fill"]
+    err, n = held("uniform_fill", A.uniform_fill_plain, calls)
+    args, kw = calls[0]
+    (cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, lt, tables,
+     soft, valid) = args
+    topo = kw["topo"]
+    B, T = prior.shape
+    Q = qa.shape[0]
+    N = valid.shape[0]
+    ND = topo.level_of_dom.shape[0]
+    k_fn = tcap._orig["uniform_fill"]
+    ms = _time_ms(lambda: k_fn(*args, **kw))
+    plain_ms = _time_ms(lambda: A.uniform_fill_plain(*args, **kw))
+    lane_bytes = (B * (12 + T + 3 * 4 + 1 + 4 * 3)
+                  + B * (2 * Q * 3 * 4 + T * 5 + 1 + T * 24))
+    nb = (_nbytes(cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain,
+                  soft, valid, *tables, topo.dom_caps_y, topo.level_of_dom,
+                  topo.order, topo.topology, kw["free"]) + lane_bytes)
+    b, by = bound(nb, B * N * 10 + B * ND * 3)
+    out["uniform_fill:topology"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        checked=n, shape=f"B={B} T={T} N={N} ND={ND} Q={Q}")
+
+    # K3 preferred mode — the same inputs with every other lane's gang
+    # preferring its block (topo/level0): a second pass over the nodes
+    pref = torch.full_like(lt.queue, -1)
+    pref[cand[::2].long()] = 0
+    pkw = dict(kw, topo=dataclasses.replace(topo, pref_level=pref))
+    err = _max_abs_err(k_fn(*args, **pkw), A.uniform_fill_plain(*args, **pkw))
+    ms = _time_ms(lambda: k_fn(*args, **pkw))
+    plain_ms = _time_ms(lambda: A.uniform_fill_plain(*args, **pkw))
+    b, by = bound(nb + _nbytes(pref), B * N * 22 + B * ND * 3)
+    out["uniform_fill:preferred"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        checked=1, shape=f"B={B} N={N}, {B // 2 + B % 2} lanes preferring")
+
+    # K10 without the device table (the uniform lanes' rows here; the
+    # per-task path without GPU sharing runs the same mode) — the
+    # entries' rows, the pools at their nodes and the queue deltas once
+    calls = tcap.calls["dense_accept"]
+    err, n = held("dense_accept", A.dense_accept_plain, calls)
+    args, kw = calls[-1]
+    nodes_b, ok = args[0], args[1]
+    B, T = nodes_b.shape
+    Q = args[13].shape[0]
+    ent = ok[:, None] & (nodes_b >= 0)
+    E = int(ent.sum())
+    U = int(torch.unique(nodes_b[ent]).numel())
+    k_fn = tcap._orig["dense_accept"]
+    ms = _time_ms(lambda: k_fn(*args, **kw))
+    plain_ms = _time_ms(lambda: A.dense_accept_plain(*args, **kw), 5)
+    nb = B * T * (4 + 2 * 12) + U * 2 * 24 + B * (2 + 2 * Q * 12) + 4 * Q * 12
+    b, by = bound(nb, E * 2 * 6)
+    out["dense_accept:no_devices"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        checked=n, shape=f"B={B} T={T} Q={Q} entries={E} nodes={U}")
+
+    # K9 subgroup-topology mode — sharing_kernel_checks' K9 bytes plus the
+    # chunk-start [ND, R] aggregate once and each placed step's debit at
+    # every level (the copies into the lanes' rows are the kernel's own
+    # cost, not the function's); per placed task step ~70 operations a
+    # node (the domain gate and band)
+    calls = [c for c in scap.calls["pertask_fill"]
+             if c[1].get("active") is None]
+    retry_calls = [c for c in scap.calls["pertask_fill"]
+                   if c[1].get("active") is not None]
+
+    def fields(o):
+        return o.fields()
+    k_fn = scap._orig["pertask_fill"]
+    errs = [_max_abs_err(fields(k_fn(*a, **kw)),
+                         fields(A.pertask_fill_plain(*a, **kw)))
+            for a, kw in calls]
+    args, kw = calls[0]
+    nodes, tt, cand, prior, free, dev, qa = args[:7]
+    B, T = prior.shape
+    N = free.shape[0]
+    L = nodes.topology.shape[1]
+    Q = qa.shape[0]
+    first = k_fn(*args, **kw)
+    steps = int((first.nodes_t >= 0).sum())
+    ms = _time_ms(lambda: k_fn(*args, **kw))
+    plain_ms = _time_ms(lambda: A.pertask_fill_plain(*args, **kw), 5)
+    K_ = nodes.labels.shape[1]
+    X = nodes.filter_masks.shape[0]
+    node_bytes = N * (5 * 12 + 1 + 4 * K_ + 5 * X + 4 + 4 * L)
+    lane_bytes = B * (8 + T * (12 + 1 + 4 * K_ + 4 * 5))
+    out_bytes = B * (2 * Q * 12 + T * 9 + 1 + T * 24)
+    agg_bytes = (N * L + 1) * 12 + steps * L * 12
+    b, by = bound(node_bytes + lane_bytes + out_bytes + agg_bytes,
+                  steps * N * 70)
+    out["pertask_fill:topology"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, checked=len(errs),
+        shape=f"B={B} T={T} N={N} L={L} Q={Q} placed steps={steps}")
+
+    # K9 banned mode — on the first chunk's inputs with the first
+    # attempt's locked domains banned: every lane; the retry's active
+    # lanes (the failed ones) over the first output, on the first
+    # launch's scratch (its chunk-start row copied, not summed) and on a
+    # scratch of its own; and the retry launches the warm-up captured
+    banned = first.sub_dom
+    bkw = dict(kw, banned=banned)
+    rkw = dict(bkw, active=~first.success, base=first)
+    errs = [_max_abs_err(fields(k_fn(*args, **bkw)),
+                         fields(A.pertask_fill_plain(*args, **bkw)))]
+    for agg in (A.pertask_agg_scratch(B, kw["topo"], free), None):
+        if agg is not None:
+            k_fn(*args, **dict(kw, agg=agg))   # its chunk-start row
+        rkw["agg"] = agg
+        errs.append(_max_abs_err(fields(k_fn(*args, **rkw)),
+                                 fields(A.pertask_fill_plain(*args, **rkw))))
+    errs += [_max_abs_err(fields(k_fn(*a, **kw2)),
+                          fields(A.pertask_fill_plain(*a, **kw2)))
+             for a, kw2 in retry_calls]
+    ms = _time_ms(lambda: k_fn(*args, **bkw))
+    plain_ms = _time_ms(lambda: A.pertask_fill_plain(*args, **bkw), 5)
+    steps_b = int((k_fn(*args, **bkw).nodes_t >= 0).sum())
+    b, by = bound(node_bytes + lane_bytes + out_bytes + (N * L + 1) * 12
+                  + steps_b * L * 12 + _nbytes(banned), steps_b * N * 70)
+    out["pertask_fill:banned"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, checked=len(errs),
+        shape=f"B={B} every lane banned from its first domains, "
+              f"{len(retry_calls)} captured retry launches")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the victim cells
 # ---------------------------------------------------------------------------
 
@@ -781,6 +1000,7 @@ def victim_cluster(cell: str):
     from kai_scheduler_tpu_torch.apis import types as apis
     from kai_scheduler_tpu_torch.runtime.cluster import Cluster
     from kai_scheduler_tpu_torch.state import make_cluster
+    from kai_scheduler_tpu_torch.state.fleets import fragmented_objects
     kind = VICTIM_CELLS[cell][0]
     if kind == "saturated":
         return Cluster.from_objects(*make_cluster(**SATURATED))
@@ -1212,7 +1432,58 @@ def main() -> int:
     checks.update(sharing_kernel_checks(scap))
     del scap
 
-    # -- 6. the victim cells: one GPU run each (counts reset just before,
+    # -- 6. the topology cells: a warm-up run under the profiler's CUDA
+    # activity with their kernels' inputs captured, timed runs (counts
+    # reset just before, read just after), one CPU oracle run -------------
+    tcaps = {}
+    for cell, keep, reps in (("topology", TOPOLOGY_KEEP, TOPOLOGY_RUNS),
+                             ("topology_subgroups", TOPO_SUB_KEEP,
+                              TOPO_SUB_RUNS)):
+        with Capture(keep) as tcap, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, _, warm_s = run_topology_cycle(cell, "cuda")
+        in_cycle = in_cycle_device_ms(prof)
+        del prof
+        runs = []
+        for _ in range(reps):
+            kernels.reset_launch_counts()
+            res, cluster, secs = run_topology_cycle(cell, "cuda")
+            runs.append((res, cluster, secs, kernels.launch_counts()))
+        cpu, _, cpu_s = run_topology_cycle(cell, "cpu")
+        recs = [check_topology_cycle(cell, (res, secs), cpu, cluster, counts)
+                for res, cluster, secs, counts in runs]
+        secs_all = sorted(r["cycle_seconds"] for r in recs)
+        rec = dict(recs[-1])
+        rec.update(runs=len(recs), cycle_seconds_all=secs_all,
+                   cycle_seconds_median=statistics.median(secs_all),
+                   pods_bound_per_s_median=rec["binds"]
+                   / statistics.median(secs_all),
+                   warm_up_seconds=warm_s, cpu_oracle_seconds=cpu_s,
+                   in_cycle_ms=in_cycle)
+        report[cell] = rec
+        tcaps[cell] = tcap
+        log(f"{cell}: {len(recs)} cycles, median "
+            f"{rec['cycle_seconds_median']:.4f} s (min {secs_all[0]:.4f}, "
+            f"max {secs_all[-1]:.4f}; profiled warm-up {warm_s:.3f}), "
+            f"{rec['binds']} binds ({rec['pods_bound_per_s_median']:.0f} "
+            f"pods/s) in {rec['racks_used']} racks, "
+            f"{rec['gangs_allocated']} gangs allocated of "
+            f"{rec['gangs_attempted']} attempted, {rec['chunks']} chunks, "
+            f"{rec['retries']} retries (the retry launch had a retried "
+            f"lane in {rec['retry_chunks']} chunks), fit reasons "
+            f"{rec['fit_reason_counts']}, launches {rec['launches']}; every "
+            f"commit, BindRequest and retry count == CPU oracle "
+            f"({cpu_s:.1f} s), every gang and subgroup in one rack")
+        log("  phases (last run): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+        log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+    topo_checks = topology_kernel_checks(tcaps["topology"],
+                                         tcaps["topology_subgroups"])
+    for k in ("topo_tables_build", "topo_tables_update"):
+        checks[k] = topo_checks.pop(k)
+    del tcaps
+
+    # -- 7. the victim cells: one GPU run each (counts reset just before,
     # read just after), one CPU oracle run --------------------------------
     # (a first GPU run, not timed, under the profiler's CUDA activity
     # with the victim kernels' inputs captured, gives each kernel's
@@ -1268,17 +1539,34 @@ def main() -> int:
                     ("replace_victims", "fragmented"),
                     ("freed_by_lane", "saturated"),
                     ("pertask_fill", "sharing"),
-                    ("dense_accept", "sharing")):
+                    ("dense_accept", "sharing"),
+                    ("topo_tables_build", "topology"),
+                    ("topo_tables_update", "topology")):
         path_of[k] = (cell, report[cell]["launches"])
-    #: the victim wavefront's modes of K2-K4 and the cell they run in
+    #: each kernel mode and the cell whose run its row's launches read
     mode_path = {"type_tables:lanes": "saturated",
                  "uniform_fill:lanes": "saturated",
-                 "sparse_accept:credit": "preempt_many_queues"}
+                 "sparse_accept:credit": "preempt_many_queues",
+                 "uniform_fill:topology": "topology",
+                 "uniform_fill:preferred": "topology",
+                 "dense_accept:no_devices": "topology",
+                 "pertask_fill:topology": "topology_subgroups",
+                 "pertask_fill:banned": "topology_subgroups"}
 
-    for name, c in list(checks.items()) + list(lane_checks.items()):
+    #: each mode's launches, counted by its wrapper at the launch in the
+    #: last timed run of its cell (config 4 prefers no level: K3's
+    #: preferred mode launches 0 times there, and is held on the captured
+    #: inputs only)
+    mode_launches = {m: report[c]["launches"][m]
+                     for m, c in mode_path.items()}
+
+    for name, c in (list(checks.items()) + list(lane_checks.items())
+                    + list(topo_checks.items())):
         cell, counts = (path_of[name] if name in path_of else
                         (mode_path[name], report[mode_path[name]]["launches"]))
         base = name.split(":")[0]
+        if name in mode_launches:
+            counts = {base: mode_launches[name]}
         lib = ("" if c.get("nearest_library_ms") is None else
                f", nearest library call {c['nearest_library']}: "
                f"{c['nearest_library_ms']:.4f} ms")
@@ -1294,7 +1582,7 @@ def main() -> int:
             f"in the profiled runs: {in_cyc}")
     log(f"launch floor (one PyTorch call on one element): "
         f"{report['launch_floor_ms']:.4f} ms")
-    report["kernel_checks"] = dict(checks, **lane_checks)
+    report["kernel_checks"] = dict(checks, **lane_checks, **topo_checks)
     rows = []
     for name, info in kernels.KERNELS.items():
         c = checks[name]
@@ -1313,11 +1601,26 @@ def main() -> int:
         if mode in lane_checks:
             m = lane_checks[mode]
             row["victim_mode"] = dict(
-                cell=mode_path[mode],
-                launches=report[mode_path[mode]]["launches"][name],
+                cell=mode_path[mode], launches=mode_launches[mode],
                 **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "shape")})
         rows.append(row)
+    # the topology path's modes, a row each (the launches of the kernel
+    # in the cell that runs the mode)
+    for name, c in topo_checks.items():
+        base = name.split(":")[0]
+        info = kernels.KERNELS[base]
+        cell = mode_path[name]
+        rows.append(dict(
+            name=name, route="cuda", source=info.source,
+            replaces=info.replaces,
+            launches=mode_launches[name],
+            max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+            launches_path=cell if mode_launches[name] else None,
+            in_cycle_ms=({v: report[v]["in_cycle_ms"][base]["ms"]
+                          for v in PROFILED_CELLS}
+                         if mode_launches[name] else None)))
     report["kernels"] = rows
     report["card"] = card
     os.makedirs(OUT_DIR, exist_ok=True)

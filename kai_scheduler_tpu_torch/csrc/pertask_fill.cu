@@ -29,6 +29,27 @@
 // pipeline flag, and the FINAL rows of the node it took (the dense accept,
 // K10, needs free - free2, which is not the sum of the task deltas in f32).
 //
+// The subgroup-topology mode (dom_ptr given; ref :650-668, :729-760,
+// :855-866, :878-882): a first launch sums the chunk-start pools (idle +
+// releasing + victim-freed) per domain, each domain's nodes in ascending
+// order from +0.0 (XLA:CPU's scatter-add order: memory and CPU carry
+// fractions), into row B of a global scratch, [B + 1, ND + 1, 3] (180 KB
+// a row at 5,000 nodes x 3 levels: no room in shared memory), and copies
+// it into every active lane's row; with `agg_ready` (the chunk's retry
+// launch, on the scratch of its first) row B already holds the table and
+// is only copied, into the retried lanes' rows.  Each lane keeps its
+// subgroups' locks and remaining requests in shared memory.  A task step
+// of a subgroup with a required level is confined to its locked domain;
+// its first placement needs a domain whose aggregate still holds the
+// subgroup's remaining request (and is not the one `banned` names), and
+// gets the domain-binpack band W_TOPOLOGY * (1 - agg / max(mx, EPS)) with
+// mx the block max of the fitting domains' aggregates — the pass that
+// builds the fit bits takes that max too.  The chosen node's domain at
+// every level loses the placement in the lane's scratch row.  `active`
+// runs only the lanes of the in-cycle retry (ref :1274-1289), each block
+// with its own lane index; the other blocks return at once and leave
+// their outputs as they were.
+//
 // Bound: per task step each block reads the node pools, labels, filter and
 // soft rows (~150 bytes a node with 8 devices, shared by every lane through
 // L2) and does a few hundred f32 operations a node; it is latency- and
@@ -59,7 +80,46 @@ struct PfLane {
   int cls, nom, node;
   bool is_frac, any_fp;
   float mn, mx;
+  // subgroup topology: the step's subgroup, its level's column, its lock,
+  // its banned domain, and the block max of the fitting domains' accel
+  int sub, lvl, locked, banned;
+  bool has_srl, needs_pick;
+  float dmx;
+  // the subgroups' locked domains and remaining requests
+  int sub_dom[PF_MAXS];
+  float sub_rem[PF_MAXS][3];
 };
+
+// the chunk-start domain aggregate (row B of the scratch; summed unless
+// `ready`), copied into every active lane's row
+__global__ void __launch_bounds__(PF_THREADS) pf_domain_agg_kernel(
+    const int* __restrict__ dom_ptr, const int* __restrict__ dom_nodes,
+    const float* __restrict__ free0, const float* __restrict__ rel,
+    const float* __restrict__ extra, const u8* __restrict__ active, int B,
+    int ND, int ready, float* __restrict__ agg) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d > ND) return;
+  float* start = agg + ((size_t)B * (ND + 1) + d) * 3;
+  float a[3] = {0.0f, 0.0f, 0.0f};
+  if (ready) {
+    for (int r = 0; r < 3; ++r) a[r] = start[r];
+  } else {
+    if (d < ND)  // the junk row ND is never read: it stays zero
+      for (int j = dom_ptr[d]; j < dom_ptr[d + 1]; ++j) {
+        const size_t o = (size_t)dom_nodes[j] * 3;
+        for (int r = 0; r < 3; ++r)
+          a[r] = __fadd_rn(a[r], __fadd_rn(__fadd_rn(free0[o + r],
+                                                     rel[o + r]),
+                                           extra[o + r]));
+      }
+    for (int r = 0; r < 3; ++r) start[r] = a[r];
+  }
+  for (int b = 0; b < B; ++b) {
+    if (active && !active[b]) continue;
+    float* row = agg + ((size_t)b * (ND + 1) + d) * 3;
+    for (int r = 0; r < 3; ++r) row[r] = a[r];
+  }
+}
 
 // inclusive block scan of one int per thread; the block total in *total
 __device__ int pf_block_scan(int v, int* total) {
@@ -126,7 +186,10 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
     const float* __restrict__ limit_eff, const float* __restrict__ quota_eff,
     const u8* __restrict__ chain,
     // lanes
-    const int* __restrict__ cand, const int* __restrict__ prior, int T, int N,
+    const int* __restrict__ cand, const int* __restrict__ prior,
+    // subgroup topology
+    const int* __restrict__ srl, const int* __restrict__ banned,
+    const u8* __restrict__ active, float* __restrict__ agg_all, int T, int N,
     int D, int K, int L, int S, int Q, int binpack_accel, int binpack_cpu,
     int device_pack, int track, float jscale,
     // outputs
@@ -134,17 +197,22 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
     int* __restrict__ nodes_t, int* __restrict__ dev_t,
     u8* __restrict__ pipe_t, u8* __restrict__ success,
     float* __restrict__ free_rows, float* __restrict__ dev_rows,
-    float* __restrict__ bind_rows, float* __restrict__ devbind_rows) {
+    float* __restrict__ bind_rows, float* __restrict__ devbind_rows,
+    int* __restrict__ sub_dom_out) {
   extern __shared__ u8 s_flags[];  // [N]: bit 0 fit_idle, bit 1 fit_pipe
   __shared__ PfLane Ln;
   __shared__ PfTouch s_touch[PF_MAXT];
   __shared__ int s_forbid[2 * PF_MAXT];
   __shared__ bool s_elig[PF_MAXT], s_gate[PF_MAXT];
-  __shared__ float s_wf[PF_WARPS], s_wg[PF_WARPS];
+  __shared__ float s_wf[PF_WARPS], s_wg[PF_WARPS], s_wd[PF_WARPS];
   __shared__ int s_wi[PF_WARPS];
   const int b = blockIdx.x;
+  if (active && !active[b]) return;  // not a retried lane: keep its output
   const int tid = threadIdx.x;
   const int lane_w = tid & 31, warp = tid >> 5;
+  const bool topo = agg_all != nullptr;
+  const int ND = N * L;
+  float* agg = topo ? agg_all + (size_t)b * (ND + 1) * 3 : nullptr;
 
   // ---- lane set-up (one thread): eligible set, gates, anti-self seeds -----
   if (tid == 0) {
@@ -201,6 +269,26 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
       goal += s_elig[t];
     }
     Ln.goal = goal;
+    if (topo) {
+      // each subgroup's remaining request of this attempt (task order from
+      // +0.0) and its lock, seeded from the prior placements
+      for (int s2 = 0; s2 < S; ++s2) {
+        Ln.sub_dom[s2] = -1;
+        for (int r = 0; r < 3; ++r) Ln.sub_rem[s2][r] = 0.0f;
+      }
+      for (int t = 0; t < T; ++t)
+        for (int r = 0; r < 3; ++r)
+          Ln.sub_rem[sub[t]][r] = __fadd_rn(
+              Ln.sub_rem[sub[t]][r],
+              s_elig[t] ? task_req[((size_t)gi * T + t) * 3 + r] : 0.0f);
+      for (int t = 0; t < T; ++t) {
+        const int lv = srl[(size_t)gi * S + sub[t]];
+        if (already[t] && lv >= 0)
+          Ln.sub_dom[sub[t]] =
+              max(Ln.sub_dom[sub[t]],
+                  topology[(size_t)pb[t] * L + min(lv, L - 1)]);
+      }
+    }
     // queue gates on every task prefix: cum_req in jnp.cumsum's blocked
     // order (blocks of 16 from +0.0, then the block totals' prefix)
     const u8* anc = chain + (size_t)Ln.queue * Q;
@@ -269,8 +357,24 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
       Ln.cls = task_class[o];
       Ln.nom = task_nom[o];
       Ln.is_frac = Ln.por > 0.0f || Ln.mem > 0.0f;
+      if (topo) {
+        const int st = task_sub[o];
+        const int lv = srl[(size_t)Ln.gi * S + st];
+        Ln.sub = st;
+        Ln.has_srl = lv >= 0;
+        Ln.lvl = min(max(lv, 0), L - 1);
+        Ln.locked = Ln.sub_dom[st];
+        Ln.needs_pick = Ln.has_srl && Ln.locked < 0;
+        Ln.banned = banned ? banned[(size_t)b * S + st] : INT_MIN;
+      } else {
+        Ln.has_srl = Ln.needs_pick = false;
+      }
     }
     __syncthreads();
+    const bool has_srl = Ln.has_srl, needs_pick = Ln.needs_pick;
+    const int lvl_s = has_srl ? Ln.lvl : 0, locked = has_srl ? Ln.locked : -1;
+    const int ban = needs_pick ? Ln.banned : INT_MIN;
+    const float* srem = Ln.sub_rem[has_srl ? Ln.sub : 0];
     const float req0 = Ln.req[0], req1 = Ln.req[1], req2 = Ln.req[2];
     const float por = Ln.por, mem = Ln.mem;
     const bool is_frac = Ln.is_frac;
@@ -282,10 +386,26 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
     const bool binpack = req0 > 0.0f ? binpack_accel != 0 : binpack_cpu != 0;
 
     // ---- pass 1: fit bits, density range, any feasible --------------------
-    float mn = big, mx = -big;
+    float mn = big, mx = -big, dmx = -INFINITY;
     int any = 0;
     for (int n = tid; n < N; n += PF_THREADS) {
-      bool ok_sel = valid[n] && fmask[(size_t)cls * N + n];
+      // the required level: locked domain, or a domain whose aggregate
+      // holds the subgroup's remaining request (its max over every node)
+      bool dom_ok = false, dom_pass = true;
+      if (has_srl) {
+        const int dc = topology[(size_t)n * L + lvl_s];
+        if (needs_pick) {
+          dom_ok = dc >= 0 && dc != ban;
+          const float* a = agg + (size_t)max(dc, 0) * 3;
+          for (int r = 0; r < 3 && dom_ok; ++r)
+            dom_ok = __fadd_rn(a[r], KAI_EPS) >= srem[r];
+          dmx = fmaxf(dmx, dom_ok ? a[0] : 0.0f);
+          dom_pass = dom_ok;
+        } else {
+          dom_pass = dc == locked;
+        }
+      }
+      bool ok_sel = dom_pass && valid[n] && fmask[(size_t)cls * N + n];
       for (int kk = 0; kk < K && ok_sel; ++kk) {
         const int sv = sel[kk];
         if (sv >= 0 && labels[(size_t)n * K + kk] != sv) ok_sel = false;
@@ -321,7 +441,7 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
           fi = fi && pf_pool_ok(dr, D, p, is_frac, req0);
           fp = fp && pf_pool_ok(dp, D, p, is_frac, req0);
         }
-        fl = (fi ? 1 : 0) | (fp ? 2 : 0);
+        fl = (fi ? 1 : 0) | (fp ? 2 : 0) | (dom_ok ? 4 : 0);
         if (fp) {
           any = 1;
           if (alloc[n * 3 + res] > 0.0f) {
@@ -336,19 +456,23 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
     for (int off = 16; off > 0; off >>= 1) {
       mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, off));
       mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, off));
+      dmx = fmaxf(dmx, __shfl_down_sync(0xffffffffu, dmx, off));
     }
     if (lane_w == 0) {
       s_wf[warp] = mn;
       s_wg[warp] = mx;
+      s_wd[warp] = dmx;
     }
     any = __syncthreads_or(any);
     if (tid == 0) {
       for (int w = 1; w < PF_WARPS; ++w) {
         s_wf[0] = fminf(s_wf[0], s_wf[w]);
         s_wg[0] = fmaxf(s_wg[0], s_wg[w]);
+        s_wd[0] = fmaxf(s_wd[0], s_wd[w]);
       }
       Ln.mn = s_wf[0];
       Ln.mx = s_wg[0];
+      Ln.dmx = s_wd[0];
       Ln.any_fp = any != 0;
     }
     __syncthreads();
@@ -364,6 +488,7 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
     mn = Ln.mn;
     mx = Ln.mx;
     const float span = __fsub_rn(mx, mn);
+    const float dmx_eps = fmaxf(Ln.dmx, KAI_EPS);
 
     // ---- pass 2: feasible rank, score, argmax (lowest node on ties) -------
     float best = -INFINITY;
@@ -402,16 +527,24 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
           const float avl = fi ? 100.0f : 0.0f;
           const float bands =
               __fadd_rn(__fadd_rn(__fadd_rn(0.0f, place), rtype), avl);
-          const float topo =
+          const float topo_b =
               (Ln.has_pref && pref_dom >= 0 &&
                topology[(size_t)n * L + lvl_pref] == pref_dom)
                   ? 10000.0f
                   : 0.0f;
+          // the domain-binpack band of a subgroup's first placement
+          float dom_band = 0.0f;
+          if (needs_pick && (fl & 4)) {
+            const float a = agg[(size_t)topology[(size_t)n * L + lvl_s] * 3];
+            dom_band = __fmul_rn(10000.0f,
+                                 __fsub_rn(1.0f, __fdiv_rn(a, dmx_eps)));
+          }
           const int rank = running + incl - 1;
           const float jit = __fmul_rn(jscale, (float)kai_pymod(rank - b, N));
-          float eb = __fadd_rn(__fadd_rn(__fadd_rn(topo, jit),
-                                         soft[(size_t)cls * N + n]),
-                               n == nom ? 1000000.0f : 0.0f);
+          float eb = __fadd_rn(
+              __fadd_rn(__fadd_rn(__fadd_rn(topo_b, dom_band), jit),
+                        soft[(size_t)cls * N + n]),
+              n == nom ? 1000000.0f : 0.0f);
           if (track) {
             const float p = pf_portion(por, mem, dev_mem, n);
             const float pm = __fsub_rn(p, KAI_EPS);
@@ -533,12 +666,27 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
       ++Ln.count;
       if (Ln.pref_dom < 0)
         Ln.pref_dom = topology[(size_t)node * L + lvl_pref];
+      if (topo) {
+        const int st = Ln.sub;
+        if (needs_pick) Ln.sub_dom[st] = topology[(size_t)node * L + lvl_s];
+        for (int r = 0; r < 3; ++r)
+          Ln.sub_rem[st][r] = __fadd_rn(Ln.sub_rem[st][r], -Ln.req[r]);
+        // the node's domain at every level loses the placement
+        for (int lv = 0; lv < L; ++lv) {
+          const int did = topology[(size_t)node * L + lv];
+          float* a = agg + (size_t)(did >= 0 ? did : ND) * 3;
+          for (int r = 0; r < 3; ++r) a[r] = __fadd_rn(a[r], -dn[r]);
+        }
+      }
     }
     __syncthreads();
   }
 
   // ---- outputs: success, final rows of the touched nodes, queue tables ---
   if (tid == 0) success[b] = (Ln.goal > 0 && Ln.count >= Ln.goal) ? 1 : 0;
+  if (topo)
+    for (int s2 = tid; s2 < S; s2 += PF_THREADS)
+      sub_dom_out[(size_t)b * S + s2] = Ln.sub_dom[s2];
   for (int t = tid; t < T; t += PF_THREADS) {
     const int node = nodes_t[(size_t)b * T + t];
     const size_t o = (size_t)b * T + t;
@@ -575,15 +723,29 @@ KAI_EXPORT int kai_pertask_fill(
     const u8* valid, const int* labels, const u8* fmask, const float* soft,
     const float* dev_mem, const int* topology, const float* qa,
     const float* qan, const float* limit_eff, const float* quota_eff,
-    const u8* chain, const int* cand, const int* prior, int B, int T, int N,
-    int D, int K, int X, int L, int S, int Q, int G, int binpack_accel,
-    int binpack_cpu, int device_pack, int track, float jscale, float* qa2,
+    const u8* chain, const int* cand, const int* prior, const int* srl,
+    const int* dom_ptr, const int* dom_nodes, const int* banned,
+    const u8* active, float* agg_scratch, int B, int T, int N, int D, int K,
+    int X, int L, int S, int Q, int G, int binpack_accel, int binpack_cpu,
+    int device_pack, int track, int agg_ready, float jscale, float* qa2,
     float* qan2, int* nodes_t, int* dev_t, u8* pipe_t, u8* success,
     float* free_rows, float* dev_rows, float* bind_rows, float* devbind_rows,
-    cudaStream_t stream) {
+    int* sub_dom, cudaStream_t stream) {
   if (B < 1 || T < 1 || T > PF_MAXT || N < 1 || D < 0 || D > PF_MAXD ||
       K < 0 || X < 1 || L < 1 || S < 1 || S > PF_MAXS || Q < 1 || G < 1)
     return KAI_ERR_ARGS;
+  const bool topo = dom_ptr != nullptr;
+  if (topo != (dom_nodes && agg_scratch && sub_dom) ||
+      ((banned || agg_ready) && !topo))
+    return KAI_ERR_ARGS;
+  if (topo) {
+    const int ND = N * L;
+    pf_domain_agg_kernel<<<(ND + PF_THREADS) / PF_THREADS, PF_THREADS, 0,
+                           stream>>>(dom_ptr, dom_nodes, free0, rel, extra,
+                                     active, B, ND, agg_ready, agg_scratch);
+    const cudaError_t e0 = cudaGetLastError();
+    if (e0 != cudaSuccess) return static_cast<int>(e0);
+  }
   // the fit bits, one byte a node; with the ~19 KB of static shared
   // memory a block may need more than the 48 KB granted without opting in
   const size_t smem = (size_t)N;
@@ -596,8 +758,9 @@ KAI_EXPORT int kai_pertask_fill(
       task_nom, task_sub, sub_need, min_needed, gang_queue, preemptible,
       anti_self, pref_level, free0, dev0, rel, extra, dev_rel, extra_dev,
       alloc, valid, labels, fmask, soft, dev_mem, topology, qa, qan, limit_eff,
-      quota_eff, chain, cand, prior, T, N, D, K, L, S, Q, binpack_accel,
+      quota_eff, chain, cand, prior, srl, banned, active,
+      topo ? agg_scratch : nullptr, T, N, D, K, L, S, Q, binpack_accel,
       binpack_cpu, device_pack, track, jscale, qa2, qan2, nodes_t, dev_t,
-      pipe_t, success, free_rows, dev_rows, bind_rows, devbind_rows);
+      pipe_t, success, free_rows, dev_rows, bind_rows, devbind_rows, sub_dom);
   return static_cast<int>(cudaGetLastError());
 }

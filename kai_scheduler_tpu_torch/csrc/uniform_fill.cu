@@ -28,6 +28,24 @@
 // in the reference's f32 order: ((bands + soft) + jitter) + bias hoisted,
 // bands + ((jitter + soft) + bias) not.
 //
+// The topology modes (ref :1030-1092 with the chunk-hoisted tables, and
+// :1135-1139):
+//   - required level (dom_caps_y given, the gang's srl0 >= 0): the lane
+//     counts the domains of that level whose live replica capacity holds
+//     min(goal, queue gate) replicas, walking them fullest first (`order`,
+//     the chunk's stable sort of the domain aggregates), and takes the
+//     (lane mod n_fit)-th with a block-wide scan — or the domain its prior
+//     placements locked.  Feasibility, replica counts and the jitter's
+//     feasible rank are confined to that domain; with no domain the gang
+//     places nothing.
+//   - preferred level (pref_level given, the gang's level >= 0): a first
+//     pass takes the block argmax of the scores (lowest node on ties, as
+//     jnp.argmax); the second adds W_TOPOLOGY on the feasible nodes that
+//     share that node's domain at the level before the top-k.
+//   - dense rows (free given): per task slot, `free - count * req` and
+//     `min(count, c_idle) * req` of the node it took (ref :1177-1180), the
+//     rows the dense accept (K10) reads.
+//
 // Bound: the per-lane work is a read of the lane type's [N] fit/band rows
 // and soft-score row (~10 bytes per node, shared by the lanes of one type
 // through L2) and a handful of flops per node; with B lanes it is
@@ -65,7 +83,29 @@ struct UfLane {
   int gi, ty, cls, queue, goal, mgate, total;
   bool nonpre, opn;
   float req[3];
+  // topology: required level and its target domain (-1: none fits), the
+  // preferred level and the best node's domain there
+  int srl, target, pl, pref_dom;
+  bool has_req, pick;
+  int n_fit;
 };
+
+// the lane's score of node n (ref scores0 of the hoisted branch)
+__device__ __forceinline__ float uf_score(bool fpn, const float* sc_y,
+                                          const float* soft_c,
+                                          const float* bias_b, int n,
+                                          float jit, int hoisted) {
+  if (!fpn) return KAI_BIG_NEG;
+  const float bands = sc_y[n], s = soft_c[n];
+  if (hoisted) {
+    float score = __fadd_rn(__fadd_rn(bands, s), jit);
+    if (bias_b) score = __fadd_rn(score, bias_b[n]);
+    return score;
+  }
+  float extra_bands = __fadd_rn(jit, s);
+  if (bias_b) extra_bands = __fadd_rn(extra_bands, bias_b[n]);
+  return __fadd_rn(bands, extra_bands);
+}
 
 // node o's clamped replica capacity for this lane (ref lane_clamp)
 __device__ __forceinline__ int uf_clamp(int c, bool mask, bool opn,
@@ -108,11 +148,16 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     const u8* __restrict__ fp, const int* __restrict__ ci,
     const int* __restrict__ cp, const float* __restrict__ sc,
     const float* __restrict__ soft, const u8* __restrict__ valid,
-    const int* __restrict__ rows, const float* __restrict__ score_bias, int T,
-    int N, int Q, int dense, int stride, int hoisted, int qa_lanes,
-    float jscale, float* __restrict__ qa2, float* __restrict__ qan2,
+    const int* __restrict__ rows, const float* __restrict__ score_bias,
+    const int* __restrict__ topology, const int* __restrict__ srl0,
+    const int* __restrict__ dom_caps_y, const int* __restrict__ level_of_dom,
+    const int* __restrict__ order, const int* __restrict__ pref_level,
+    const float* __restrict__ free_, int T, int N, int Q, int NL, int dense,
+    int stride, int hoisted, int qa_lanes, float jscale,
+    float* __restrict__ qa2, float* __restrict__ qan2,
     int* __restrict__ nodes_t, u8* __restrict__ pipe_t,
-    u8* __restrict__ success) {
+    u8* __restrict__ success, float* __restrict__ free_rows,
+    float* __restrict__ bind_rows) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int k = min(T, N);
@@ -144,12 +189,121 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     int m = uf_max_copies(qa_b, limit_eff, anc, Q, L.req);
     if (L.nonpre) m = min(m, uf_max_copies(qan, quota_eff, anc, Q, L.req));
     L.mgate = m;
+    // required level: the domain the prior placements locked, else a pick
+    L.srl = (dom_caps_y && srl0) ? srl0[gi] : -1;
+    L.has_req = L.srl >= 0;
+    L.target = -1;
+    L.pick = false;
+    if (L.has_req) {
+      int first = -1;
+      for (int t = 0; t < T && first < 0; ++t)
+        if (prior_b[t] >= 0) first = prior_b[t];
+      const int lvl = min(L.srl, NL - 1);
+      const int prior_dom = first >= 0 ? topology[(size_t)first * NL + lvl]
+                                       : -1;
+      if (prior_dom >= 0)
+        L.target = prior_dom;
+      else
+        L.pick = true;
+    }
+    L.pl = pref_level ? pref_level[gi] : -1;
+    L.pref_dom = -1;
   }
   __syncthreads();
   const int ty = L.ty, cls = L.cls;
   const u8* fp_y = fp + (size_t)ty * N;
   const float* sc_y = sc + (size_t)ty * N;
   const float* soft_c = soft + (size_t)cls * N;
+  const int ND = N * NL;
+
+  // ---- required level: the (lane mod n_fit)-th fitting domain, fullest
+  // first ------------------------------------------------------------------
+  if (L.pick) {
+    const int* caps = dom_caps_y + (size_t)task_type0[L.gi] * ND;
+    const int thr = max(min(L.goal, L.mgate), 1);
+    const int srl = L.srl;
+    int n_fit = 0;
+    for (int base = 0; base < ND; base += UF_THREADS) {
+      const int p = base + tid;
+      bool fs = false;
+      if (p < ND) {
+        const int d = order[p];
+        fs = caps[d] >= thr && level_of_dom[d] == srl;
+      }
+      n_fit += __syncthreads_count(fs);
+    }
+    if (n_fit > 0) {
+      const int sel = kai_pymod(b, n_fit) + 1;
+      int running = 0;
+      for (int base = 0; base < ND; base += UF_THREADS) {
+        const int p = base + tid;
+        bool fs = false;
+        if (p < ND) {
+          const int d = order[p];
+          fs = caps[d] >= thr && level_of_dom[d] == srl;
+        }
+        int tile = 0;
+        const int incl = uf_block_scan(fs ? 1 : 0, &tile);
+        if (fs && running + incl == sel) L.target = order[p];
+        running += tile;
+        if (running >= sel) break;  // uniform across the block
+      }
+    }
+    __syncthreads();
+  }
+  const bool has_req = L.has_req;
+  const int target = L.target;
+  const int lvl_req = has_req ? min(L.srl, NL - 1) : 0;
+#define UF_IN_DOM(o) \
+  (!has_req || (target >= 0 && topology[(size_t)(o) * NL + lvl_req] == target))
+
+  // ---- preferred level: the best node of the band-free scores ------------
+  if (L.pl >= 0) {
+    float best = -INFINITY;
+    int best_i = INT_MAX;
+    int running = 0;
+    for (int base = 0; base < N; base += UF_THREADS) {
+      const int n = base + tid;
+      const bool fpn = n < N && fp_y[n] && valid[n] && UF_IN_DOM(n);
+      int tile_total = 0, incl = 0;
+      if (!dense) incl = uf_block_scan(fpn ? 1 : 0, &tile_total);
+      if (n < N) {
+        const int off = dense ? n - b * stride : running + incl - 1 - b;
+        const float jit = __fmul_rn(jscale, (float)kai_pymod(off, N));
+        const float score = uf_score(fpn, sc_y, soft_c, bias_b, n, jit,
+                                     hoisted);
+        if (kai_better(score, n, best, best_i)) {
+          best = score;
+          best_i = n;
+        }
+      }
+      running += tile_total;
+    }
+    const int lane_w = tid & 31, warp_w = tid >> 5;
+    for (int off = 16; off > 0; off >>= 1) {
+      const float v2 = __shfl_down_sync(0xffffffffu, best, off);
+      const int i2 = __shfl_down_sync(0xffffffffu, best_i, off);
+      if (kai_better(v2, i2, best, best_i)) {
+        best = v2;
+        best_i = i2;
+      }
+    }
+    if (lane_w == 0) {
+      s_wv[warp_w] = best;
+      s_wi[warp_w] = best_i;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < UF_WARPS; ++w)
+        if (kai_better(s_wv[w], s_wi[w], best, best_i)) {
+          best = s_wv[w];
+          best_i = s_wi[w];
+        }
+      L.pref_dom = topology[(size_t)best_i * NL + L.pl];
+    }
+    __syncthreads();
+  }
+  const int pl = L.pl, pref_dom = L.pref_dom;
 
   // ---- scores and the per-thread top-k ------------------------------------
   float tv[UF_MAXK];
@@ -161,25 +315,18 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
   int running = 0;  // feasible nodes before this tile
   for (int base = 0; base < N; base += UF_THREADS) {
     const int n = base + tid;
-    const bool fpn = n < N && fp_y[n] && valid[n];
+    const bool fpn = n < N && fp_y[n] && valid[n] && UF_IN_DOM(n);
     int tile_total = 0;
     int incl = 0;
     if (!dense) incl = uf_block_scan(fpn ? 1 : 0, &tile_total);
     if (n < N) {
       const int off = dense ? n - b * stride : running + incl - 1 - b;
       const float jit = __fmul_rn(jscale, (float)kai_pymod(off, N));
-      float score = KAI_BIG_NEG;
-      if (fpn) {
-        const float bands = sc_y[n], s = soft_c[n];
-        if (hoisted) {
-          score = __fadd_rn(__fadd_rn(bands, s), jit);
-          if (bias_b) score = __fadd_rn(score, bias_b[n]);
-        } else {
-          float extra_bands = __fadd_rn(jit, s);
-          if (bias_b) extra_bands = __fadd_rn(extra_bands, bias_b[n]);
-          score = __fadd_rn(bands, extra_bands);
-        }
-      }
+      float score = uf_score(fpn, sc_y, soft_c, bias_b, n, jit, hoisted);
+      if (fpn && pl >= 0)
+        score = __fadd_rn(score, topology[(size_t)n * NL + pl] == pref_dom
+                                     ? 10000.0f
+                                     : 0.0f);
       if (kai_better(score, n, tv[k - 1], ti[k - 1])) {
         int j = k - 1;
         while (j > 0 && kai_better(score, n, tv[j - 1], ti[j - 1])) {
@@ -233,7 +380,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     unsigned int cum = 0;  // int32 arithmetic, wrapping as the reference's
     for (int i = 0; i < k; ++i) {
       const int o = s_order[i];
-      const bool feas = fp_y[o] && valid[o];
+      const bool feas = fp_y[o] && valid[o] && UF_IN_DOM(o);
       const int c = feas ? uf_clamp(cp[(size_t)ty * N + o], feas, L.opn,
                                     prior_b, T, o)
                          : 0;
@@ -271,17 +418,30 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
       }
       const bool placed_t = elig && npos < total && node >= 0;
       bool pipe = false;
+      int c_idle = 0;
       if (placed_t) {
         const size_t o = (size_t)ty * N + node;
-        const bool fit_pipe = fp[o] && valid[node];
-        const bool fit_idle = fi[o] && valid[node];
+        const bool in_dom = UF_IN_DOM(node);
+        const bool fit_pipe = fp[o] && valid[node] && in_dom;
+        const bool fit_idle = fi[o] && valid[node] && in_dom;
         const int c_pipe = uf_clamp(cp[o], fit_pipe, L.opn, prior_b, T, node);
-        const int c_idle =
+        c_idle =
             min(uf_clamp(ci[o], fit_idle, L.opn, prior_b, T, node), c_pipe);
         pipe = (npos - (cum_at - ppn)) >= c_idle;
       }
       nodes_t[(size_t)b * T + t] = placed_t ? node : -1;
       pipe_t[(size_t)b * T + t] = pipe ? 1 : 0;
+      if (free_rows) {
+        const size_t ro = ((size_t)b * T + t) * 3;
+        const float cnt = (float)ppn, bcnt = (float)min(ppn, c_idle);
+        for (int r = 0; r < 3; ++r) {
+          free_rows[ro + r] =
+              placed_t ? __fsub_rn(free_[(size_t)node * 3 + r],
+                                   __fmul_rn(cnt, L.req[r]))
+                       : 0.0f;
+          bind_rows[ro + r] = placed_t ? __fmul_rn(bcnt, L.req[r]) : 0.0f;
+        }
+      }
     }
     success[b] = (L.goal > 0 && total >= L.goal) ? 1 : 0;
   }
@@ -305,17 +465,28 @@ KAI_EXPORT int kai_uniform_fill(
     const int* gang_queue, const u8* preemptible, const int* anti_self,
     const int* task_type0, const int* task_class0, const u8* fi, const u8* fp,
     const int* ci, const int* cp, const float* sc, const float* soft,
-    const u8* valid, const int* rows, const float* score_bias, int B, int T,
-    int N, int Q, int Y, int G, int X, int dense, int stride, int hoisted,
-    int qa_lanes, float jscale, float* qa2, float* qan2, int* nodes_t,
-    u8* pipe_t, u8* success, cudaStream_t stream) {
+    const u8* valid, const int* rows, const float* score_bias,
+    const int* topology, const int* srl0, const int* dom_caps_y,
+    const int* level_of_dom, const int* order, const int* pref_level,
+    const float* free_, int B, int T, int N, int Q, int Y, int G, int X,
+    int L, int dense, int stride, int hoisted, int qa_lanes, float jscale,
+    float* qa2, float* qan2, int* nodes_t, u8* pipe_t, u8* success,
+    float* free_rows, float* bind_rows, cudaStream_t stream) {
   if (B < 1 || T < 1 || N < 1 || Q < 1 || Y < 1 || G < 1 || X < 1 ||
       (T < N ? T : N) > UF_MAXK)
+    return KAI_ERR_ARGS;
+  const bool topo = dom_caps_y || pref_level;
+  if ((topo && (!topology || L < 1)) ||
+      (dom_caps_y && (!srl0 || !level_of_dom || !order)) ||
+      ((free_ != nullptr) != (free_rows != nullptr)) ||
+      ((free_rows != nullptr) != (bind_rows != nullptr)))
     return KAI_ERR_ARGS;
   uniform_fill_kernel<<<B, UF_THREADS, 0, stream>>>(
       cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, task_req0,
       task_valid, gang_queue, preemptible, anti_self, task_type0, task_class0,
-      fi, fp, ci, cp, sc, soft, valid, rows, score_bias, T, N, Q, dense,
-      stride, hoisted, qa_lanes, jscale, qa2, qan2, nodes_t, pipe_t, success);
+      fi, fp, ci, cp, sc, soft, valid, rows, score_bias, topology, srl0,
+      dom_caps_y, level_of_dom, order, pref_level, free_, T, N, Q,
+      topo ? L : 1, dense, stride, hoisted, qa_lanes, jscale, qa2, qan2,
+      nodes_t, pipe_t, success, free_rows, bind_rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -64,6 +64,10 @@ class CycleResult:
     packed: "np.ndarray | None" = None
     #: allocate wavefront chunks run this cycle
     chunks: int = 0
+    #: per-task allocate lanes retried in the next domain this cycle, and
+    #: the chunks whose retry launch had at least one such lane
+    retries: int = 0
+    retry_chunks: int = 0
     #: victim action name -> preemptor steps, scenario attempts and host
     #: syncs it made this cycle
     victim_stats: dict[str, VictimStats] = dataclasses.field(
@@ -107,11 +111,13 @@ def action_names() -> list[str]:
 @register_action("allocate")
 def _allocate_action() -> Action:
     def run(session: Session, result: CycleResult) -> None:
-        result.tensors, chunks = allocate_counted(
+        result.tensors, counts = allocate_counted(
             session.state, session.state.queues.fair_share,
             num_levels=session.config.num_levels,
             config=session.config.allocate, init=result.tensors)
-        result.chunks += chunks
+        result.chunks += counts.chunks
+        result.retries += counts.retries
+        result.retry_chunks += counts.retry_chunks
     return run
 
 

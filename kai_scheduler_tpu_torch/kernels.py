@@ -47,7 +47,11 @@ class KernelInfo:
     source: str
     #: the JAX function it replaces (file:line in the reference package)
     replaces: str
+    #: the kernel's modes: optional inputs that change its work, each
+    #: counted under ``name:mode`` beside ``launches``
+    modes: tuple[str, ...] = ()
     launches: int = 0
+    mode_launches: dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 KERNELS: dict[str, KernelInfo] = {
@@ -57,13 +61,16 @@ KERNELS: dict[str, KernelInfo] = {
                    "kai_scheduler_tpu/ops/drf.py:41"),
         KernelInfo("type_tables",
                    "kai_scheduler_tpu_torch/csrc/type_tables.cu",
-                   "kai_scheduler_tpu/ops/allocate.py:1552"),
+                   "kai_scheduler_tpu/ops/allocate.py:1552",
+                   modes=("lanes",)),
         KernelInfo("uniform_fill",
                    "kai_scheduler_tpu_torch/csrc/uniform_fill.cu",
-                   "kai_scheduler_tpu/ops/allocate.py:915"),
+                   "kai_scheduler_tpu/ops/allocate.py:915",
+                   modes=("lanes", "topology", "preferred")),
         KernelInfo("sparse_accept",
                    "kai_scheduler_tpu_torch/csrc/sparse_accept.cu",
-                   "kai_scheduler_tpu/ops/allocate.py:283"),
+                   "kai_scheduler_tpu/ops/allocate.py:283",
+                   modes=("credit",)),
         KernelInfo("cumsum_ds",
                    "kai_scheduler_tpu_torch/csrc/cumsum_ds.cu",
                    "kai_scheduler_tpu/utils/numerics.py:30"),
@@ -78,10 +85,18 @@ KERNELS: dict[str, KernelInfo] = {
                    "kai_scheduler_tpu/ops/victims.py:738"),
         KernelInfo("pertask_fill",
                    "kai_scheduler_tpu_torch/csrc/pertask_fill.cu",
-                   "kai_scheduler_tpu/ops/allocate.py:517"),
+                   "kai_scheduler_tpu/ops/allocate.py:517",
+                   modes=("topology", "banned")),
         KernelInfo("dense_accept",
                    "kai_scheduler_tpu_torch/csrc/dense_accept.cu",
-                   "kai_scheduler_tpu/ops/allocate.py:1730"),
+                   "kai_scheduler_tpu/ops/allocate.py:1730",
+                   modes=("no_devices",)),
+        KernelInfo("topo_tables_build",
+                   "kai_scheduler_tpu_torch/csrc/topo_tables.cu",
+                   "kai_scheduler_tpu/ops/allocate.py:1461"),
+        KernelInfo("topo_tables_update",
+                   "kai_scheduler_tpu_torch/csrc/topo_tables.cu",
+                   "kai_scheduler_tpu/ops/allocate.py:1490"),
     )
 }
 
@@ -89,14 +104,29 @@ KERNELS: dict[str, KernelInfo] = {
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.mode_launches = dict.fromkeys(k.modes, 0)
 
 
 def launch_counts() -> dict[str, int]:
-    return {k.name: k.launches for k in KERNELS.values()}
+    """Launches per kernel, and per ``kernel:mode`` for its modes."""
+    out = {}
+    for k in KERNELS.values():
+        out[k.name] = k.launches
+        out.update({f"{k.name}:{m}": k.mode_launches.get(m, 0)
+                    for m in k.modes})
+    return out
 
 
-def count_launch(name: str) -> None:
-    KERNELS[name].launches += 1
+def count_launch(name: str, **modes: bool) -> None:
+    """One launch of ``name``; its wrapper flags the modes it runs in
+    (``count_launch("dense_accept", no_devices=True)``)."""
+    k = KERNELS[name]
+    k.launches += 1
+    for m, on in modes.items():
+        if m not in k.modes:
+            raise KeyError(f"{name} has no mode {m!r}")
+        if on:
+            k.mode_launches[m] = k.mode_launches.get(m, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -112,15 +142,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "kai_drf_level": [_P] * 10 + [_F, _I, _I, _P, _P, _P],
     "kai_type_tables": [_P] * 10 + [_I] * 8 + [_P] * 5 + [_P],
-    "kai_uniform_fill": [_P] * 24 + [_I] * 11 + [_F] + [_P] * 5 + [_P],
+    "kai_uniform_fill": [_P] * 31 + [_I] * 12 + [_F] + [_P] * 7 + [_P],
     "kai_sparse_accept": [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P],
     "kai_cumsum_ds": [_P, _I, _I, _P, _P, _P],
     "kai_freed_by_mask": [_P] * 12 + [_I] * 5 + [_P] * 6 + [_P],
     "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
     + [_P],
     "kai_freed_by_lane": [_P] * 7 + [_I] * 5 + [_P] * 4 + [_P],
-    "kai_pertask_fill": [_P] * 34 + [_I] * 14 + [_F] + [_P] * 10 + [_P],
+    "kai_pertask_fill": [_P] * 40 + [_I] * 15 + [_F] + [_P] * 11 + [_P],
     "kai_dense_accept": [_P] * 15 + [_I] * 6 + [_P] * 6 + [_P],
+    "kai_topo_tables_build": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
+    "kai_topo_tables_update": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_P],
 }
 
 _LIB = None

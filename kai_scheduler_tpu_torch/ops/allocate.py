@@ -1,13 +1,16 @@
 """The allocate action — gang all-or-nothing placement as a wavefront.
 
 Port of ``kai_scheduler_tpu/ops/allocate.py``: the auto-tuned variants
-the reference runs on snapshots without topology, affinity terms or
-extended resources — the uniform whole-gang kernel under the sparse
-wavefront with hoisted per-type tables (gangs of identical replicas, no
-device shares, binpack), and the per-task path under the dense wavefront
-(GPU sharing: fractional and memory-based shares with the device table;
-heterogeneous gangs, subgroups, nominated nodes, anti-self domains, the
-preferred-level band, spread scoring) — both with the dynamic pop order.
+the reference runs on snapshots without affinity terms or extended
+resources — the uniform whole-gang kernel with hoisted per-type tables
+(gangs of identical replicas, no device shares, binpack) under the
+sparse wavefront, or under the dense one with the required topology
+level's domain tables, the preferred-level band on either; and the
+per-task path under the dense wavefront (GPU sharing: fractional and
+memory-based shares with the device table; heterogeneous gangs,
+subgroups and their required levels with the in-cycle domain retry,
+nominated nodes, anti-self domains, the preferred-level band, spread
+scoring) — both with the dynamic pop order.
 
 Reference hot path (``actions/allocate/allocate.go:52-156``): pop jobs
 from the fairness heap; place each gang whole or not at all.  Here each
@@ -17,7 +20,7 @@ accepts the maximal order-prefix whose cumulative claims fit; the
 reference's ``lax.while_loop`` over chunks is a host loop with one sync
 per chunk.
 
-Five device programs of the chunk body are hand-written CUDA kernels,
+Six device programs of the chunk body are hand-written CUDA kernels,
 each with its plain PyTorch version in this module (the wrapper runs the
 plain version only for CPU tensors):
 
@@ -25,21 +28,28 @@ plain version only for CPU tensors):
   node) fit on idle and on idle+releasing, whole-replica counts and the
   plugin score bands; replaces ``build_type_tables`` (ref ``:1552``).
 - **K3** :func:`uniform_fill` (``csrc/uniform_fill.cu``) — every lane's
-  whole-gang placement: queue gate, tie jitter, top-k over nodes in
-  ``lax.top_k`` order, cumulative fill, node-ascending replica assignment;
-  replaces ``_attempt_gang_in_domain_uniform`` under the lane vmap (ref
-  ``:915``, ``:1690``).
+  whole-gang placement: queue gate, required-domain pick and confinement,
+  tie jitter, preferred band, top-k over nodes in ``lax.top_k`` order,
+  cumulative fill, node-ascending replica assignment; replaces
+  ``_attempt_gang_in_domain_uniform`` under the lane vmap (ref ``:915``,
+  ``:1690``).
 - **K4** :func:`sparse_accept` (``csrc/sparse_accept.cu``) — the stable
   node sort of the chunk's claims and the first lane that over-subscribes
   a node; replaces ``sparse_entry_tables`` + ``sparse_accept_first_bad``
   (ref ``:283``, ``:313``).
 - **K9** :func:`pertask_fill` (``csrc/pertask_fill.cu``) — every lane's
   per-task placement, T task steps in order against the lane's live
-  pools; replaces ``_attempt_gang_in_domain`` under the lane vmap (ref
-  ``:517``, ``:1699``).
+  pools and domain aggregates; replaces ``_attempt_gang_in_domain`` under
+  the lane vmap (ref ``:517``, ``:1699``) and, launched again over the
+  failed lanes, ``_attempt_gang``'s in-cycle retry (``:1274-1289``).
 - **K10** :func:`dense_accept` (``csrc/dense_accept.cu``) — the dense
   accept prefix over the lanes' cumulative node and device claims and
   the weighted commit (ref ``:1730-1795``).
+- **K11** :func:`topo_tables_build` / :func:`topo_tables_update`
+  (``csrc/topo_tables.cu``) — the uniform path's per-type replica counts
+  and per-domain capacities and aggregates, built once per action and
+  kept current at the nodes each commit touched (ref ``:1461``,
+  ``:1490``).
 
 Everything else in the chunk is elementwise work, scatters and sorts and
 stays as PyTorch ops.  JAX's out-of-bounds-dropping scatters at the junk
@@ -159,19 +169,15 @@ def check_supported(config: AllocateConfig) -> None:
     a path the allocate action has not ported (and ``ValueError`` for the
     combination the reference itself rejects).
 
-    The per-task path (``uniform_tasks=False``) takes the device share
-    table (``track_devices``) and the preferred-topology band, which it
-    always computes (ref ``:765-767``; ``config.preferred_topology`` is
-    read only by the uniform kernel, ``:1135``).  The victim actions keep
-    their own, narrower check (``victims.check_placement_ported``)."""
+    Both paths take the required and subgroup topology levels
+    (``subgroup_topology``) and the preferred-level band; the per-task path
+    also takes the device share table (``track_devices``).  The victim
+    actions keep their own, narrower check
+    (``victims.check_placement_ported``)."""
     if config.uniform_tasks and config.track_devices:
         raise ValueError(
             "uniform_tasks fast path requires track_devices=False")
     unsupported = [
-        (config.subgroup_topology,
-         "subgroup_topology=True (subgroup / required topology)"),
-        (config.uniform_tasks and config.preferred_topology,
-         "preferred_topology=True"),
         (config.extended, "extended=True (MIG/DRA scalar resources)"),
         (config.anti_groups, "anti_groups=True"),
         (config.attract_groups, "attract_groups=True"),
@@ -281,8 +287,198 @@ def type_tables(nodes: NodeState, free: Tensor, extra: Tensor,
         *(kernels.ptr(t) for t in (fi, fp, ci, cp, sc)),
         kernels.stream_of(free))
     kernels.check(rc, "type_tables")
-    kernels.count_launch("type_tables")
+    kernels.count_launch("type_tables", lanes=per_row)
     return fi, fp, ci, cp, sc
+
+
+# ---------------------------------------------------------------------------
+# K11: the domain tables of the required topology levels
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TopoStatic:
+    """The action's static domain tables (ref ``:1418-1460``).  The
+    snapshot numbers every (level, label path) with one dense id below
+    ``ND = N * L``; each id belongs to one level."""
+
+    #: topology level of each domain id, -1 where no node has it — i32 [ND]
+    level_of_dom: Tensor
+    #: node -> domain id per level, ``ND`` for padded or unlabelled
+    #: nodes — i32 [L, N]
+    dom_of: Tensor
+    #: the nodes of each domain, ascending (XLA:CPU's scatter-add order):
+    #: domain d holds ``dom_nodes[dom_ptr[d]:dom_ptr[d + 1]]`` —
+    #: i32 [ND + 1] and i32 [M]
+    dom_ptr: Tensor
+    dom_nodes: Tensor
+
+    @classmethod
+    def of(cls, nodes: NodeState) -> "TopoStatic":
+        N, L = nodes.topology.shape
+        ND = N * L
+        dv = nodes.topology.device
+        i32 = torch.int32
+        dom_of = torch.stack([
+            torch.where(nodes.valid & (nodes.topology[:, lvl] >= 0),
+                        nodes.topology[:, lvl], ND)
+            for lvl in range(L)]).to(i32)                    # [L, N]
+        level_of_dom = torch.full((ND + 1,), -1, dtype=i32, device=dv)
+        for lvl in range(L):
+            level_of_dom[dom_of[lvl].long()] = lvl
+        # a stable sort of the level-major ids keeps each domain's nodes
+        # ascending (a domain lives on one level); junk ids sort last
+        flat = dom_of.reshape(-1)
+        perm = torch.sort(flat, stable=True).indices
+        counts = torch.bincount(flat.long(), minlength=ND + 1)[:ND]
+        dom_ptr = torch.zeros((ND + 1,), dtype=i32, device=dv)
+        dom_ptr[1:] = torch.cumsum(counts, 0, dtype=i32)
+        M = int(dom_ptr[-1])
+        return cls(level_of_dom=level_of_dom[:ND].contiguous(),
+                   dom_of=dom_of.contiguous(), dom_ptr=dom_ptr,
+                   dom_nodes=(perm[:M] % N).to(i32).contiguous())
+
+
+def topo_tables_build_plain(st: TopoStatic, fp_build: Tensor, avail: Tensor,
+                            valid: Tensor, type_req: Tensor):
+    """Plain PyTorch version of K11's build (ref ``topo_tables_build``
+    ``:1461``): per type the replicas that fit on each node's ``avail``
+    (idle + releasing + victim-freed) where the type fit at the action's
+    start (``fp_build`` [Y, N]), ``c_y`` i32 [Y, N + 1] with a zero junk
+    column; their sums per domain, ``dom_caps_y`` i32 [Y, ND]; and the
+    domains' aggregate accelerator, ``agg`` f32 [ND], summed per domain in
+    ascending node order from +0.0 (XLA:CPU's scatter-add order)."""
+    L, N = st.dom_of.shape
+    ND = N * L
+    Y = type_req.shape[0]
+    # ref _replicas_at (:1448): _replica_count's arithmetic per type
+    c_all = _replica_count(avail, type_req, fp_build)        # [Y, N]
+    c_y = torch.cat([c_all, torch.zeros((Y, 1), dtype=torch.int32,
+                                        device=c_all.device)], 1)
+    caps = torch.zeros((Y, ND + 1), dtype=torch.int32, device=c_all.device)
+    agg = torch.zeros((ND + 1,), dtype=avail.dtype, device=avail.device)
+    accel = torch.where(valid, avail[:, 0], 0.0)
+    for lvl in range(L):
+        ids = st.dom_of[lvl].long()
+        caps.index_add_(1, ids, c_all)
+        agg.index_add_(0, ids, accel)
+    return caps[:, :ND].contiguous(), agg[:ND].contiguous(), c_y
+
+
+def topo_tables_update_plain(st: TopoStatic, fp_build: Tensor,
+                             dom_caps_y: Tensor, agg: Tensor, c_y: Tensor,
+                             avail: Tensor, take: Tensor, nodes_b: Tensor,
+                             req0_b: Tensor, type_req: Tensor):
+    """Plain PyTorch version of K11's update (ref ``topo_tables_update``
+    ``:1490``) after a chunk's commit: the replica counts of the nodes the
+    taken lanes placed on are recomputed from ``avail`` (the committed
+    pools), their per-node changes pushed into every level's domain caps,
+    and each placed replica's accelerator request ``req0_b`` [B] taken off
+    its node's domains in entry order (lane-major).  Returns new
+    ``(dom_caps_y, agg, c_y)``."""
+    L, N = st.dom_of.shape
+    ND = N * L
+    Y = type_req.shape[0]
+    dv = c_y.device
+    placed = take[:, None] & (nodes_b >= 0)                  # [B, T]
+    idxs = torch.where(placed, nodes_b, N).reshape(-1).long()  # [K]
+    isafe = torch.clamp(idxs, max=N - 1)
+    c_new = _replica_count(avail[isafe], type_req, fp_build[:, isafe])
+    c_new = torch.where((idxs < N)[None, :], c_new, 0)       # [Y, K]
+    # duplicate touches write the same count, so the scatter is defined
+    c_at = torch.zeros((Y, N + 1), dtype=torch.int32, device=dv)
+    c_at[:, idxs] = c_new
+    touched = torch.zeros((N + 1,), dtype=torch.bool, device=dv)
+    touched[idxs] = True
+    d_node = torch.where(touched[None, :], c_at - c_y, 0)[:, :N]
+    c_y = torch.where(touched[None, :], c_at, c_y)
+    caps = torch.cat([dom_caps_y, torch.zeros((Y, 1), dtype=torch.int32,
+                                              device=dv)], 1)
+    accel = torch.where(placed, req0_b[:, None], 0.0).reshape(-1)
+    agg = agg.clone()
+    for lvl in range(L):
+        caps.index_add_(1, st.dom_of[lvl].long(), d_node)
+        dom = torch.where(idxs < N, st.dom_of[lvl][isafe].long(), ND)
+        agg.index_add_(0, torch.clamp(dom, max=ND - 1),
+                       torch.where(dom < ND, -accel, 0.0))
+    return caps[:, :ND].contiguous(), agg, c_y
+
+
+def _topo_common(name: str, st: TopoStatic, tensors: dict, dtypes: dict):
+    dv = kernels.require_cuda(name, dict(
+        tensors, level_of_dom=st.level_of_dom, dom_of=st.dom_of,
+        dom_ptr=st.dom_ptr, dom_nodes=st.dom_nodes), dict(
+        dtypes, level_of_dom=torch.int32, dom_of=torch.int32,
+        dom_ptr=torch.int32, dom_nodes=torch.int32))
+    if tensors["type_req"].shape[1] != 3:
+        raise ValueError(f"{name}: resource axis must be 3")
+    return dv
+
+
+def topo_tables_build(st: TopoStatic, fp_build: Tensor, avail: Tensor,
+                      valid: Tensor, type_req: Tensor):
+    """K11 build (see :func:`topo_tables_build_plain`).  CPU tensors run
+    the plain version; CUDA tensors launch the kernel or raise."""
+    if not kernels.on_card(avail):
+        return topo_tables_build_plain(st, fp_build, avail, valid, type_req)
+    L, N = st.dom_of.shape
+    ND = N * L
+    Y = type_req.shape[0]
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    dv = _topo_common("topo_tables_build", st, dict(
+        fp_build=fp_build, avail=avail, valid=valid, type_req=type_req),
+        dict(fp_build=b, avail=f32, valid=b, type_req=f32))
+    caps = torch.empty((Y, ND), dtype=i32, device=dv)
+    agg = torch.empty((ND,), dtype=f32, device=dv)
+    c_y = torch.empty((Y, N + 1), dtype=i32, device=dv)
+    rc = kernels.library().kai_topo_tables_build(
+        *(kernels.ptr(t) for t in (st.dom_ptr, st.dom_nodes, fp_build, avail,
+                                   type_req)),
+        N, L, Y, *(kernels.ptr(t) for t in (caps, agg, c_y)),
+        kernels.stream_of(avail))
+    kernels.check(rc, "topo_tables_build")
+    kernels.count_launch("topo_tables_build")
+    return caps, agg, c_y
+
+
+def topo_tables_update(st: TopoStatic, fp_build: Tensor, dom_caps_y: Tensor,
+                       agg: Tensor, c_y: Tensor, avail: Tensor, take: Tensor,
+                       nodes_b: Tensor, req0_b: Tensor, type_req: Tensor):
+    """K11 update (see :func:`topo_tables_update_plain`).  CPU tensors run
+    the plain version; CUDA tensors launch the kernel on copies of the
+    three tables or raise."""
+    if not kernels.on_card(avail):
+        return topo_tables_update_plain(st, fp_build, dom_caps_y, agg, c_y,
+                                        avail, take, nodes_b, req0_b,
+                                        type_req)
+    L, N = st.dom_of.shape
+    B, T = nodes_b.shape
+    Y = type_req.shape[0]
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    _topo_common("topo_tables_update", st, dict(
+        fp_build=fp_build, dom_caps_y=dom_caps_y, agg=agg, c_y=c_y,
+        avail=avail, take=take, nodes_b=nodes_b, req0_b=req0_b,
+        type_req=type_req), dict(
+        fp_build=b, dom_caps_y=i32, agg=f32, c_y=i32, avail=f32, take=b,
+        nodes_b=i32, req0_b=f32, type_req=f32))
+    caps, agg, c_y = dom_caps_y.clone(), agg.clone(), c_y.clone()
+    rc = kernels.library().kai_topo_tables_update(
+        *(kernels.ptr(t) for t in (st.dom_of, fp_build, avail, take, nodes_b,
+                                   req0_b, type_req)),
+        N, L, Y, B, T, *(kernels.ptr(t) for t in (caps, agg, c_y)),
+        kernels.stream_of(avail))
+    kernels.check(rc, "topo_tables_update")
+    kernels.count_launch("topo_tables_update")
+    return caps, agg, c_y
+
+
+def order_by_agg(level_of_dom: Tensor, agg: Tensor) -> Tensor:
+    """i32 [ND]: the domains fullest-first for the chunk's pick — a STABLE
+    ascending sort of ``agg`` with ``inf`` on ids that are not domains
+    (ref ``:1660``; many domains tie, so stability is part of the
+    contract).  ``+ 0.0`` folds -0.0 into +0.0, which a CUDA radix sort
+    would otherwise order apart."""
+    key = torch.where(level_of_dom >= 0, agg + 0.0, _INF)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -327,13 +523,38 @@ def _jitter_scale(N: int) -> Tensor:
     return torch.tensor(-1e-4 / N, dtype=torch.float32)
 
 
+@dataclasses.dataclass
+class UniformTopo:
+    """K3's topology inputs.  ``dom_caps_y``/``order`` (the required
+    level's pick, one chunk's tables) and ``pref_level`` (the preferred
+    band) are each optional."""
+
+    topology: Tensor                    # i32 [N, L]
+    #: gang-level required level (subgroup slot 0) per gang — i32 [G]
+    srl0: Tensor | None = None
+    dom_caps_y: Tensor | None = None    # i32 [Y, ND] live replica caps
+    level_of_dom: Tensor | None = None  # i32 [ND]
+    order: Tensor | None = None         # i32 [ND] :func:`order_by_agg`
+    pref_level: Tensor | None = None    # i32 [G]
+
+    @property
+    def required(self) -> bool:
+        return self.dom_caps_y is not None
+
+    @property
+    def preferred(self) -> bool:
+        return self.pref_level is not None
+
+
 def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
                        qa: Tensor, qan: Tensor, limit_eff: Tensor,
                        quota_eff: Tensor, chain: Tensor, lt: LaneTables,
                        tables, soft_scores: Tensor, valid: Tensor, *,
                        dense: bool, stride: int, hoisted: bool,
                        rows: Tensor | None = None,
-                       score_bias: Tensor | None = None):
+                       score_bias: Tensor | None = None,
+                       topo: UniformTopo | None = None,
+                       free: Tensor | None = None):
     """Plain PyTorch version of K3, batched over the B lanes.
 
     ``cand`` i32 [B] gang per lane (already clamped to a real row),
@@ -351,7 +572,20 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
     own victims); ``rows`` i32 [B] names each lane's row of the tables
     (instead of its gang's task type); ``score_bias`` f32 [B, N] joins
     the bands last — ``((bands + soft) + jitter) + bias`` hoisted,
-    ``bands + ((jitter + soft) + bias)`` not."""
+    ``bands + ((jitter + soft) + bias)`` not.
+
+    The topology modes (``topo``; ref ``:1030-1092`` with the chunk's
+    hoisted tables, and ``:1135-1139``): a lane whose gang requires a
+    level picks ONE domain whose live replica capacity holds its whole
+    chunk — the ``(lane mod n_fit)``-th fitting domain fullest first, or
+    the domain its earlier placements locked — and is confined to it (no
+    domain: the gang fails); a lane whose gang prefers a level adds
+    ``W_TOPOLOGY`` on the nodes sharing the preferred domain of its
+    best-scoring node before the top-k.  With ``free`` [N, R] the lanes
+    also return the dense protocol's rows (ref ``:1177-1180``): per task
+    slot, ``free - count * req`` and ``min(count, c_idle) * req`` of the
+    node it took, ``count`` the lane's replicas there — f32 [B, T, R]
+    each, zero where the slot placed nothing."""
     fi_y, fp_y, ci_y, cp_y, sc_y = tables
     B, T = prior.shape
     N = valid.shape[0]
@@ -399,9 +633,15 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
     fit_idle = fi_y[ty] & valid
     fit_pipe = fp_y[ty] & valid
     c_pipe = lane_clamp(cp_y[ty], fit_pipe)                  # [B, N]
+    lanes = torch.arange(B, dtype=i32, device=dev)
+    if topo is not None and topo.required:
+        in_dom = _uniform_domain(topo, gi, lt.task_type0[gi].long(), prior,
+                                 already, torch.minimum(goal, m_gate), lanes)
+        fit_idle = fit_idle & in_dom
+        fit_pipe = fit_pipe & in_dom
+        c_pipe = torch.where(in_dom, c_pipe, 0)
     c_idle = torch.minimum(lane_clamp(ci_y[ty], fit_idle), c_pipe)
 
-    lanes = torch.arange(B, dtype=i32, device=dev)
     if dense:
         offs = torch.arange(N, dtype=i32, device=dev)[None] \
             - lanes[:, None] * stride
@@ -422,6 +662,16 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
             extra_bands = extra_bands + score_bias
         base = bands + extra_bands
     scores = torch.where(fit_pipe, base, BIG_NEG)
+    if topo is not None and topo.preferred:
+        # preferred-level locality band anchored at the best node (the
+        # first maximum, as jnp.argmax)
+        pl = topo.pref_level[gi]
+        pref_doms = topo.topology.t()[torch.clamp(pl, min=0).long()]
+        best = scores.argmax(-1, keepdim=True)
+        band = torch.where((pl >= 0)[:, None]
+                           & (pref_doms == pref_doms.gather(1, best)),
+                           W_TOPOLOGY, 0.0)
+        scores = torch.where(fit_pipe, scores + band, scores)
 
     # ---- greedy fill by score order (lax.top_k: value desc, lower index
     # first among ties == a stable descending sort's prefix) ------------
@@ -454,7 +704,47 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
     qa2 = (qa if qa.dim() == 3 else qa[None]) + anc_d
     qan2 = qan[None] + torch.where(nonpre[:, None, None], anc_d, 0.0)
     success = (goal > 0) & (total_placed >= goal)
-    return qa2, qan2, nodes_t, pipe_t, success
+    if free is None:
+        return qa2, qan2, nodes_t, pipe_t, success
+    at = torch.clamp(nodes_t, min=0).long()
+    cnt = placed_per_node.gather(1, at).to(torch.float32)[..., None]
+    bcnt = torch.minimum(placed_per_node, c_idle).gather(1, at).to(
+        torch.float32)[..., None]
+    hit = placed_t[..., None]
+    free_rows = torch.where(hit, free[at] - cnt * req[:, None, :], 0.0)
+    bind_rows = torch.where(hit, bcnt * req[:, None, :], 0.0)
+    return qa2, qan2, nodes_t, pipe_t, success, free_rows, bind_rows
+
+
+def _uniform_domain(topo: UniformTopo, gi: Tensor, ty: Tensor, prior: Tensor,
+                    already: Tensor, want0: Tensor, lanes: Tensor) -> Tensor:
+    """bool [B, N]: each lane's confinement to its required domain (ref
+    ``:1036-1089``, the hoisted-table branch); every node where the gang
+    has no required level."""
+    L = topo.topology.shape[1]
+    srl0 = topo.srl0[gi]                                     # [B]
+    dom_col = topo.topology.t()[torch.clamp(srl0, 0, L - 1).long()]
+    dom_caps = topo.dom_caps_y[ty]                           # [B, ND]
+    fits = ((dom_caps >= torch.clamp(want0, min=1)[:, None])
+            & (topo.level_of_dom[None] == srl0[:, None]))
+    order = topo.order.long()
+    fs = fits[:, order]                                      # fullest first
+    n_fit = fs.sum(-1, dtype=torch.int32)
+    sel = torch.remainder(lanes, torch.clamp(n_fit, min=1)) + 1
+    hit = fs & (torch.cumsum(fs.to(torch.int32), -1, dtype=torch.int32)
+                == sel[:, None])
+    pos = hit.to(torch.int32).argmax(-1)                     # first hit
+    target = torch.where(n_fit > 0, order[pos].to(torch.int32), -1)
+    first = already.to(torch.int32).argmax(-1, keepdim=True)
+    prior_dom = torch.where(
+        already.any(-1),
+        dom_col.gather(1, torch.clamp(prior.gather(1, first),
+                                      min=0).long())[:, 0], -1)
+    target = torch.where(prior_dom >= 0, prior_dom, target)
+    # no fitting domain fails the gang: nodes without the level's label
+    # (dom_col -1) must not match target -1
+    return ~(srl0 >= 0)[:, None] | ((target >= 0)[:, None]
+                                     & (dom_col == target[:, None]))
 
 
 #: most task slots per gang the K3 kernel's per-thread top-k holds
@@ -466,7 +756,9 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
                  chain: Tensor, lt: LaneTables, tables,
                  soft_scores: Tensor, valid: Tensor, *, dense: bool,
                  stride: int, hoisted: bool, rows: Tensor | None = None,
-                 score_bias: Tensor | None = None):
+                 score_bias: Tensor | None = None,
+                 topo: UniformTopo | None = None,
+                 free: Tensor | None = None):
     """K3 — every lane's whole-gang placement (see
     :func:`uniform_fill_plain` for the contract).  CPU tensors run the
     plain version; CUDA tensors launch one block per lane or raise."""
@@ -475,7 +767,7 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
                                   quota_eff, chain, lt, tables, soft_scores,
                                   valid, dense=dense, stride=stride,
                                   hoisted=hoisted, rows=rows,
-                                  score_bias=score_bias)
+                                  score_bias=score_bias, topo=topo, free=free)
     fi_y, fp_y, ci_y, cp_y, sc_y = tables
     B, T = prior.shape
     Q, R_ = qan.shape
@@ -498,34 +790,50 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
               anti_self=lt.anti_self, task_type0=lt.task_type0,
               task_class0=lt.task_class0, fi=fi_y, fp=fp_y, ci=ci_y,
               cp=cp_y, sc=sc_y, soft=soft_scores, valid=valid)
-    opt = dict(rows=rows, score_bias=score_bias)
+    tp = topo or UniformTopo(topology=None)
+    opt = dict(rows=rows, score_bias=score_bias, topology=tp.topology,
+               srl0=tp.srl0, dom_caps_y=tp.dom_caps_y,
+               level_of_dom=tp.level_of_dom, order=tp.order,
+               pref_level=tp.pref_level, free=free)
     dev = kernels.require_cuda("uniform_fill", dict(
         ts, **{k: v for k, v in opt.items() if v is not None}), dict(
         cand=i32, prior=i32, quota_b=i32, qa=f32, qan=f32, limit_eff=f32,
         quota_eff=f32, chain=b, task_req0=f32, task_valid=b, queue=i32,
         preemptible=b, anti_self=i32, task_type0=i32, task_class0=i32,
         fi=b, fp=b, ci=i32, cp=i32, sc=f32, soft=f32, valid=b, rows=i32,
-        score_bias=f32))
+        score_bias=f32, topology=i32, srl0=i32, dom_caps_y=i32,
+        level_of_dom=i32, order=i32, pref_level=i32, free=f32))
     if rows is not None and rows.shape != (B,):
         raise ValueError("uniform_fill: rows must be [B]")
     if score_bias is not None and score_bias.shape != (B, N):
         raise ValueError("uniform_fill: score_bias must be [B, N]")
+    L = 0 if tp.topology is None else tp.topology.shape[1]
+    if tp.required and (tp.srl0 is None or tp.dom_caps_y.shape[1] != N * L):
+        raise ValueError("uniform_fill: the required level needs srl0 and "
+                         "[Y, N * L] domain caps")
     qa2 = torch.empty((B, Q, R_), dtype=f32, device=dev)
     qan2 = torch.empty((B, Q, R_), dtype=f32, device=dev)
     nodes_t = torch.empty((B, T), dtype=i32, device=dev)
     pipe_t = torch.empty((B, T), dtype=b, device=dev)
     success = torch.empty((B,), dtype=b, device=dev)
+    outs = [qa2, qan2, nodes_t, pipe_t, success]
+    if free is not None:
+        outs += [torch.empty((B, T, R_), dtype=f32, device=dev)
+                 for _ in range(2)]
     lib = kernels.library()
     rc = lib.kai_uniform_fill(
         *(kernels.ptr(t) for t in ts.values()),
         *(None if v is None else kernels.ptr(v) for v in opt.values()),
-        B, T, N, Q, Y, G, X, int(dense), int(stride), int(hoisted),
+        B, T, N, Q, Y, G, X, L, int(dense), int(stride), int(hoisted),
         int(qa_lanes), float(_jitter_scale(N)),
-        *(kernels.ptr(t) for t in (qa2, qan2, nodes_t, pipe_t, success)),
+        *(kernels.ptr(t) for t in outs[:5]),
+        *(kernels.ptr(t) for t in outs[5:]), *([None, None] * (free is None)),
         kernels.stream_of(prior))
     kernels.check(rc, "uniform_fill")
-    kernels.count_launch("uniform_fill")
-    return qa2, qan2, nodes_t, pipe_t, success
+    kernels.count_launch("uniform_fill", lanes=qa_lanes,
+                         topology=tp.required,
+                         preferred=tp.pref_level is not None)
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -632,7 +940,7 @@ def sparse_accept(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
         kernels.ptr(first_bad), kernels.ptr(node_e), kernels.ptr(lane_e),
         kernels.stream_of(nodes_b))
     kernels.check(rc, "sparse_accept")
-    kernels.count_launch("sparse_accept")
+    kernels.count_launch("sparse_accept", credit=credit is not None)
     return first_bad, node_e, lane_e
 
 
@@ -659,6 +967,7 @@ class TaskTables:
     preemptible: Tensor        # bool [G]
     anti_self: Tensor          # i32 [G]
     preferred_level: Tensor    # i32 [G]
+    subgroup_required_level: Tensor  # i32 [G, S]
 
     @classmethod
     def of(cls, state: ClusterState) -> "TaskTables":
@@ -673,7 +982,8 @@ class TaskTables:
             subgroup_min_needed=g.subgroup_min_needed,
             min_needed=g.min_needed, queue=g.queue,
             preemptible=g.preemptible, anti_self=g.anti_self_level,
-            preferred_level=g.preferred_level).items()})
+            preferred_level=g.preferred_level,
+            subgroup_required_level=g.subgroup_required_level).items()})
 
 
 @dataclasses.dataclass
@@ -694,10 +1004,12 @@ class PerTaskOut:
     dev_rows: Tensor       # f32 [B, T, D]
     bind_rows: Tensor      # f32 [B, T, R]  bind-now claims
     devbind_rows: Tensor   # f32 [B, T, D]
+    #: the subgroups' locked domains (subgroup-topology mode) — i32 [B, S]
+    sub_dom: Tensor | None = None
 
     def fields(self) -> tuple:
-        return tuple(getattr(self, f.name)
-                     for f in dataclasses.fields(self))
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self)
+                     if getattr(self, f.name) is not None)
 
 
 def _device_rows(nodes: NodeState, dev: Tensor, extra_dev: Tensor,
@@ -740,7 +1052,9 @@ def attempt_gang_in_domain_plain(
         free: Tensor, dev: Tensor, qa: Tensor, qan: Tensor, extra: Tensor,
         extra_dev: Tensor, chain: Tensor, limit_eff: Tensor,
         quota_eff: Tensor, *, placement: PlacementConfig,
-        track_devices: bool) -> PerTaskOut:
+        track_devices: bool, topo: TopoStatic | None = None,
+        banned: Tensor | None = None,
+        lane_ids: Tensor | None = None) -> PerTaskOut:
     """Plain PyTorch version of K9: the reference's
     ``_attempt_gang_in_domain`` (``:517``) for every lane ``b`` of a chunk
     (gang ``cand[b]``, tie-break lane ``b``, prior placements ``prior[b]``),
@@ -749,8 +1063,18 @@ def attempt_gang_in_domain_plain(
     the nominated-node, soft, preferred-topology and tie-jitter bands,
     the gpusharingorder band, ``pick_device`` for fractions, the
     whole-device rank-and-take and the bind-now / pipelined bookkeeping.
-    The subgroup-topology and extended branches stay out (``allocate``
-    refuses them).  Batched over the B lanes; T task steps in order."""
+    The extended branch stays out (``allocate`` refuses it).  Batched
+    over the B lanes; T task steps in order.
+
+    ``topo`` turns on the subgroup-topology mode (ref ``:650-668``,
+    ``:734-760``, ``:855-866``, ``:878-882``): the domain aggregate of
+    the chunk-start pools, summed per domain in node order, kept live per
+    lane; the subgroups' domain locks, seeded from prior placements; the
+    remaining-chunk gate and the domain-binpack band on a subgroup's first
+    placement; and the ``sub_dom`` output.  ``banned`` i32 [B, S] bars
+    each lane's subgroups from one domain (the in-cycle retry); and
+    ``lane_ids`` i32 [B] gives each lane its tie-break lane (default: its
+    row)."""
     B, T = prior.shape
     N, R_ = free.shape
     D = dev.shape[1]
@@ -816,6 +1140,30 @@ def attempt_gang_in_domain_plain(
         torch.cumsum(unplaced_t.to(i32), -1, dtype=i32) - 1 < 1)
     eligible = torch.where(in_quorum[:, None], elig_quorum, first_unplaced)
     goal = eligible.sum(-1, dtype=i32)
+    if topo is not None:
+        # the remaining request of each subgroup's chunk, summed in task
+        # order from +0.0 (the reference's segment_sum)
+        sub_rem = torch.zeros((B, S, R_), dtype=f32, device=dv)
+        for t in range(T):
+            sub_rem[arB, sub[:, t]] = sub_rem[arB, sub[:, t]] + torch.where(
+                eligible[:, t, None], task_req[:, t], 0.0)
+        # the domains' aggregate of the chunk-start pools (every lane
+        # starts from the same one), per domain in ascending node order
+        ND = N * L
+        avail0 = torch.where(nodes.valid[:, None],
+                             (free + nodes.releasing) + extra, 0.0)
+        agg0 = torch.zeros((ND + 1, R_), dtype=f32, device=dv)
+        for lvl in range(L):
+            agg0.index_add_(0, topo.dom_of[lvl].long(), avail0)
+        agg = agg0.expand(B, ND + 1, R_).clone()
+        srl = tt.subgroup_required_level[gi]                 # [B, S]
+        prior_level = srl.gather(1, sub)                     # [B, T]
+        prior_sub_dom = nodes.topology[
+            torch.clamp(prior, min=0).long(),
+            torch.clamp(prior_level, 0, L - 1).long()]
+        sub_dom = torch.full((B, S), -1, dtype=i32, device=dv).scatter_reduce(
+            1, sub, torch.where(already & (prior_level >= 0), prior_sub_dom,
+                                -1).to(i32), reduce="amax")
 
     # queue capacity gates for every task prefix, hoisted out of the loop
     anc = chain[tt.queue[gi].long()]                         # [B, Q]
@@ -838,7 +1186,8 @@ def attempt_gang_in_domain_plain(
     count = torch.zeros((B,), dtype=i32, device=dv)
     q_delta = torch.zeros((B, R_), dtype=f32, device=dv)
     jitter_scale = _jitter_scale(N).to(dv)
-    lanes = torch.arange(B, dtype=i32, device=dv)
+    lanes = (torch.arange(B, dtype=i32, device=dv) if lane_ids is None
+             else lane_ids)
     ar_d = torch.arange(D, device=dv)
     for t in range(T):
         # a lane whose task t is not eligible or fails its queue gate
@@ -874,6 +1223,36 @@ def attempt_gang_in_domain_plain(
                 extra_device_releasing=None, devices=False,
                 task_class=cls)
         allowed = nodes.valid[None] & ~forbidden[ix]
+        if topo is not None:
+            # a subgroup with a required level stays in the domain its
+            # first placement locked; that first placement needs a domain
+            # whose aggregate still holds the subgroup's remaining chunk,
+            # and binpacks among them (fullest fitting domain first)
+            s_t = sub[ix, t]
+            level_t = srl[ix, s_t]
+            has_srl = level_t >= 0
+            dom_col = topo_t[torch.clamp(level_t, 0, L - 1).long()]  # [k, N]
+            locked = sub_dom[ix, s_t]
+            allowed = allowed & ((~has_srl | (locked < 0))[:, None]
+                                 | (dom_col == locked[:, None]))
+            needs_pick = has_srl & (locked < 0)
+            dom_band = torch.zeros((k_, N), dtype=f32, device=dv)
+            # the domain gate and band, for the lanes whose subgroup picks
+            # its domain at this step (elsewhere both are inert)
+            pk = torch.nonzero(needs_pick).flatten()
+            if pk.numel():
+                dc = dom_col[pk]
+                node_agg = agg[ix[pk][:, None], torch.clamp(dc, min=0).long()]
+                dom_ok = ((node_agg + EPS >= sub_rem[ix[pk], s_t[pk]][
+                    :, None, :]).all(-1) & (dc >= 0))
+                if banned is not None:
+                    dom_ok = dom_ok & (dc != banned[ix[pk], s_t[pk]][:, None])
+                allowed[pk] = allowed[pk] & dom_ok
+                agg_accel = node_agg[..., 0]
+                mx = torch.where(dom_ok, agg_accel, 0.0).amax(-1)
+                dom_band[pk] = torch.where(
+                    dom_ok, W_TOPOLOGY * (1.0 - agg_accel / torch.clamp(
+                        mx, min=EPS)[:, None]), 0.0)
         fit_idle = fit_idle & allowed
         fit_pipe = fit_pipe & allowed
         # bands in the reference's f32 order: ((((topology + domain) +
@@ -884,6 +1263,8 @@ def attempt_gang_in_domain_plain(
         topo_band = torch.where(
             (has_pref[ix] & (pd >= 0))[:, None]
             & (pref_doms[ix] == pd[:, None]), W_TOPOLOGY, 0.0)
+        if topo is not None:
+            topo_band = topo_band + dom_band
         rank_feas = torch.cumsum(fit_pipe.to(i32), -1, dtype=i32) - 1
         jitter = jitter_scale * torch.remainder(
             rank_feas - lanes[ix, None], N).to(f32)
@@ -944,6 +1325,15 @@ def attempt_gang_in_domain_plain(
         count[ix] = count[ix] + placed.to(i32)
         pref_dom[ix] = torch.where(placed & (pd < 0),
                                    pref_doms[ix, node], pd)
+        if topo is not None:
+            sub_dom[ix, s_t] = torch.where(placed & has_srl & (locked < 0),
+                                           dom_col[arK, node], locked)
+            sub_rem[ix, s_t] = sub_rem[ix, s_t] + (-delta)
+            # the node's domain at every level loses the placement
+            for lvl in range(L):
+                did = nodes.topology[node, lvl].long()
+                did = torch.where(did >= 0, did, N * L)
+                agg[ix, did] = agg[ix, did] + (-delta_node)
 
     ancf = anc.to(f32)[:, :, None] * q_delta[:, None, :]     # [B, Q, R]
     qa2 = qa[None] + ancf
@@ -957,7 +1347,8 @@ def attempt_gang_in_domain_plain(
     return PerTaskOut(qa2=qa2, qan2=qan2, nodes_t=nodes_t, dev_t=dev_t,
                       pipe_t=pipe_t, success=success, free_rows=rows(free_l),
                       dev_rows=rows(dev_l), bind_rows=rows(bind),
-                      devbind_rows=rows(dbind))
+                      devbind_rows=rows(dbind),
+                      sub_dom=None if topo is None else sub_dom)
 
 
 #: most task slots per gang, devices per node and subgroups per gang K9
@@ -970,21 +1361,76 @@ PERTASK_MAX_S = 32
 DENSE_ACCEPT_MAX_B = 256
 
 
+def pertask_fill_plain(nodes: NodeState, tt: TaskTables, cand: Tensor,
+                       prior: Tensor, free: Tensor, dev: Tensor, qa: Tensor,
+                       qan: Tensor, extra: Tensor, extra_dev: Tensor,
+                       chain: Tensor, limit_eff: Tensor, quota_eff: Tensor, *,
+                       placement: PlacementConfig, track_devices: bool,
+                       topo: TopoStatic | None = None,
+                       banned: Tensor | None = None,
+                       active: Tensor | None = None,
+                       base: PerTaskOut | None = None,
+                       agg: Tensor | None = None) -> PerTaskOut:
+    """Plain PyTorch version of K9 with the retry's lane selection (see
+    :func:`pertask_fill`): :func:`attempt_gang_in_domain_plain` over every
+    lane, or over the ``active`` lanes only — each with its own lane index
+    — merged into ``base``.  ``agg``, the kernel's scratch, is not read:
+    this version sums its domain aggregates itself."""
+    def plain(c, p, **kw):
+        return attempt_gang_in_domain_plain(
+            nodes, tt, c, p, free, dev, qa, qan, extra, extra_dev, chain,
+            limit_eff, quota_eff, placement=placement,
+            track_devices=track_devices, topo=topo, **kw)
+    if active is None:
+        return plain(cand, prior, banned=banned)
+    ix = torch.nonzero(active).flatten()
+    if ix.numel() == 0:
+        return base
+    sub = plain(cand[ix], prior[ix], banned=banned[ix],
+                lane_ids=ix.to(torch.int32))
+    merged = {}
+    for f in dataclasses.fields(base):
+        v = getattr(base, f.name)
+        if v is not None:
+            v = v.clone()
+            v[ix] = getattr(sub, f.name)
+        merged[f.name] = v
+    return PerTaskOut(**merged)
+
+
 def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                  prior: Tensor, free: Tensor, dev: Tensor, qa: Tensor,
                  qan: Tensor, extra: Tensor, extra_dev: Tensor, chain: Tensor,
                  limit_eff: Tensor, quota_eff: Tensor, *,
-                 placement: PlacementConfig,
-                 track_devices: bool) -> PerTaskOut:
+                 placement: PlacementConfig, track_devices: bool,
+                 topo: TopoStatic | None = None,
+                 banned: Tensor | None = None, active: Tensor | None = None,
+                 base: PerTaskOut | None = None,
+                 agg: Tensor | None = None) -> PerTaskOut:
     """K9 — every lane's per-task placement (see
     :func:`attempt_gang_in_domain_plain` for the contract).  CPU tensors
     run the plain version; CUDA tensors launch one block per lane or
-    raise."""
+    raise.
+
+    The in-cycle retry (ref ``:1274-1289``) passes ``active`` bool [B],
+    the lanes to attempt again, with ``banned`` and the first attempt's
+    output ``base``: only the active lanes run (each with its own lane
+    index, so its tie jitter is the reference's), and every other lane
+    returns ``base``'s output unchanged.
+
+    With ``topo``, ``agg`` is the domain-aggregate scratch
+    (:func:`pertask_agg_scratch`; one is allocated per call without it).
+    A first launch sums the chunk-start aggregate into its last row; a
+    retry launch given the scratch of its chunk's first launch copies
+    that row into the retried lanes' rows and sums nothing."""
+    if active is not None and base is None:
+        raise ValueError("pertask_fill: active lanes need the base output")
     if not kernels.on_card(free):
-        return attempt_gang_in_domain_plain(
+        return pertask_fill_plain(
             nodes, tt, cand, prior, free, dev, qa, qan, extra, extra_dev,
             chain, limit_eff, quota_eff, placement=placement,
-            track_devices=track_devices)
+            track_devices=track_devices, topo=topo, banned=banned,
+            active=active, base=base, agg=agg)
     if tuple(placement.tiers) != DEFAULT_TIERS:
         raise NotImplementedError(
             f"pertask_fill: the CUDA kernel composes the default tiers "
@@ -1027,34 +1473,82 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                   task_nominated=i32, task_subgroup=i32,
                   subgroup_min_needed=i32, min_needed=i32, queue=i32,
                   preemptible=b, anti_self=i32, preferred_level=i32,
+                  subgroup_required_level=i32,
                   free=f32, dev=f32, releasing=f32, extra=f32,
                   device_releasing=f32, extra_dev=f32, allocatable=f32,
                   valid=b, labels=i32, filter_masks=b, soft_scores=f32,
                   device_memory_gib=f32, topology=i32, qa=f32, qan=f32,
                   limit_eff=f32, quota_eff=f32, chain=b, cand=i32,
-                  prior=i32)
-    ts = dict(**gang, **node, **queue, **lane)
-    dv = kernels.require_cuda("pertask_fill", ts, dtypes)
-    out = PerTaskOut(
-        qa2=torch.empty((B, Q, R_), dtype=f32, device=dv),
-        qan2=torch.empty((B, Q, R_), dtype=f32, device=dv),
-        nodes_t=torch.empty((B, T), dtype=i32, device=dv),
-        dev_t=torch.empty((B, T), dtype=i32, device=dv),
-        pipe_t=torch.empty((B, T), dtype=b, device=dv),
-        success=torch.empty((B,), dtype=b, device=dv),
-        free_rows=torch.empty((B, T, R_), dtype=f32, device=dv),
-        dev_rows=torch.empty((B, T, D), dtype=f32, device=dv),
-        bind_rows=torch.empty((B, T, R_), dtype=f32, device=dv),
-        devbind_rows=torch.empty((B, T, D), dtype=f32, device=dv))
+                  prior=i32, dom_ptr=i32, dom_nodes=i32, banned=i32,
+                  active=b)
+    ts = dict(**gang, **node, **queue, **lane,
+              subgroup_required_level=tt.subgroup_required_level)
+    opt = dict(dom_ptr=None if topo is None else topo.dom_ptr,
+               dom_nodes=None if topo is None else topo.dom_nodes,
+               banned=banned, active=active)
+    dv = kernels.require_cuda("pertask_fill", dict(
+        ts, **{k: v for k, v in opt.items() if v is not None}), dtypes)
+    if banned is not None and (topo is None or banned.shape != (B, S)):
+        raise ValueError("pertask_fill: banned needs topo and is [B, S]")
+    if base is not None:
+        out = PerTaskOut(**{f.name: getattr(base, f.name).clone()
+                            for f in dataclasses.fields(base)
+                            if getattr(base, f.name) is not None})
+    else:
+        out = PerTaskOut(
+            qa2=torch.empty((B, Q, R_), dtype=f32, device=dv),
+            qan2=torch.empty((B, Q, R_), dtype=f32, device=dv),
+            nodes_t=torch.empty((B, T), dtype=i32, device=dv),
+            dev_t=torch.empty((B, T), dtype=i32, device=dv),
+            pipe_t=torch.empty((B, T), dtype=b, device=dv),
+            success=torch.empty((B,), dtype=b, device=dv),
+            free_rows=torch.empty((B, T, R_), dtype=f32, device=dv),
+            dev_rows=torch.empty((B, T, D), dtype=f32, device=dv),
+            bind_rows=torch.empty((B, T, R_), dtype=f32, device=dv),
+            devbind_rows=torch.empty((B, T, D), dtype=f32, device=dv),
+            sub_dom=(None if topo is None else
+                     torch.empty((B, S), dtype=i32, device=dv)))
+    if (out.sub_dom is None) != (topo is None):
+        raise ValueError("pertask_fill: base must come from the same mode")
+    # the lanes' live domain aggregates: one [ND + 1, R] table per lane
+    # in global memory, and the chunk-start table in the last row
+    agg_ready = topo is not None and agg is not None and active is not None
+    if topo is not None:
+        if agg is None:
+            agg = pertask_agg_scratch(B, topo, free)
+        elif (agg.shape != (B + 1, N * L + 1, R_) or agg.dtype != f32
+              or agg.device != free.device or not agg.is_contiguous()):
+            raise ValueError(f"pertask_fill: agg must be f32 "
+                             f"[{B + 1}, {N * L + 1}, {R_}] on the card")
     rc = kernels.library().kai_pertask_fill(
         *(kernels.ptr(v) for v in ts.values()),
+        *(None if v is None else kernels.ptr(v)
+          for v in (*opt.values(), agg if topo is not None else None)),
         B, T, N, D, K, X, L, S, Q, G, int(placement.binpack_accel),
         int(placement.binpack_cpu), int(placement.device_pack),
-        int(track_devices), float(_jitter_scale(N)),
-        *(kernels.ptr(v) for v in out.fields()), kernels.stream_of(free))
+        int(track_devices), int(agg_ready), float(_jitter_scale(N)),
+        *(kernels.ptr(v) for v in out.fields()),
+        *([None] * (topo is None)), kernels.stream_of(free))
     kernels.check(rc, "pertask_fill")
-    kernels.count_launch("pertask_fill")
+    kernels.count_launch("pertask_fill",
+                         topology=topo is not None and banned is None,
+                         banned=banned is not None)
     return out
+
+
+def pertask_agg_scratch(B: int, topo: TopoStatic | None,
+                        free: Tensor) -> Tensor | None:
+    """K9's domain-aggregate scratch for ``B`` lanes, f32
+    [B + 1, ND + 1, R] (a row per lane, the chunk-start table last),
+    allocated once per action and passed to every :func:`pertask_fill`
+    launch; None without ``topo`` and for CPU tensors (the plain version
+    keeps its own)."""
+    if topo is None or not kernels.on_card(free):
+        return None
+    N, R_ = free.shape
+    L = topo.dom_of.shape[0]
+    return torch.empty((B + 1, N * L + 1, R_), dtype=torch.float32,
+                       device=free.device)
 
 
 # ---------------------------------------------------------------------------
@@ -1142,16 +1636,19 @@ def dense_accept_plain(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
 
 
 def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
-                 free_rows: Tensor, dev_rows: Tensor, bind_rows: Tensor,
-                 devbind_rows: Tensor, free: Tensor, dev: Tensor,
-                 rel_floor: Tensor, dev_floor: Tensor, d_qa: Tensor,
+                 free_rows: Tensor, dev_rows: Tensor | None,
+                 bind_rows: Tensor, devbind_rows: Tensor | None,
+                 free: Tensor, dev: Tensor | None,
+                 rel_floor: Tensor, dev_floor: Tensor | None, d_qa: Tensor,
                  d_qan: Tensor, qa: Tensor, qan: Tensor, *,
                  track_devices: bool):
     """K10 — the dense accept prefix and the commit (see
     :func:`dense_accept_plain` for the contract).  CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise.  The kernel
-    walks, per node, only the lanes that placed there (K9's rows) and
-    never builds the [B, N, R] / [B, N, D] cumulatives."""
+    walks, per node, only the lanes that placed there (K9's or K3's rows)
+    and never builds the [B, N, R] / [B, N, D] cumulatives.  Without the
+    device table (``track_devices=False``: the uniform lanes) the four
+    device arguments may be None and ``dev`` comes back as given."""
     args = (nodes_b, ok, gate_ok, free_rows, dev_rows, bind_rows,
             devbind_rows, free, dev, rel_floor, dev_floor, d_qa, d_qan, qa,
             qan)
@@ -1159,7 +1656,7 @@ def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
         return dense_accept_plain(*args, track_devices=track_devices)
     B, T = nodes_b.shape
     N, R_ = free.shape
-    D = dev.shape[1]
+    D = dev.shape[1] if track_devices else 0
     Q = qa.shape[0]
     if R_ != 3 or B > DENSE_ACCEPT_MAX_B or D > PERTASK_MAX_D:
         raise ValueError(f"dense_accept: R={R_}, B={B}, D={D} outside the "
@@ -1169,22 +1666,28 @@ def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
              "bind_rows", "devbind_rows", "free", "dev", "rel_floor",
              "dev_floor", "d_qa", "d_qan", "qa", "qan")
     ts = dict(zip(names, args))
-    dv = kernels.require_cuda("dense_accept", ts, dict(
+    if not track_devices:
+        for k in ("dev_rows", "devbind_rows", "dev", "dev_floor"):
+            ts[k] = None
+    dv = kernels.require_cuda("dense_accept", {
+        k: v for k, v in ts.items() if v is not None}, dict(
         nodes_b=i32, ok=b, gate_ok=b, free_rows=f32, dev_rows=f32,
         bind_rows=f32, devbind_rows=f32, free=f32, dev=f32, rel_floor=f32,
         dev_floor=f32, d_qa=f32, d_qan=f32, qa=f32, qan=f32))
     first_bad = torch.full((1,), B, dtype=i32, device=dv)
     take = torch.empty((B,), dtype=b, device=dv)
-    free2, dev2 = free.clone(), dev.clone()
+    free2 = free.clone()
+    dev2 = dev.clone() if track_devices else None
     qa2, qan2 = torch.empty_like(qa), torch.empty_like(qan)
     rc = kernels.library().kai_dense_accept(
-        *(kernels.ptr(t) for t in args), B, T, N, D, Q, int(track_devices),
+        *(None if t is None else kernels.ptr(t) for t in ts.values()),
+        B, T, N, D, Q, int(track_devices),
         kernels.ptr(first_bad), kernels.ptr(take), kernels.ptr(free2),
-        kernels.ptr(dev2), kernels.ptr(qa2), kernels.ptr(qan2),
-        kernels.stream_of(free))
+        None if dev2 is None else kernels.ptr(dev2), kernels.ptr(qa2),
+        kernels.ptr(qan2), kernels.stream_of(free))
     kernels.check(rc, "dense_accept")
-    kernels.count_launch("dense_accept")
-    return take, free2, dev2, qa2, qan2
+    kernels.count_launch("dense_accept", no_devices=not track_devices)
+    return take, free2, (dev2 if track_devices else dev), qa2, qan2
 
 
 # ---------------------------------------------------------------------------
@@ -1195,17 +1698,20 @@ def _attempt_gang(state: ClusterState, cand: Tensor, prior: Tensor,
                   quota_b: Tensor, qa: Tensor, qan: Tensor, *,
                   config: AllocateConfig, chain: Tensor,
                   limit_eff: Tensor, quota_eff: Tensor, lt: LaneTables,
-                  tables, hoisted: bool):
-    """Try to place every lane's gang (ref ``_attempt_gang``, ``:1208``,
-    under the chunk's lane vmap): this slice routes to the uniform
-    whole-gang fill with sparse outputs, K3 (``allocate`` has refused
-    every other configuration)."""
+                  tables, hoisted: bool, topo: UniformTopo | None = None,
+                  free: Tensor | None = None):
+    """Try to place every uniform lane's gang (ref ``_attempt_gang``,
+    ``:1208``, under the chunk's lane vmap) through the whole-gang fill,
+    K3: placements only (the sparse protocol), or with ``free`` the dense
+    protocol's rows; ``topo`` carries the required-level tables and the
+    preferred band."""
     N = state.nodes.n
     return uniform_fill(
         cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, lt,
         tables, state.nodes.soft_scores, state.nodes.valid,
         dense=config.dense_feasibility,
-        stride=max(1, N // max(1, config.batch_size)), hoisted=hoisted)
+        stride=max(1, N // max(1, config.batch_size)), hoisted=hoisted,
+        topo=topo, free=free)
 
 
 def _ancestor_gate(parent: Tensor, q: Tensor, num_levels: int, used: Tensor,
@@ -1293,13 +1799,25 @@ def allocate(state: ClusterState, fair_share: Tensor, *, num_levels: int,
                             config=config, init=init)[0]
 
 
+@dataclasses.dataclass
+class AllocateCounts:
+    """What one allocate action did besides its commit."""
+
+    #: wavefront chunks (one host sync each)
+    chunks: int = 0
+    #: per-task lanes attempted again in the next domain after their
+    #: required-level domain failed the fill (the in-cycle retry)
+    retries: int = 0
+    #: chunks whose retry launch had at least one such lane
+    retry_chunks: int = 0
+
+
 def allocate_counted(state: ClusterState, fair_share: Tensor, *,
                      num_levels: int,
                      config: AllocateConfig = AllocateConfig(),
                      init: AllocationResult | None = None
-                     ) -> tuple[AllocationResult, int]:
-    """:func:`allocate`, also returning the number of wavefront chunks
-    (host syncs) it ran."""
+                     ) -> tuple[AllocationResult, AllocateCounts]:
+    """:func:`allocate`, also returning its :class:`AllocateCounts`."""
     check_supported(config)
     g, n, q = state.gangs, state.nodes, state.queues
     G, T, N = g.g, g.t, n.n
@@ -1307,6 +1825,10 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
     i32 = torch.int32
     total = state.total_capacity
     B = max(1, min(config.batch_size, G))
+    if config.subgroup_topology and not config.uniform_tasks:
+        # the reference's cap on the per-task path's lanes with domain
+        # aggregates (ref :1312)
+        B = min(B, 64)
     if init is None:
         init = init_result(state)
 
@@ -1366,19 +1888,38 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
 
     chain = _chain_membership(q.parent, num_levels)
     # the uniform kernel's lanes emit placements only and the chunk accepts
-    # on K = B*T sparse claim entries (K3, K4); the per-task lanes emit
-    # their pools' rows at the nodes they touched and the chunk runs the
-    # dense accept (K9, K10) — the reference's rule (ref :1537)
-    sparse = (config.uniform_tasks and not config.extended
-              and not config.track_devices and config.sparse_wavefront
-              and not config.subgroup_topology)
+    # on K = B*T sparse claim entries (K3, K4); the per-task lanes (K9),
+    # and the uniform lanes under a required level (K3 with the domain
+    # tables), emit their pools' rows at the nodes they touched and the
+    # chunk runs the dense accept (K10) — the reference's rule (ref :1537)
+    uniform = config.uniform_tasks
+    sparse = (uniform and not config.extended and not config.track_devices
+              and config.sparse_wavefront and not config.subgroup_topology)
     Yu = g.type_req.shape[0]
     hoisted = config.hoist_type_tables and Yu <= B
     lt = LaneTables.of(state)
-    tt = None if sparse else TaskTables.of(state)
+    tt = None if uniform else TaskTables.of(state)
     extra_dev = init.device_releasing_extra
     rel_floor = -(n.releasing + extra) - EPS
     dev_floor = -(n.device_releasing + extra_dev) - EPS
+    topo_st = TopoStatic.of(n) if config.subgroup_topology else None
+    # the uniform path's domain tables: built once per action, then kept
+    # up to date at the nodes each chunk's commit touched (ref :1418-1528)
+    hoist_topo = uniform and config.subgroup_topology
+    if hoist_topo:
+        fp_build = feasible_nodes_dual(
+            n, g.type_req, g.type_selector,
+            torch.zeros((Yu,), dtype=f32, device=dev),
+            torch.zeros((Yu,), dtype=f32, device=dev), free=init.free,
+            device_free=None, extra_releasing=extra,
+            extra_device_releasing=None, devices=False,
+            task_class=g.type_class)[1] & n.valid[None, :]   # [Y, N]
+        dom_caps_y, dom_agg, c_y = topo_tables_build(
+            topo_st, fp_build, (init.free + n.releasing) + extra, n.valid,
+            g.type_req)
+        srl0 = g.subgroup_required_level[:, 0].contiguous()
+    pref_level = (g.preferred_level.contiguous()
+                  if uniform and config.preferred_topology else None)
 
     # loop state; row G of each gang buffer is the junk row
     placements = _pad_row(init.placements, -1)
@@ -1395,6 +1936,11 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
     gq = g.queue.long()
     sig = g.sig.long()
     lanes_b = torch.arange(B, dtype=i32, device=dev)
+    retries = torch.zeros((), dtype=torch.int64, device=dev)
+    retry_chunks = torch.zeros((), dtype=torch.int64, device=dev)
+    # K9's domain-aggregate scratch, shared by every chunk's two launches
+    agg_scratch = (None if uniform else
+                   pertask_agg_scratch(B, topo_st, init.free))
     fuel = G * (T + 1)
     chunks = 0
     while fuel > 0 and bool(remaining[:G].any()):
@@ -1423,23 +1969,56 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         need = g.min_needed[cand_c]
         quota_b = torch.where(placed_cnt < need, need - placed_cnt, 1).to(i32)
 
-        if sparse:
+        dev_rows = devbind_rows = None
+        if uniform:
             tables = type_tables(n, free, extra, g.type_req, g.type_selector,
                                  g.type_class, config.placement)
-            qa2_b, qan2_b, nodes_b, pipe_b, succ_b = _attempt_gang(
+            utopo = None
+            if hoist_topo or pref_level is not None:
+                utopo = UniformTopo(topology=n.topology,
+                                    pref_level=pref_level)
+            if hoist_topo:
+                utopo = dataclasses.replace(
+                    utopo, srl0=srl0, dom_caps_y=dom_caps_y,
+                    level_of_dom=topo_st.level_of_dom,
+                    order=order_by_agg(topo_st.level_of_dom, dom_agg))
+            outs = _attempt_gang(
                 state, cand_c.to(i32), prior_b, quota_b, qa, qan,
                 config=config, chain=chain, limit_eff=limit_eff,
-                quota_eff=quota_eff, lt=lt, tables=tables, hoisted=hoisted)
+                quota_eff=quota_eff, lt=lt, tables=tables, hoisted=hoisted,
+                topo=utopo, free=None if sparse else free)
+            qa2_b, qan2_b, nodes_b, pipe_b, succ_b = outs[:5]
+            if not sparse:
+                free_rows, bind_rows = outs[5:]
             devt_b = None
         else:
             lanes_out = pertask_fill(
                 n, tt, cand_c.to(i32), prior_b, free, dev_free, qa, qan,
                 extra, extra_dev, chain, limit_eff, quota_eff,
                 placement=config.placement,
-                track_devices=config.track_devices)
+                track_devices=config.track_devices, topo=topo_st,
+                agg=agg_scratch)
+            if topo_st is not None:
+                # in-cycle retry over the next domain (ref :1274-1289):
+                # a lane whose locked domain failed the fill is attempted
+                # again with those domains banned; no other lane runs
+                retry = (cand_valid & ~lanes_out.success
+                         & (lanes_out.sub_dom >= 0).any(-1))
+                lanes_out = pertask_fill(
+                    n, tt, cand_c.to(i32), prior_b, free, dev_free, qa, qan,
+                    extra, extra_dev, chain, limit_eff, quota_eff,
+                    placement=config.placement,
+                    track_devices=config.track_devices, topo=topo_st,
+                    banned=lanes_out.sub_dom, active=retry, base=lanes_out,
+                    agg=agg_scratch)
+                retries += retry.sum()
+                retry_chunks += retry.any()
             qa2_b, qan2_b, nodes_b, pipe_b, succ_b, devt_b = (
                 lanes_out.qa2, lanes_out.qan2, lanes_out.nodes_t,
                 lanes_out.pipe_t, lanes_out.success, lanes_out.dev_t)
+            free_rows, bind_rows = lanes_out.free_rows, lanes_out.bind_rows
+            dev_rows = lanes_out.dev_rows
+            devbind_rows = lanes_out.devbind_rows
         succ_b = succ_b & cand_valid
 
         ok = succ_b[:, None, None]
@@ -1480,9 +2059,8 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
             qan = qan + (w * d_qan).sum(0)
         else:
             take, free, dev_free, qa, qan = dense_accept(
-                nodes_b, succ_b, ok_qa & ok_qan, lanes_out.free_rows,
-                lanes_out.dev_rows, lanes_out.bind_rows,
-                lanes_out.devbind_rows, free, dev_free, rel_floor,
+                nodes_b, succ_b, ok_qa & ok_qan, free_rows, dev_rows,
+                bind_rows, devbind_rows, free, dev_free, rel_floor,
                 dev_floor, d_qa, d_qan, qa, qan,
                 track_devices=config.track_devices)
 
@@ -1513,6 +2091,13 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
             skip_now = remaining[:G] & (failed_sig[sig] > 0)
             fit_reason[:G] = torch.where(skip_now, 2, fit_reason[:G])
             remaining[:G] = remaining[:G] & ~skip_now
+        if hoist_topo:
+            # the committed replicas' nodes and domains (ref :1861)
+            req0_b = g.type_req[g.task_type[cand_c, 0].long(), 0]
+            dom_caps_y, dom_agg, c_y = topo_tables_update(
+                topo_st, fp_build, dom_caps_y, dom_agg, c_y,
+                (free + n.releasing) + extra, take, nodes_b.contiguous(),
+                req0_b.contiguous(), g.type_req)
         fuel -= 1
         chunks += 1
 
@@ -1522,4 +2107,5 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         attempted=attempted[:G], fit_reason=fit_reason[:G], free=free,
         device_free=dev_free, queue_allocated=qa,
         queue_allocated_nonpreemptible=qan)
-    return result, chunks
+    return result, AllocateCounts(chunks=chunks, retries=int(retries),
+                                  retry_chunks=int(retry_chunks))

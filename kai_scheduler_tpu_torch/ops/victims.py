@@ -1409,13 +1409,20 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
 def check_placement_ported(placement: AllocateConfig) -> None:
     """Raise ``NotImplementedError`` naming the first placement setting the
     victim actions have not ported: on top of allocate's refusals, the
-    per-task path and the device share table (their scenario solver and
-    wavefront run the uniform whole-gang kernel only)."""
+    per-task path, the device share table (their scenario solver and
+    wavefront run the uniform whole-gang kernel only) and topology — the
+    required and subgroup levels (the solver's per-lane domain pick, ref
+    ``:1055-1076``; the dense wavefront has none) and the uniform path's
+    preferred band."""
     for bad, what in (
             (not placement.uniform_tasks,
              "uniform_tasks=False (the per-task placement path)"),
             (placement.track_devices,
-             "track_devices=True (device share table)")):
+             "track_devices=True (device share table)"),
+            (placement.subgroup_topology,
+             "subgroup_topology=True (subgroup / required topology)"),
+            (placement.uniform_tasks and placement.preferred_topology,
+             "preferred_topology=True")):
         if bad:
             raise NotImplementedError(
                 f"victim actions: {what} is not ported to the PyTorch "

@@ -2,8 +2,8 @@
 GPU.
 
     python3 scripts/profile_torch_cycle.py [--shape headline|contended|
-        sharing|saturated|saturated_sequential|preempt_many_queues|
-        fragmented]
+        sharing|topology|topology_subgroups|saturated|
+        saturated_sequential|preempt_many_queues|fragmented]
 
 Runs the cycle of ``chip_smoke.py``'s shape once to warm up, then once
 under ``torch.profiler`` (CPU and CUDA activities), and prints:
@@ -23,8 +23,9 @@ under ``torch.profiler`` (CPU and CUDA activities), and prints:
 The numbers go to ``chiprun_out/profile_<shape>_summary.json``; the trace
 (Chrome trace format) to ``chiprun_out/profile_<shape>.json`` for the
 headline and contended cells and to ``build/profile_<shape>.json`` for the
-sharing cell (the per-task path, ``chip_smoke.py``'s GPU-sharing fleet)
-and the victim cells, whose traces hold hundreds of thousands of events.
+sharing cell (the per-task path, ``chip_smoke.py``'s GPU-sharing fleet),
+the two topology cells and the victim cells, whose traces hold hundreds
+of thousands of events.
 Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -43,6 +44,8 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (the cycle shapes and runner)
 
 
+#: ``chip_smoke.py``'s topology cells (allocate only)
+TOPOLOGY_CELLS = ("topology", "topology_subgroups")
 #: trace event categories that are device activity
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -76,7 +79,8 @@ def device_activity(trace_path: str, top_n: int = 20):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", default="headline", choices=(
-        "headline", "contended", "sharing", *chip_smoke.VICTIM_CELLS))
+        "headline", "contended", "sharing", *TOPOLOGY_CELLS,
+        *chip_smoke.VICTIM_CELLS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_cycle: no CUDA device", file=sys.stderr)
@@ -91,6 +95,13 @@ def main() -> int:
         shape = chip_smoke.SHARING
         _, _, warm = chip_smoke.run_sharing_cycle("cuda")  # build + warm
         cluster = chip_smoke.sharing_cluster()
+        sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+                          device="cuda")
+    elif args.shape in TOPOLOGY_CELLS:
+        shape = (chip_smoke.TOPOLOGY if args.shape == "topology"
+                 else chip_smoke.TOPO_SUB)
+        _, _, warm = chip_smoke.run_topology_cycle(args.shape, "cuda")
+        cluster = chip_smoke.topology_cluster(args.shape)
         sched = Scheduler(SchedulerConfig(actions=("allocate",)),
                           device="cuda")
     elif victim:
@@ -119,7 +130,8 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     trace_dir = (os.path.join(ROOT, "build")
-                 if victim or args.shape == "sharing" else out_dir)
+                 if victim or args.shape in ("sharing", *TOPOLOGY_CELLS)
+                 else out_dir)
     os.makedirs(trace_dir, exist_ok=True)
     trace_path = os.path.join(trace_dir, f"profile_{args.shape}.json")
     prof.export_chrome_trace(trace_path)
@@ -130,6 +142,7 @@ def main() -> int:
         action_seconds=res.action_seconds,
         victim_stats={k: vars(v) for k, v in res.victim_stats.items()},
         evictions=len(res.evictions), chunks=res.chunks,
+        retries=res.retries,
         binds=len(res.bind_requests), device_seconds=busy,
         device_idle_share=1.0 - busy / wall,
         top_device=[dict(name=n, calls=c, device_ms=ms)
@@ -139,7 +152,8 @@ def main() -> int:
         json.dump(summary, f, indent=1, default=str)
     print(f"card: {card}")
     print(f"{args.shape}: wall {wall:.4f} s (warm-up run, unprofiled: "
-          f"{warm:.4f} s), {res.chunks} chunks, {len(res.bind_requests)} "
+          f"{warm:.4f} s), {res.chunks} chunks, {res.retries} retries, "
+          f"{len(res.bind_requests)} "
           f"binds, {len(res.evictions)} evictions; device busy {busy:.4f} "
           f"s, idle share {summary['device_idle_share']:.4f} of the "
           f"profiled wall, {1.0 - busy / warm:.4f} of the warm-up wall")

@@ -104,10 +104,10 @@ def run_both(shape: dict, overrides: dict):
     want = allocate_jit(ses.state, ses.state.queues.fair_share,
                         num_levels=ses.config.num_levels, config=cfg)
     port = state_from_numpy(ref_leaves(ses.state), "cpu")
-    got, chunks = A.allocate_counted(
+    got, counts = A.allocate_counted(
         port, port.queues.fair_share, num_levels=ses.config.num_levels,
         config=port_config(cfg))
-    return jax.device_get(want), got, chunks
+    return jax.device_get(want), got, counts.chunks
 
 
 def assert_results_equal(want, got):
@@ -162,9 +162,10 @@ def test_topk_tie_order_matches_lax_top_k():
         list(range(8))]
 
 
-#: settings the per-task path lifted from allocate; the victim actions
-#: still refuse them (their placement check)
-VICTIM_ONLY = ("uniform_tasks", "track_devices")
+#: settings the per-task and topology paths lifted from allocate; the
+#: victim actions still refuse them (their placement check)
+VICTIM_ONLY = ("uniform_tasks", "track_devices", "subgroup_topology",
+               "preferred_topology")
 
 
 @pytest.mark.parametrize("flag,value", [

@@ -38,9 +38,8 @@ from kai_scheduler_tpu_torch.framework.session import (SessionConfig,
                                                        _bitpack, _bitunpack)
 from kai_scheduler_tpu_torch.ops.victims import VictimConfig
 from kai_scheduler_tpu_torch.runtime.cluster import Cluster
-from kai_scheduler_tpu_torch.state import make_cluster
+from kai_scheduler_tpu_torch.state import fleets, make_cluster
 
-import chip_smoke
 from jax_executables import release_jax_executables  # noqa: F401
 
 SHAPES = {
@@ -154,7 +153,7 @@ def test_cycle_matches_reference(name, pad32):
 
 
 def _fragmented(apis, cluster_cls):
-    nodes, queues, groups, pods, now = chip_smoke.fragmented_objects(
+    nodes, queues, groups, pods, now = fleets.fragmented_objects(
         apis, num_nodes=24, pending=6, stale=3)
     cluster = cluster_cls.from_objects(nodes, queues, groups, pods)
     cluster.now = now

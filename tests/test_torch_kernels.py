@@ -16,7 +16,7 @@ from kai_scheduler_tpu_torch.ops import allocate as A
 from kai_scheduler_tpu_torch.ops import drf
 from kai_scheduler_tpu_torch.ops.scoring import PlacementConfig
 from kai_scheduler_tpu_torch.runtime.cluster import Cluster
-from kai_scheduler_tpu_torch.state import make_cluster
+from kai_scheduler_tpu_torch.state import fleets, make_cluster
 
 pytestmark = pytest.mark.cuda
 
@@ -458,8 +458,7 @@ def _victim_cluster(name):
             running_fraction=256 / 320, num_departments=2,
             queues_per_department=32, pending_priority_boost=100))
     else:
-        import chip_smoke
-        nodes, queues, groups, pods, now = chip_smoke.fragmented_objects(
+        nodes, queues, groups, pods, now = fleets.fragmented_objects(
             apis, num_nodes=300, pending=12, stale=4)
         cluster = Cluster.from_objects(nodes, queues, groups, pods)
         cluster.now = now
@@ -511,13 +510,12 @@ def test_cuda_victim_cycle_equals_cpu_cycle(cuda, name, batch_size):
 
 def _sharing_lanes(cuda, *, B: int, num_nodes: int, placement: dict,
                    seed: int):
-    """A GPU-sharing snapshot on the card (``chip_smoke.sharing_objects``
+    """A GPU-sharing snapshot on the card (``fleets.sharing_objects``
     plus 40-pod training gangs) with random partial pools and
     victim-freed capacity on a fifth of the nodes, and B lanes of random
     gangs, a third of them with prior placements; returns the K9
     arguments."""
-    import chip_smoke
-    objs = chip_smoke.sharing_objects(
+    objs = fleets.sharing_objects(
         apis, num_nodes=num_nodes, shared_nodes=num_nodes // 2, training=6,
         fractions=24, memory=12, launchers=4, seed=seed)
     nodes, queues, groups, pods = objs
@@ -628,13 +626,12 @@ def test_cuda_sharing_cycle_equals_cpu_cycle(cuda):
     """A small sharing cell through the Scheduler on the card and on the
     CPU: the packed commit and the BindRequests (device indices included)
     are equal, and the cycle went through K9 and K10."""
-    import chip_smoke
     from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
     shape = dict(num_nodes=300, shared_nodes=150, training=20,
                  fractions=120, memory=60, launchers=8)
     out, counts = {}, {}
     for device in ("cuda", "cpu"):
-        cluster = Cluster.from_objects(*chip_smoke.sharing_objects(
+        cluster = Cluster.from_objects(*fleets.sharing_objects(
             apis, **shape))
         kernels.reset_launch_counts()
         out[device] = Scheduler(SchedulerConfig(actions=("allocate",)),
@@ -648,3 +645,225 @@ def test_cuda_sharing_cycle_equals_cpu_cycle(cuda):
     assert [dataclasses.astuple(b) for b in gpu.bind_requests] == \
         [dataclasses.astuple(b) for b in cpu.bind_requests]
     assert any(b.selected_accel_groups for b in gpu.bind_requests)
+
+
+# ---------------------------------------------------------------------------
+# the topology path's kernels: K11 topo_tables, the topology modes of K3,
+# K9 and K10
+# ---------------------------------------------------------------------------
+
+def _topo_session(cuda, seed=0, preferred=False):
+    """A rack-required tree (4 blocks x 8 racks, 512 nodes) with running
+    gangs and random whole-unit pools, so the racks differ in fill; with
+    ``preferred`` every other gang prefers its block."""
+    objs = make_cluster(num_nodes=512, node_accel=8.0, num_gangs=300,
+                        tasks_per_gang=8, topology_levels=(4, 8),
+                        required_level="topo/level1", running_fraction=0.3,
+                        seed=seed)
+    if preferred:
+        for i, g in enumerate(objs[2]):
+            if i % 2 == 0:
+                g.topology_constraint = apis.TopologyConstraint(
+                    topology="default", required_level="topo/level1",
+                    preferred_level="topo/level0")
+    ses = Session.open(*objs, device=cuda)
+    n = ses.state.nodes
+    rng = np.random.default_rng(seed)
+    free = n.free.clone()
+    free[:, 0] = torch.clamp(free[:, 0] - torch.from_numpy(
+        rng.integers(0, 5, n.n).astype(np.float32)).to(cuda), min=0.0)
+    return ses, free
+
+
+def _topo_tables(ses, free):
+    st = ses.state
+    n, g = st.nodes, st.gangs
+    topo = A.TopoStatic.of(n)
+    extra = torch.zeros_like(n.free)
+    tables = A.type_tables(n, free, extra, g.type_req, g.type_selector,
+                           g.type_class, ses.config.allocate.placement)
+    fp_build = (tables[1] & n.valid[None]).contiguous()
+    avail = ((free + n.releasing) + extra).contiguous()
+    return topo, tables, fp_build, avail, extra
+
+
+def test_topo_tables_match_plain(cuda):
+    """K11's build on a 512-node tree, then two updates with random taken
+    lanes (some placing several replicas on one node)."""
+    ses, free = _topo_session(cuda)
+    n, g = ses.state.nodes, ses.state.gangs
+    topo, _, fp_build, avail, _ = _topo_tables(ses, free)
+    args = (topo, fp_build, avail, n.valid, g.type_req)
+    before = kernels.KERNELS["topo_tables_build"].launches
+    out = A.topo_tables_build(*args)
+    assert kernels.KERNELS["topo_tables_build"].launches == before + 1
+    assert_same(out, A.topo_tables_build_plain(*args))
+    caps, agg, c_y = out
+    rng = np.random.default_rng(1)
+    for step, B in enumerate((64, 256)):
+        T = 8
+        nodes_b = torch.from_numpy(np.where(
+            rng.random((B, T)) < 0.8, rng.integers(0, n.n // 2, (B, T)),
+            -1).astype(np.int32)).to(cuda)
+        take = torch.from_numpy(rng.random(B) < 0.7).to(cuda)
+        req0 = torch.from_numpy(rng.choice([1.0, 2.0, 0.5], B).astype(
+            np.float32)).to(cuda)
+        avail = torch.clamp(avail - float(step + 1), min=0.0).contiguous()
+        uargs = (topo, fp_build, caps, agg, c_y, avail, take, nodes_b, req0,
+                 g.type_req)
+        before = kernels.KERNELS["topo_tables_update"].launches
+        got = A.topo_tables_update(*uargs)
+        assert kernels.KERNELS["topo_tables_update"].launches == before + 1
+        assert_same(got, A.topo_tables_update_plain(*uargs))
+        caps, agg, c_y = got
+
+
+@pytest.mark.parametrize("preferred", [False, True])
+@pytest.mark.parametrize("hoisted", [True, False])
+def test_uniform_fill_topology_modes_match_plain(cuda, preferred, hoisted):
+    """K3 with the required level's pick and confinement (64 lanes, a third
+    with a prior placement that locks its domain), the preferred band on
+    every other gang, and the dense protocol's rows."""
+    ses, free = _topo_session(cuda, preferred=preferred)
+    st = ses.state
+    g, n, q = st.gangs, st.nodes, st.queues
+    topo, tables, fp_build, avail, _ = _topo_tables(ses, free)
+    caps, agg, _ = A.topo_tables_build(topo, fp_build, avail, n.valid,
+                                       g.type_req)
+    B, T = 64, g.t
+    rng = np.random.default_rng(2)
+    cand = torch.from_numpy(rng.integers(0, 300, B).astype(np.int32)).to(cuda)
+    prior = np.full((B, T), -1, np.int32)
+    prior[::3, 0] = rng.integers(0, n.n, len(prior[::3]))
+    prior = torch.from_numpy(prior).to(cuda)
+    quota_b = torch.clamp(g.min_needed[cand.long()]
+                          - (prior >= 0).sum(-1, dtype=torch.int32),
+                          min=1).to(torch.int32)
+    lim = torch.where(q.limit <= -0.5, float("inf"), q.limit)
+    quo = torch.where(q.quota <= -0.5, float("inf"), q.quota)
+    utopo = A.UniformTopo(
+        topology=n.topology, srl0=g.subgroup_required_level[:, 0].contiguous(),
+        dom_caps_y=caps, level_of_dom=topo.level_of_dom,
+        order=A.order_by_agg(topo.level_of_dom, agg),
+        pref_level=g.preferred_level if preferred else None)
+    args = (cand, prior, quota_b, q.allocated, q.allocated_nonpreemptible,
+            lim, quo, A._chain_membership(q.parent, 2), A.LaneTables.of(st),
+            tables, n.soft_scores, n.valid)
+    kw = dict(dense=False, stride=1, hoisted=hoisted, topo=utopo, free=free)
+    before = kernels.KERNELS["uniform_fill"].launches
+    out = A.uniform_fill(*args, **kw)
+    assert kernels.KERNELS["uniform_fill"].launches == before + 1
+    assert_same(out, A.uniform_fill_plain(*args, **kw))
+    assert bool(out[4].any()) and bool((~out[4]).any())
+    # K10 without the device table on these lanes' rows
+    succ = out[4]
+    okm = succ[:, None, None]
+    d_qa = torch.where(okm, out[0] - q.allocated, 0.0)
+    d_qan = torch.where(okm, out[1] - q.allocated_nonpreemptible, 0.0)
+    dargs = (out[2], succ, torch.ones_like(succ), out[5], None, out[6], None,
+             free, None, -(n.releasing) - A.EPS, None, d_qa, d_qan,
+             q.allocated, q.allocated_nonpreemptible)
+    before = kernels.KERNELS["dense_accept"].launches
+    acc = A.dense_accept(*dargs, track_devices=False)
+    assert kernels.KERNELS["dense_accept"].launches == before + 1
+    want = A.dense_accept_plain(*dargs, track_devices=False)
+    assert acc[2] is None and want[2] is None
+    assert_same([acc[i] for i in (0, 1, 3, 4)],
+                [want[i] for i in (0, 1, 3, 4)])
+
+
+def _subgroup_topology_lanes(cuda, B=64, num_nodes=512, seed=0):
+    objs = fleets.topology_subgroup_objects(
+        apis, make_cluster, num_nodes=num_nodes, levels=(4, 8), gangs=200,
+        seed=seed)
+    ses = Session.open(*objs, device=cuda)
+    st = ses.state
+    g, n, q = st.gangs, st.nodes, st.queues
+    rng = np.random.default_rng(seed)
+    ng = len(ses.index.gang_names)
+    cand = torch.from_numpy(rng.integers(0, ng, B).astype(np.int32)).to(cuda)
+    T = g.t
+    prior = torch.full((B, T), -1, dtype=torch.int32, device=cuda)
+    free = n.free.clone()
+    free[:, 1] = torch.clamp(free[:, 1] - torch.from_numpy(
+        rng.random(n.n).astype(np.float32) * 3).to(cuda), min=0.0)
+    inf = float("inf")
+    args = (n, A.TaskTables.of(st), cand, prior, free, n.device_free,
+            q.allocated, q.allocated_nonpreemptible, torch.zeros_like(free),
+            torch.zeros_like(n.device_free),
+            A._chain_membership(q.parent, ses.config.num_levels),
+            torch.where(q.limit <= -0.5, inf, q.limit),
+            torch.where(q.quota <= -0.5, inf, q.quota))
+    cfg = ses.config.allocate
+    assert cfg.subgroup_topology and not cfg.uniform_tasks
+    return args, dict(placement=cfg.placement,
+                      track_devices=cfg.track_devices,
+                      topo=A.TopoStatic.of(n))
+
+
+def test_pertask_fill_subgroup_topology_matches_plain(cuda):
+    """K9's subgroup-topology mode (64 lanes on the chip cell's shape at
+    512 nodes, CPU availability with fractions), then its banned mode on
+    every lane, then the retry's active lanes over the first output —
+    on a scratch of its own, and on the first launch's scratch, whose
+    chunk-start row it copies instead of summing."""
+    args, kw = _subgroup_topology_lanes(cuda)
+    kernels.reset_launch_counts()
+    agg = A.pertask_agg_scratch(args[2].shape[0], kw["topo"], args[4])
+    out = A.pertask_fill(*args, agg=agg, **kw)
+    want = A.attempt_gang_in_domain_plain(*args, **kw)
+    assert_same(out.fields(), want.fields())
+    assert bool((out.sub_dom >= 0).any())
+    banned = out.sub_dom
+    assert_same(A.pertask_fill(*args, banned=banned, **kw).fields(),
+                A.attempt_gang_in_domain_plain(*args, banned=banned,
+                                               **kw).fields())
+    active = ~out.success | (torch.arange(out.success.shape[0],
+                                          device=cuda) % 5 == 0)
+    want = A.pertask_fill_plain(*args, banned=banned, active=active,
+                                base=out, **kw).fields()
+    for scratch in (None, agg):
+        got = A.pertask_fill(*args, banned=banned, active=active, base=out,
+                             agg=scratch, **kw)
+        assert_same(got.fields(), want)
+        keep = ~active
+        for a, b in zip(got.fields(), out.fields()):
+            assert torch.equal(a[keep], b[keep])
+    counts = kernels.launch_counts()
+    assert (counts["pertask_fill"], counts["pertask_fill:topology"],
+            counts["pertask_fill:banned"]) == (4, 1, 3)
+
+
+@pytest.mark.parametrize("name", ["topology", "topology_subgroups"])
+def test_cuda_topology_cycle_equals_cpu_cycle(cuda, name):
+    """A small topology cell of each kind through the Scheduler on the card
+    and on the CPU: packed commit and BindRequests equal; the uniform cell
+    went through K11 and K3/K10, the per-task cell through K9 and K10."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    out, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        if name == "topology":
+            objs = make_cluster(num_nodes=512, node_accel=8.0, num_gangs=300,
+                                tasks_per_gang=8, topology_levels=(4, 8),
+                                required_level="topo/level1")
+        else:
+            objs = fleets.topology_subgroup_objects(
+                apis, make_cluster, num_nodes=512, levels=(4, 8), gangs=120)
+        kernels.reset_launch_counts()
+        out[device] = Scheduler(SchedulerConfig(actions=("allocate",)),
+                                device=device).run_once(
+            Cluster.from_objects(*objs))
+        counts[device] = kernels.launch_counts()
+    need = (("topo_tables_build", "topo_tables_update", "uniform_fill",
+             "uniform_fill:topology", "dense_accept",
+             "dense_accept:no_devices") if name == "topology"
+            else ("pertask_fill", "pertask_fill:topology",
+                  "pertask_fill:banned", "dense_accept"))
+    assert all(counts["cuda"][k] > 0 for k in need), counts["cuda"]
+    assert all(v == 0 for v in counts["cpu"].values())
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.packed.tobytes() == cpu.packed.tobytes()
+    assert [dataclasses.astuple(b) for b in gpu.bind_requests] == \
+        [dataclasses.astuple(b) for b in cpu.bind_requests]
+    assert (gpu.retries, gpu.retry_chunks) == (cpu.retries,
+                                                cpu.retry_chunks)

@@ -13,6 +13,7 @@ different result."""
 import dataclasses
 import enum
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -130,17 +131,21 @@ def _port_cluster(ref_cluster) -> Cluster:
     return cluster
 
 
-def _supported(cfg, check=check_supported) -> bool:
-    """The port implements the reference's auto-tuned placement config
+def _refusal(cfg, check=check_supported) -> str | None:
+    """Why the port refuses the reference's auto-tuned placement config
     (allocate's check by default; ``check_placement_ported`` for the
-    victim actions' placement)."""
+    victim actions' placement), or None where it implements it."""
     try:
         check(AllocateConfig(**{
             f.name: getattr(cfg, f.name)
             for f in dataclasses.fields(cfg) if f.name != "placement"}))
-    except NotImplementedError:
-        return False
-    return True
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def _supported(cfg, check=check_supported) -> bool:
+    return _refusal(cfg, check) is None
 
 
 def _victim_cycle(name, batch_size):
@@ -174,10 +179,12 @@ def test_victim_scenario_cycle_matches_reference_or_is_refused(
         actions=DEFAULT_ACTIONS,
         session=SessionConfig(victims=VictimConfig(batch_size=batch_size))),
         device="cpu")
-    if not (_supported(pad32["config"])
-            and _supported(pad32["victims"].placement,
-                           check_placement_ported)):
-        with pytest.raises(NotImplementedError):
+    # allocate runs first: its refusal, else the victim actions' (which
+    # name the placement setting they have not ported, topology included)
+    reason = (_refusal(pad32["config"])
+              or _refusal(pad32["victims"].placement, check_placement_ported))
+    if reason is not None:
+        with pytest.raises(NotImplementedError, match=re.escape(reason)):
             sched.run_once(cluster)
         return
     got = sched.run_once(cluster)
@@ -188,23 +195,14 @@ def test_victim_scenario_cycle_matches_reference_or_is_refused(
 
 
 def test_catalog_cases_run_on_the_port():
-    """Most catalog cases need only what this slice ported: the parity
-    test above then compares commits instead of checking a refusal."""
-    supported = 0
-    for case in CASES.values():
-        cluster = _build(case)
-        _, index = ref_cs.build_snapshot(*cluster.snapshot_lists(), pad=32,
-                                         now=cluster.now)
-        cfg = ref_session._auto_tune(ref_session.SessionConfig(), index,
-                                     32, 32).allocate
-        try:
-            check_supported(AllocateConfig(**{
-                f.name: getattr(cfg, f.name)
-                for f in dataclasses.fields(cfg) if f.name != "placement"}))
-            supported += 1
-        except NotImplementedError:
-            pass
-    assert supported >= len(CASES) // 2, (supported, len(CASES))
+    """Most catalog cases need only what the port has ported, every
+    topology case (required, subgroup and preferred levels) among them:
+    the parity test above then compares commits instead of checking a
+    refusal."""
+    supported = {name for name, case in CASES.items()
+                 if _supported(_auto_config(case))}
+    assert len(supported) >= len(CASES) // 2, (len(supported), len(CASES))
+    assert {c.name for c in test_topology_scenarios.CASES} <= supported
 
 
 def _auto_config(case):
@@ -219,23 +217,20 @@ def _auto_config(case):
 def test_per_task_catalog_cases_run_on_the_port():
     """The per-task path runs the sharing catalog's fractional and
     memory-based cases, the hierarchy catalog's fractional reclaim cases
-    and the topology catalog's subgroup-quorum cases; MIG (extended),
-    required/subgroup topology and the preferred level on the uniform path
-    stay refused."""
-    runs, refused = set(), {}
+    and the topology catalog's subgroup-quorum cases; the topology
+    catalog's required-level cases run on the uniform path with its
+    domain tables, and its preferred-level case with the uniform
+    preferred band; MIG (extended) stays refused."""
+    runs, uniform, refused = set(), {}, {}
     for case in CASES.values():
         cfg = _auto_config(case)
-        if _supported(cfg):
-            if not cfg.uniform_tasks:
-                runs.add(case.name)
+        reason = _refusal(cfg)
+        if reason is not None:
+            refused[case.name] = reason
+        elif cfg.uniform_tasks:
+            uniform[case.name] = cfg
         else:
-            try:
-                check_supported(AllocateConfig(**{
-                    f.name: getattr(cfg, f.name)
-                    for f in dataclasses.fields(cfg)
-                    if f.name != "placement"}))
-            except NotImplementedError as e:
-                refused[case.name] = str(e)
+            runs.add(case.name)
     sharing = {c.name for c in test_sharing_scenarios.CASES}
     topology = {c.name for c in test_topology_scenarios.CASES}
     hierarchy = {c.name for c in test_hierarchy_order_scenarios.CASES}
@@ -246,10 +241,14 @@ def test_per_task_catalog_cases_run_on_the_port():
         "subgroup_quorum_unsatisfiable_fails_whole_gang",
         "multiple_subgroup_jobs", "unbalanced_subgroup_hierarchy"}
     assert all("extended=True" in refused[n] for n in sharing - runs)
-    assert "preferred_topology=True" in refused[
-        "preferred_rack_keeps_gang_local"]
-    assert all("subgroup_topology=True" in refused[n]
-               for n in topology - runs - {"preferred_rack_keeps_gang_local"})
+    assert not set(refused) & topology
+    required = {n for n in topology if n in uniform
+                and uniform[n].subgroup_topology}
+    assert required == {"required_rack_confines_gang",
+                        "required_rack_too_big_fails",
+                        "binpack_picks_fullest_domain",
+                        "two_required_gangs_two_racks"}
+    assert uniform["preferred_rack_keeps_gang_local"].preferred_topology
 
 
 @pytest.mark.parametrize("name", sorted(VICTIM_CASES))
@@ -268,5 +267,5 @@ def test_victim_cycle_on_per_task_snapshot_is_refused(name, pad32):
     sched = Scheduler(SchedulerConfig(
         actions=DEFAULT_ACTIONS, session=SessionConfig(allocate=spread)),
         device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="uniform_tasks=False"):
         sched.run_once(_port_cluster(ref_cluster))

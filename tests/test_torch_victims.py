@@ -32,11 +32,10 @@ from kai_scheduler_tpu_torch.ops import victims as V
 from kai_scheduler_tpu_torch.ops.allocate import (AllocateConfig,
                                                   _chain_membership,
                                                   init_result)
-from kai_scheduler_tpu_torch.state import state_from_numpy
+from kai_scheduler_tpu_torch.state import fleets, state_from_numpy
 from test_consolidation import fragmented_cluster
 from test_victims import preempt_cluster, two_queue_cluster
 
-import chip_smoke
 from jax_executables import release_jax_executables  # noqa: F401
 
 SECTIONS = ("nodes", "queues", "gangs", "running")
@@ -118,7 +117,7 @@ def priorities_small():
 def fragmented_small():
     """The fragmented cell at 24 nodes (6 pending 6-accel gangs, 3 stale
     gangs), built by the chip smoke test's own builder."""
-    nodes, queues, groups, pods, now = chip_smoke.fragmented_objects(
+    nodes, queues, groups, pods, now = fleets.fragmented_objects(
         ref_apis, num_nodes=24, pending=6, stale=3)
     return ref_build(nodes, queues, groups, pods, now=now, pad=32)
 
