@@ -6,8 +6,8 @@ Drives ``kai_scheduler_tpu_torch`` end to end on the card and fails
 (non-zero exit, no result line) on any build error, launch error or
 mismatch:
 
-1. builds the hand-written CUDA kernels K1-K11 from ``csrc/`` (one
-   ``nvcc`` per source, all started together; twelve entry points: K11
+1. builds the hand-written CUDA kernels K1-K13 from ``csrc/`` (one
+   ``nvcc`` per source, all started together; fourteen entry points: K11
    is a build and an update) and prints the card's name and power limit;
 2. runs one warm-up allocate cycle of the headline cluster (10,000 nodes
    x 6,250 gangs x 8 replicas = 50,000 pending pods) through
@@ -84,9 +84,34 @@ mismatch:
    modes of K2-K4 (per-lane pools, per-lane queue tables and score bias,
    the freed credit) are held against their plain versions on the
    captured inputs and timed;
-8. prints one JSON line of per-kernel numbers (a row per kernel and per
-   topology mode), the card line, and last ``{"ok": true, "device":
-   {...}}``.
+8. runs the four affinity cells (in-cycle affinity terms: cross-gang
+   required anti-affinity, anchors with dependers, shared host ports) the
+   same way — a profiled warm-up with the inputs captured, timed runs on
+   fresh clusters with the counts reset just before and read just after,
+   one CPU oracle run; every commit, BindRequest, eviction, chunk count and
+   the claimed-domain table ``anti_used`` equal to the oracle's, no host
+   holding two placed pods of one anti term, every placed depender beside
+   its anchor; each cell's kernels and modes launched in every timed run:
+   - *affinity* (allocate only, the uniform path, uncut, five timed runs):
+     the headline backlog as 64 services (one replica per host across a
+     service's gangs), 256 anchors, 256 four-pod dependers, 512 gangs on
+     host port 8443 — K12, K13, K3's mask mode, K1, K2, K4;
+   - *affinity_reclaim* (the saturated shape at the default config, one
+     timed run): the pending gangs in 64 services — reclaim's wavefront
+     with K3's lane and mask modes, K8, K12, K13;
+   - *affinity_reclaim_sequential* (the same on the sequential victim
+     engine, cut as saturated_sequential is, one timed run): reclaim's
+     scenario search confined to each preemptor's one-lane mask — K12 at
+     one lane, K3's mask mode, K5, K6, K13 after every step;
+   - *affinity_sharing* (allocate only, the per-task path, three timed
+     runs): the sharing fleet with 128 one-pod 0.5 fractions in 16
+     services and 32 whole-device gangs on one host port (both cut by
+     two) — K9's mask mode, K10, K12, K13;
+   then K12, K13 and the mask modes of K3 and K9 are held against their
+   plain versions on the captured inputs (tolerance 0) and timed;
+9. prints one JSON line of per-kernel numbers (a row per kernel and per
+   topology and mask mode), the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Longer output (the compiler's register/spill report, per-phase numbers)
 goes to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
@@ -162,7 +187,11 @@ class Capture:
                        (allocate, "dense_accept", "dense_accept"),
                        (allocate, "topo_tables_build", "topo_tables_build"),
                        (allocate, "topo_tables_update",
-                        "topo_tables_update"))
+                        "topo_tables_update"),
+                       (allocate, "affinity_mask", "affinity_mask"),
+                       (allocate, "anti_mark", "anti_mark"),
+                       (victims, "affinity_mask", "affinity_mask:victims"),
+                       (victims, "anti_mark", "anti_mark:victims"))
         self._orig = {k: getattr(mod, a) for mod, a, k in self._sites}
         self._saved = [(mod, a, getattr(mod, a)) for mod, a, _ in self._sites]
 
@@ -207,7 +236,9 @@ def _global_names(source: str) -> list[str]:
 #: entry points that share a source with another one: their functions
 SOURCE_FUNCTIONS = {
     "topo_tables_build": ("tt_counts_kernel", "tt_domains_kernel"),
-    "topo_tables_update": ("tt_update_kernel",)}
+    "topo_tables_update": ("tt_update_kernel",),
+    "affinity_mask": ("affinity_mask_kernel",),
+    "anti_mark": ("anti_mark_kernel",)}
 
 
 def in_cycle_device_ms(prof) -> dict[str, dict]:
@@ -508,10 +539,70 @@ TOPO_SUB_KEEP = {"pertask_fill": (0, 1, 40, 41), "dense_accept": (0, 20)}
 TOPO_SUB_KERNELS = ("drf_water_fill", "pertask_fill",
                     "pertask_fill:topology", "pertask_fill:banned",
                     "dense_accept")
+#: the affinity cell (allocate only, the uniform path, uncut): the headline
+#: backlog (10,000 nodes, 6,250 gangs of 8) as 64 services whose replicas
+#: keep one per host across gangs (a required hostname anti term against
+#: their own ``app``), 256 anchors, 256 four-pod dependers each needing its
+#: anchor's host, 512 one-pod gangs sharing host port 8443 — 51,792 pods,
+#: 321 term rows (padded to 512); K3's mask mode, K12, K13, K1, K2, K4
+AFFINITY = dict(num_nodes=10_000, node_accel=8.0, num_gangs=6250,
+                tasks_per_gang=8, services=64, anchors=256, dependers=256,
+                port_gangs=512)
+AFFINITY_RUNS = 5
+#: the affinity_reclaim cell: the saturated shape at the default config,
+#: its 1,250 pending gangs in 64 services with a required hostname anti
+#: term against their own ``app`` (the running pods carry none); reclaim's
+#: wavefront with K3's lane and mask modes, K8, K12, K13
+AFFINITY_RECLAIM = dict(SATURATED, services=64)
+#: the affinity_sharing cell (allocate only, the per-task path):
+#: ``sharing_objects``' fleet with 256 one-pod 0.5-fraction gangs in 16
+#: services (hostname anti term against their own ``app``) and 64 one-pod
+#: whole-device gangs sharing host port 8443; K9's mask mode, K10, K12,
+#: K13.  Both counts are cut by ``AFFINITY_SHARING_CUT``: the script ran
+#: 927 s with them uncut, over its 900 s aim, and this cell cuts first
+AFFINITY_SHARING_FULL = dict(fractions=256, port_gangs=64)
+AFFINITY_SHARING_CUT = 2
+AFFINITY_SHARING = dict(num_nodes=10_000, shared_nodes=5_000, services=16,
+                        **{k: v // AFFINITY_SHARING_CUT
+                           for k, v in AFFINITY_SHARING_FULL.items()})
+AFFINITY_SHARING_RUNS = 3
+#: per cell: (timed runs, kernel calls kept in its warm-up, the kernels
+#: and modes every timed run must launch)
+AFFINITY_CELLS = {
+    "affinity": (AFFINITY_RUNS, {"affinity_mask": (0, 60),
+                                 "anti_mark": (0, 60),
+                                 "uniform_fill": (0, 60)},
+                 ("drf_water_fill", "type_tables", "uniform_fill",
+                  "uniform_fill:mask", "sparse_accept", "affinity_mask",
+                  "anti_mark")),
+    "affinity_reclaim": (1, {"affinity_mask:victims": (0, 1, 2),
+                             "anti_mark:victims": (0, 1, 2),
+                             "uniform_fill:lanes": (0, 1, 2)},
+                         ("cumsum_ds", "freed_by_lane", "type_tables",
+                          "type_tables:lanes", "uniform_fill",
+                          "uniform_fill:lanes", "uniform_fill:mask",
+                          "affinity_mask", "anti_mark")),
+    # the affinity_reclaim fleet on the sequential victim engine, cut as
+    # saturated_sequential is (``SEQUENTIAL_QUEUE_DEPTH``): reclaim's
+    # scenario search confined to each preemptor's one-lane mask (K12 at
+    # one lane, K3's mask mode through ``attempt_gang_dense``), every step
+    # marked by K13
+    "affinity_reclaim_sequential": (
+        1, {"affinity_mask:victims": (0, 1, 2),
+            "anti_mark:victims": (0, 1, 2), "uniform_fill": (0, 1, 2)},
+        ("cumsum_ds", "freed_by_mask", "type_tables", "uniform_fill",
+         "uniform_fill:mask", "affinity_mask", "anti_mark")),
+    "affinity_sharing": (AFFINITY_SHARING_RUNS,
+                         {"affinity_mask": (0, 30), "anti_mark": (0, 30),
+                          "pertask_fill": (0, 30)},
+                         ("drf_water_fill", "pertask_fill",
+                          "pertask_fill:mask", "dense_accept",
+                          "affinity_mask", "anti_mark")),
+}
 #: the cells with a profiled run (each kernel's in-cycle device time)
 PROFILED_CELLS = ("sharing", "topology", "topology_subgroups", "saturated",
                   "saturated_sequential", "preempt_many_queues",
-                  "fragmented")
+                  "fragmented", *AFFINITY_CELLS)
 
 
 def fresh_cluster(shape: dict):
@@ -974,6 +1065,310 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
         bound_by=by, checked=len(errs),
         shape=f"B={B} every lane banned from its first domains, "
               f"{len(retry_calls)} captured retry launches")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the affinity cells (cross-gang anti terms, anchors, shared host ports)
+# ---------------------------------------------------------------------------
+
+def affinity_cluster(cell: str):
+    from kai_scheduler_tpu_torch.apis import types as apis
+    from kai_scheduler_tpu_torch.runtime.cluster import Cluster
+    from kai_scheduler_tpu_torch.state import fleets, make_cluster
+    if cell == "affinity":
+        return Cluster.from_objects(*fleets.affinity_objects(
+            apis, make_cluster, **AFFINITY))
+    if cell.startswith("affinity_reclaim"):
+        return Cluster.from_objects(*fleets.affinity_reclaim_objects(
+            apis, make_cluster, **AFFINITY_RECLAIM))
+    return Cluster.from_objects(*fleets.affinity_sharing_objects(
+        apis, **AFFINITY_SHARING))
+
+
+def affinity_config(cell: str):
+    """An affinity cell's SchedulerConfig: allocate only, the five default
+    actions at the default config (``affinity_reclaim``), or on the
+    sequential victim engine (``affinity_reclaim_sequential``)."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    from kai_scheduler_tpu_torch.framework.session import SessionConfig
+    from kai_scheduler_tpu_torch.ops.victims import VictimConfig
+    if cell == "affinity_reclaim":
+        return SchedulerConfig()
+    if cell == "affinity_reclaim_sequential":
+        return SchedulerConfig(session=SessionConfig(victims=VictimConfig(
+            batch_size=1, queue_depth=SEQUENTIAL_QUEUE_DEPTH)))
+    return SchedulerConfig(actions=("allocate",))
+
+
+def run_affinity_cycle(cell: str, device: str):
+    """One cycle of an affinity cell (see :func:`affinity_config`)."""
+    from kai_scheduler_tpu_torch.framework.scheduler import Scheduler
+    cluster = affinity_cluster(cell)
+    t0 = time.perf_counter()
+    res = Scheduler(affinity_config(cell), device=device).run_once(cluster)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, cluster, time.perf_counter() - t0
+
+
+def affinity_violations(pods: dict, placed: dict) -> tuple[list, dict]:
+    """The affinity fleets' terms (``state/fleets.py``) checked on a
+    cycle's placements (``placed``: pod name -> node name, e.g. from its
+    BindRequests; ``pods``: pod name -> the pod object): two placed pods of
+    one ``app`` service, or two on the shared host port, on one host, and
+    a placed depender off its anchor's host.  Returns ``(violations,
+    counts)``: a description of each, and the placed pods, anchors,
+    dependers and anti keys seen."""
+    by_host: dict = {}
+    anchor_host = {}
+    for name, node in placed.items():
+        p = pods[name]
+        key = p.labels.get("app") or (f"port-{p.host_ports[0]}"
+                                      if p.host_ports else None)
+        if key is not None:
+            by_host.setdefault((key, node), []).append(name)
+        if "cache" in p.labels:
+            anchor_host[p.labels["cache"]] = node
+    bad = [f"{k[1]} holds {v} of one anti term"
+           for k, v in by_host.items() if len(v) > 1]
+    dependers = 0
+    for name, node in placed.items():
+        for term in pods[name].pod_affinity:
+            if not term.anti:
+                (_, want), = term.match_labels
+                dependers += 1
+                if anchor_host.get(want) != node:
+                    bad.append(f"depender {name} on {node}, its anchor on "
+                               f"{anchor_host.get(want)}")
+    return bad, dict(pods=len(placed), anchors=len(anchor_host),
+                     dependers=dependers,
+                     anti_keys=len({k for k, _ in by_host}))
+
+
+def placed_pods(cell: str, res) -> dict:
+    """pod name -> node name of every placement an affinity cycle
+    committed: its BindRequests, and where it pipelined placements
+    (reclaim's, which bind only once their victims leave) all of
+    ``tensors.placements``, decoded with the name tables of a fresh
+    snapshot of the cell's cluster; the bound pods must decode to their
+    BindRequests' nodes."""
+    from kai_scheduler_tpu_torch.state import build_snapshot
+    placed = {b.pod_name: b.selected_node for b in res.bind_requests}
+    if not bool(res.tensors.pipelined.any()):
+        return placed
+    fresh = affinity_cluster(cell)
+    _, index = build_snapshot(*fresh.snapshot_lists(), device="cpu",
+                              now=fresh.now)
+    pl = res.tensors.placements.cpu()
+    decoded = {index.task_names[g][t]: index.node_names[int(pl[g, t])]
+               for g, t in (pl >= 0).nonzero().tolist()}
+    if any(decoded.get(p) != n for p, n in placed.items()):
+        raise AssertionError(f"{cell}: placements decode off the "
+                             f"BindRequests")
+    return decoded
+
+
+def check_affinity_terms(cell: str, cluster, res) -> dict:
+    """No two placed pods (bound, or pipelined) with a mutual required
+    hostname anti term share a host; every placed depender shares its
+    anchor's host."""
+    bad, counts = affinity_violations(cluster.pods, placed_pods(cell, res))
+    if bad:
+        raise AssertionError(f"{cell}: {len(bad)} affinity violations, "
+                             f"e.g. {bad[0]}")
+    return counts
+
+
+def check_affinity_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
+    """The GPU affinity cycle equals the CPU oracle (packed commit,
+    BindRequests, evictions and move rebinds, chunk counts, the
+    claimed-domain table ``anti_used`` byte for byte), honours every term,
+    and launched the cell's kernels and modes."""
+    res, secs = gpu
+    if res.packed.tobytes() != cpu.packed.tobytes():
+        diff = int((res.packed != cpu.packed).sum())
+        raise AssertionError(f"{cell}: packed commit differs from the CPU "
+                             f"oracle in {diff} of {res.packed.size} i16")
+    for what, a, b in (
+            ("BindRequests", _binds(res.bind_requests),
+             _binds(cpu.bind_requests)),
+            ("evictions", _evictions(res), _evictions(cpu)),
+            ("move rebinds", _binds(res.move_bind_requests),
+             _binds(cpu.move_bind_requests)),
+            ("allocate chunks", res.chunks, cpu.chunks),
+            ("victim steps", {k: v.steps for k, v in res.victim_stats.items()},
+             {k: v.steps for k, v in cpu.victim_stats.items()})):
+        if a != b:
+            raise AssertionError(f"{cell}: {what} differ from the oracle")
+    used = res.tensors.anti_used.cpu()
+    if not torch.equal(used, cpu.tensors.anti_used):
+        raise AssertionError(f"{cell}: anti_used differs from the oracle")
+    terms = check_affinity_terms(cell, cluster, res)
+    missing = [k for k in AFFINITY_CELLS[cell][2] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{cell}: kernels never launched: {missing}")
+    if cell.startswith("affinity_reclaim") and not res.evictions:
+        raise AssertionError(f"{cell}: reclaim evicted nothing")
+    t = res.tensors
+    if not bool(torch.isfinite(t.queue_allocated).all()):
+        raise AssertionError(f"{cell}: non-finite queue allocation")
+    return dict(
+        cycle_seconds=secs, binds=len(res.bind_requests),
+        evictions=len(res.evictions), pipelined_tasks=int(t.pipelined.sum()),
+        gangs_allocated=int(t.allocated.sum()),
+        gangs_attempted=int(t.attempted.sum()),
+        fit_reason_counts={int(k): int(v) for k, v in zip(
+            *torch.unique(t.fit_reason.cpu(), return_counts=True))},
+        placed_pods=int((t.placements >= 0).sum()),
+        term_rows=int(t.anti_used.shape[0] - 1),
+        claimed_cells=int(used.sum()), chunks=res.chunks,
+        victim_stats={k: dataclasses.asdict(v)
+                      for k, v in res.victim_stats.items()},
+        phase_seconds=res.phase_seconds, action_seconds=res.action_seconds,
+        launches=counts, **terms)
+
+
+def affinity_kernel_checks(caps: dict) -> dict:
+    """K12, K13 and the mask modes of K3 and K9 on the inputs captured from
+    the affinity cells vs their plain versions, both on the card
+    (tolerance 0), kernel and plain times, and the least time the card
+    could take for these inputs."""
+    from kai_scheduler_tpu_torch.ops import allocate as A
+    out = {}
+
+    def calls(*keys):
+        return [(c, k, a, kw) for c in AFFINITY_CELLS
+                for k in keys for a, kw in caps[c].calls.get(k, [])]
+
+    def held(recs, plain, fields=lambda o: o):
+        return max(_max_abs_err(fields(caps[c]._orig[k](*a, **kw)),
+                                fields(plain(*a, **kw)))
+                   for c, k, a, kw in recs)
+
+    # K12 — per (lane, node) and used slot a level, a domain and a table
+    # bit (~6 operations), a byte written per (lane, node); the bytes the
+    # lanes' used slots need: each distinct (row, level) pair's N table
+    # cells, each distinct level's domain row, each distinct need row's
+    # static claims, the valid nodes, the lanes' gangs and slot rows, and
+    # the B x N mask out
+    recs = calls("affinity_mask", "affinity_mask:victims")
+    err = held(recs, A.affinity_mask_plain)
+    c, k, args, kw = max(recs, key=lambda r: (r[0] == "affinity",
+                                             r[2][3].numel(),
+                                             r[3]["attract"]))
+    st, used, dom, cand = args
+    g = st.gangs
+    B, N, L = cand.shape[0], st.nodes.n, st.nodes.topology.shape[1]
+    TA = g.anti_term_level.shape[0]
+    KT, KP = g.anti_avoids.shape[1], g.attract_needs.shape[1] * kw["attract"]
+    gi = cand.clamp(0, g.g - 1).long()
+    slots = [g.anti_avoids[gi]] + ([g.attract_needs[gi]] if KP else [])
+    pairs, levels, need_rows, used_slots = set(), set(), set(), 0
+    for i, sl in enumerate(slots):
+        on = sl >= 0
+        rows = sl.clamp(0, TA - 1)
+        lvl = g.anti_term_level[rows].clamp(0, L)
+        used_slots += int(on.sum())
+        key = (rows * (L + 1) + lvl)[on].unique().tolist()
+        pairs.update(key)
+        levels.update(x % (L + 1) for x in key)
+        if i == 1:
+            need_rows.update(rows[on].unique().tolist())
+    fn = caps[c]._orig[k]
+    ms = _time_ms(lambda: fn(*args, **kw))
+    plain_ms = _time_ms(lambda: A.affinity_mask_plain(*args, **kw))
+    nb = (N * (len(pairs) + 4 * len(levels) + len(need_rows) + 1)
+          + _nbytes(cand) + B * (KT + KP) * 4 + B * N)
+    b, by = bound(nb, N * (6 * used_slots + B))
+    out["affinity_mask"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        checked=len(recs), shape=f"B={B} N={N} KT={KT} KP={KP} "
+        f"table={tuple(used.shape)} used slots={used_slots} (row, level) "
+        f"pairs={len(pairs)} ({c})")
+
+    # K13 — marks the table in place: each (lane, mark slot, task) reads
+    # its gang, slot row, level and node's domain and writes one cell
+    # (~6 operations); the bytes are the lanes' inputs, the rows and
+    # domains they read and the B x KT x T cell writes.  Each check and
+    # timing runs on a copy of the captured table; the nearest library
+    # call is ``index_put_`` of True at the cells, computed beforehand
+    recs = calls("anti_mark", "anti_mark:victims")
+
+    def marked(fn, a, kw):
+        return fn(a[0], a[1].clone(), *a[2:], **kw)
+    err = max(_max_abs_err(marked(caps[c]._orig[k], a, kw),
+                           marked(A.anti_mark_plain, a, kw))
+              for c, k, a, kw in recs)
+    if not any(bool((marked(caps[c]._orig[k], a, kw) != a[1]).any())
+               for c, k, a, kw in recs):
+        raise AssertionError("anti_mark: no captured call marked a cell")
+    c, k, args, kw = max(recs, key=lambda r: r[2][4].numel())
+    st, used, dom, cand, nodes_b, take = args
+    B, T = nodes_b.shape
+    KT = st.gangs.anti_marks.shape[1]
+    fn = caps[c]._orig[k]
+    table = used.clone()
+    ms = _time_ms(lambda: fn(st, table, dom, cand, nodes_b, take, **kw))
+    plain_ms = _time_ms(lambda: A.anti_mark_plain(
+        st, table, dom, cand, nodes_b, take, **kw))
+    cells = A.anti_mark_cells(st, dom, cand, nodes_b, take)
+    one = torch.ones((), dtype=torch.bool, device=used.device)
+    lib_ms = _time_ms(lambda: table.index_put_(cells, one))
+    nb = (_nbytes(cand, nodes_b, take) + B * KT * (4 + 4)
+          + B * KT * T * (4 + 1))
+    b, by = bound(nb, B * KT * T * 6)
+    out["anti_mark"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        nearest_library_ms=lib_ms,
+        nearest_library="index_put_ of True at the cells, computed "
+        "beforehand", checked=len(recs), shape=f"B={B} T={T} KT={KT} "
+        f"table={tuple(used.shape)}, in place ({c})")
+
+    # K3 mask mode — kernel_checks' K3 bytes plus the [B, N] mask
+    recs = [r for r in calls("uniform_fill", "uniform_fill:lanes")
+            if r[2][11].dim() == 2]
+    err = held(recs, A.uniform_fill_plain)
+    c, k, args, kw = next(r for r in recs if r[0] == "affinity")
+    (cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, lt, tables,
+     soft, valid) = args
+    B, T = prior.shape
+    N = valid.shape[1]
+    Q = qan.shape[0]
+    fn = caps[c]._orig[k]
+    ms = _time_ms(lambda: fn(*args, **kw))
+    plain_ms = _time_ms(lambda: A.uniform_fill_plain(*args, **kw))
+    nb = (_nbytes(cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain,
+                  soft, valid, *tables)
+          + B * (12 + T + 3 * 4 + 1 + 4 * 3) + B * (2 * Q * 3 * 4 + T * 5 + 1))
+    b, by = bound(nb, B * N * 11)
+    out["uniform_fill:mask"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        checked=len(recs), shape=f"B={B} T={T} N={N} Q={Q} ({c})")
+
+    # K9 mask mode — sharing_kernel_checks' K9 bytes plus the [B, N] mask
+    recs = [r for r in calls("pertask_fill") if r[3].get("mask") is not None]
+    err = held(recs, A.pertask_fill_plain, lambda o: o.fields())
+    c, k, args, kw = recs[0]
+    nodes, tt, cand, prior, free, dev, qa = args[:7]
+    B, T = prior.shape
+    N, D = dev.shape
+    Q = qa.shape[0]
+    fn = caps[c]._orig[k]
+    steps = int((fn(*args, **kw).nodes_t >= 0).sum())
+    ms = _time_ms(lambda: fn(*args, **kw))
+    plain_ms = _time_ms(lambda: A.pertask_fill_plain(*args, **kw), 5)
+    K_ = nodes.labels.shape[1]
+    X = nodes.filter_masks.shape[0]
+    L = nodes.topology.shape[1]
+    node_bytes = N * (5 * 12 + 3 * 4 * D + 1 + 4 * K_ + 5 * X + 4 + 4 * L)
+    lane_bytes = B * (8 + T * (12 + 1 + 4 * K_ + 4 * 5)) + B * N
+    out_bytes = B * (2 * Q * 12 + T * 9 + 1 + T * (24 + 8 * D))
+    b, by = bound(node_bytes + lane_bytes + out_bytes, steps * N * 60)
+    out["pertask_fill:mask"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        checked=len(recs),
+        shape=f"B={B} T={T} N={N} D={D} Q={Q} placed steps={steps} ({c})")
     return out
 
 
@@ -1532,6 +1927,61 @@ def main() -> int:
     checks.update(victim_kernel_checks(caps))
     lane_checks = lane_kernel_checks(caps)
     checks["freed_by_lane"] = lane_checks.pop("freed_by_lane")
+    del caps
+
+    # -- 8. the affinity cells: a warm-up run under the profiler's CUDA
+    # activity with K12's, K13's and the mask modes' inputs captured, timed
+    # runs (counts reset just before, read just after), one CPU oracle run
+    acaps = {}
+    for cell, (reps, keep, _) in AFFINITY_CELLS.items():
+        with Capture(keep) as acap, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, _, warm_s = run_affinity_cycle(cell, "cuda")
+        in_cycle = in_cycle_device_ms(prof)
+        del prof
+        runs = []
+        for _ in range(reps):
+            kernels.reset_launch_counts()
+            res, cluster, secs = run_affinity_cycle(cell, "cuda")
+            runs.append((res, cluster, secs, kernels.launch_counts()))
+        cpu, _, cpu_s = run_affinity_cycle(cell, "cpu")
+        recs = [check_affinity_cycle(cell, (res, secs), cpu, cluster, counts)
+                for res, cluster, secs, counts in runs]
+        del runs
+        secs_all = sorted(r["cycle_seconds"] for r in recs)
+        rec = dict(recs[-1])
+        rec.update(runs=len(recs), cycle_seconds_all=secs_all,
+                   cycle_seconds_median=statistics.median(secs_all),
+                   warm_up_seconds=warm_s, cpu_oracle_seconds=cpu_s,
+                   in_cycle_ms=in_cycle)
+        report[cell] = rec
+        acaps[cell] = acap
+        log(f"{cell}: {len(recs)} cycles, median "
+            f"{rec['cycle_seconds_median']:.4f} s (min {secs_all[0]:.4f}, "
+            f"max {secs_all[-1]:.4f}; profiled warm-up {warm_s:.3f}), "
+            f"{rec['placed_pods']} pods placed ({rec['binds']} binds, "
+            f"{rec['pipelined_tasks']} pipelined), {rec['evictions']} "
+            f"evictions, {rec['gangs_allocated']} gangs allocated of "
+            f"{rec['gangs_attempted']} attempted, {rec['chunks']} allocate "
+            f"chunks, victim steps "
+            f"{ {k: v['steps'] for k, v in rec['victim_stats'].items()} }, "
+            f"{rec['term_rows']} term rows, {rec['claimed_cells']} claimed "
+            f"cells, {rec['anti_keys']} anti keys / {rec['anchors']} anchors "
+            f"/ {rec['dependers']} depender pods placed, fit "
+            f"reasons {rec['fit_reason_counts']}, launches {rec['launches']};"
+            f" every commit, BindRequest, eviction, chunk count and anti_used"
+            f" == CPU oracle ({cpu_s:.1f} s), no host holds two pods of one "
+            f"anti term, every depender beside its anchor")
+        log("  phases (last run): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+        log("  in-cycle kernel device ms / launches (profiled run): "
+            + ", ".join(f"{k} {v['ms']:.3f} / {v['launches']}"
+                        for k, v in in_cycle.items() if v["launches"]))
+        log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+    aff_checks = affinity_kernel_checks(acaps)
+    for k in ("affinity_mask", "anti_mark"):
+        checks[k] = aff_checks.pop(k)
+    del acaps
     #: the main path each kernel's launches are read from
     path_of = {k: ("headline", launches) for k in ALLOCATE_KERNELS}
     for k, cell in (("cumsum_ds", "saturated_sequential"),
@@ -1541,7 +1991,9 @@ def main() -> int:
                     ("pertask_fill", "sharing"),
                     ("dense_accept", "sharing"),
                     ("topo_tables_build", "topology"),
-                    ("topo_tables_update", "topology")):
+                    ("topo_tables_update", "topology"),
+                    ("affinity_mask", "affinity"),
+                    ("anti_mark", "affinity")):
         path_of[k] = (cell, report[cell]["launches"])
     #: each kernel mode and the cell whose run its row's launches read
     mode_path = {"type_tables:lanes": "saturated",
@@ -1551,7 +2003,9 @@ def main() -> int:
                  "uniform_fill:preferred": "topology",
                  "dense_accept:no_devices": "topology",
                  "pertask_fill:topology": "topology_subgroups",
-                 "pertask_fill:banned": "topology_subgroups"}
+                 "pertask_fill:banned": "topology_subgroups",
+                 "uniform_fill:mask": "affinity",
+                 "pertask_fill:mask": "affinity_sharing"}
 
     #: each mode's launches, counted by its wrapper at the launch in the
     #: last timed run of its cell (config 4 prefers no level: K3's
@@ -1560,8 +2014,9 @@ def main() -> int:
     mode_launches = {m: report[c]["launches"][m]
                      for m, c in mode_path.items()}
 
+    mode_checks = {**topo_checks, **aff_checks}
     for name, c in (list(checks.items()) + list(lane_checks.items())
-                    + list(topo_checks.items())):
+                    + list(mode_checks.items())):
         cell, counts = (path_of[name] if name in path_of else
                         (mode_path[name], report[mode_path[name]]["launches"]))
         base = name.split(":")[0]
@@ -1582,7 +2037,7 @@ def main() -> int:
             f"in the profiled runs: {in_cyc}")
     log(f"launch floor (one PyTorch call on one element): "
         f"{report['launch_floor_ms']:.4f} ms")
-    report["kernel_checks"] = dict(checks, **lane_checks, **topo_checks)
+    report["kernel_checks"] = dict(checks, **lane_checks, **mode_checks)
     rows = []
     for name, info in kernels.KERNELS.items():
         c = checks[name]
@@ -1605,9 +2060,9 @@ def main() -> int:
                 **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "shape")})
         rows.append(row)
-    # the topology path's modes, a row each (the launches of the kernel
-    # in the cell that runs the mode)
-    for name, c in topo_checks.items():
+    # the topology and affinity paths' modes, a row each (the launches of
+    # the kernel in the cell that runs the mode)
+    for name, c in mode_checks.items():
         base = name.split(":")[0]
         info = kernels.KERNELS[base]
         cell = mode_path[name]

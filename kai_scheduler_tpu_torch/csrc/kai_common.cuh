@@ -24,9 +24,23 @@ typedef unsigned char u8;
 #define KAI_UNLIMITED_CUT (-0.5f)  // UNLIMITED (-1) + 0.5
 #define KAI_BIG_NEG (-1e30f)
 
-// (score desc, index asc): the order of lax.top_k over a score row
+// (score desc, index asc) with -0.0 == +0.0: the first maximum of
+// jnp.argmax over a score row
 __device__ __forceinline__ bool kai_better(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia < ib);
+}
+
+// (score desc, index asc) in the total order of f32, -0.0 below +0.0: the
+// order of lax.top_k over a score row (XLA compares the scores'
+// order-preserving integer keys)
+__device__ __forceinline__ int kai_f32_key(float x) {
+  const int b = __float_as_int(x);
+  return b >= 0 ? b : b ^ 0x7FFFFFFF;
+}
+__device__ __forceinline__ bool kai_topk_better(float a, int ia, float b,
+                                                int ib) {
+  const int ka = kai_f32_key(a), kb = kai_f32_key(b);
+  return ka > kb || (ka == kb && ia < ib);
 }
 
 // Python-style modulo (sign of the divisor), as jnp.mod on integers

@@ -50,6 +50,12 @@
 // with its own lane index; the other blocks return at once and leave
 // their outputs as they were.
 //
+// The mask mode (`lane_mask` [B, N], the affinity gates' node mask, K12):
+// each block reads its lane's row into the nodes it may use, `allowed =
+// domain_mask & ~forbidden` (ref :720 with domain_mask = n.valid & mask,
+// :1259), in both launches of a chunk; it composes with the subgroup
+// domains, the banned retry and the device table.
+//
 // Bound: per task step each block reads the node pools, labels, filter and
 // soft rows (~150 bytes a node with 8 devices, shared by every lane through
 // L2) and does a few hundred f32 operations a node; it is latency- and
@@ -189,8 +195,9 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
     const int* __restrict__ cand, const int* __restrict__ prior,
     // subgroup topology
     const int* __restrict__ srl, const int* __restrict__ banned,
-    const u8* __restrict__ active, float* __restrict__ agg_all, int T, int N,
-    int D, int K, int L, int S, int Q, int binpack_accel, int binpack_cpu,
+    const u8* __restrict__ active, const u8* __restrict__ lane_mask,
+    float* __restrict__ agg_all, int T, int N, int D, int K, int L, int S,
+    int Q, int binpack_accel, int binpack_cpu,
     int device_pack, int track, float jscale,
     // outputs
     float* __restrict__ qa2, float* __restrict__ qan2,
@@ -213,6 +220,7 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
   const bool topo = agg_all != nullptr;
   const int ND = N * L;
   float* agg = topo ? agg_all + (size_t)b * (ND + 1) * 3 : nullptr;
+  const u8* mask_b = lane_mask ? lane_mask + (size_t)b * N : nullptr;
 
   // ---- lane set-up (one thread): eligible set, gates, anti-self seeds -----
   if (tid == 0) {
@@ -405,7 +413,8 @@ __global__ void __launch_bounds__(PF_THREADS) pertask_fill_kernel(
           dom_pass = dc == locked;
         }
       }
-      bool ok_sel = dom_pass && valid[n] && fmask[(size_t)cls * N + n];
+      bool ok_sel = dom_pass && valid[n] && (!mask_b || mask_b[n]) &&
+                    fmask[(size_t)cls * N + n];
       for (int kk = 0; kk < K && ok_sel; ++kk) {
         const int sv = sel[kk];
         if (sv >= 0 && labels[(size_t)n * K + kk] != sv) ok_sel = false;
@@ -725,8 +734,9 @@ KAI_EXPORT int kai_pertask_fill(
     const float* qan, const float* limit_eff, const float* quota_eff,
     const u8* chain, const int* cand, const int* prior, const int* srl,
     const int* dom_ptr, const int* dom_nodes, const int* banned,
-    const u8* active, float* agg_scratch, int B, int T, int N, int D, int K,
-    int X, int L, int S, int Q, int G, int binpack_accel, int binpack_cpu,
+    const u8* active, const u8* lane_mask, float* agg_scratch, int B, int T,
+    int N, int D, int K, int X, int L, int S, int Q, int G, int binpack_accel,
+    int binpack_cpu,
     int device_pack, int track, int agg_ready, float jscale, float* qa2,
     float* qan2, int* nodes_t, int* dev_t, u8* pipe_t, u8* success,
     float* free_rows, float* dev_rows, float* bind_rows, float* devbind_rows,
@@ -758,7 +768,7 @@ KAI_EXPORT int kai_pertask_fill(
       task_nom, task_sub, sub_need, min_needed, gang_queue, preemptible,
       anti_self, pref_level, free0, dev0, rel, extra, dev_rel, extra_dev,
       alloc, valid, labels, fmask, soft, dev_mem, topology, qa, qan, limit_eff,
-      quota_eff, chain, cand, prior, srl, banned, active,
+      quota_eff, chain, cand, prior, srl, banned, active, lane_mask,
       topo ? agg_scratch : nullptr, T, N, D, K, L, S, Q, binpack_accel,
       binpack_cpu, device_pack, track, jscale, qa2, qan2, nodes_t, dev_t,
       pipe_t, success, free_rows, dev_rows, bind_rows, devbind_rows, sub_dom);

@@ -5,9 +5,10 @@
 // in its sparse-output, hoisted-type-table form: per lane the ancestor
 // queue gate `max_copies`, the lane clamp, the tie jitter (both the dense
 // rotation and the rank-within-feasible branch), a top-k of T over the N
-// nodes in lax.top_k order (score descending, lower node index first
-// among ties), the cumulative fill, the node-ascending replica
-// assignment, the pipeline flags, the queue deltas and `success`.
+// nodes in lax.top_k order (score descending in f32's total order, -0.0
+// below +0.0; lower node index first among ties), the cumulative fill,
+// the node-ascending replica assignment, the pipeline flags, the queue
+// deltas and `success`.
 //
 // One block per lane.  The block walks the node axis in tiles of
 // UF_THREADS consecutive nodes (one block-wide scan per tile gives the
@@ -42,6 +43,12 @@
 //     pass takes the block argmax of the scores (lowest node on ties, as
 //     jnp.argmax); the second adds W_TOPOLOGY on the feasible nodes that
 //     share that node's domain at the level before the top-k.
+//   - the mask mode (valid_lanes: `valid` is [B, N], each lane's own row):
+//     the affinity gates' node mask (K12, valid nodes folded in) ANDed
+//     into the fits after the hoisted type tables (ref :1010-1011,
+//     :1020-1021), before the domain confinement, the counts, the jitter's
+//     feasible rank and the top-k; it composes with the topology modes
+//     and with the victim lanes.
 //   - dense rows (free given): per task slot, `free - count * req` and
 //     `min(count, c_idle) * req` of the node it took (ref :1177-1180), the
 //     rows the dense accept (K10) reads.
@@ -153,7 +160,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     const int* __restrict__ dom_caps_y, const int* __restrict__ level_of_dom,
     const int* __restrict__ order, const int* __restrict__ pref_level,
     const float* __restrict__ free_, int T, int N, int Q, int NL, int dense,
-    int stride, int hoisted, int qa_lanes, float jscale,
+    int stride, int hoisted, int qa_lanes, int valid_lanes, float jscale,
     float* __restrict__ qa2, float* __restrict__ qan2,
     int* __restrict__ nodes_t, u8* __restrict__ pipe_t,
     u8* __restrict__ success, float* __restrict__ free_rows,
@@ -164,6 +171,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
   const int* prior_b = prior + (size_t)b * T;
   const float* qa_b = qa_lanes ? qa + (size_t)b * Q * 3 : qa;
   const float* bias_b = score_bias ? score_bias + (size_t)b * N : nullptr;
+  const u8* valid_b = valid_lanes ? valid + (size_t)b * N : valid;
   __shared__ UfLane L;
   __shared__ int s_order[UF_MAXK];
   __shared__ float s_wv[UF_WARPS];
@@ -264,7 +272,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     int running = 0;
     for (int base = 0; base < N; base += UF_THREADS) {
       const int n = base + tid;
-      const bool fpn = n < N && fp_y[n] && valid[n] && UF_IN_DOM(n);
+      const bool fpn = n < N && fp_y[n] && valid_b[n] && UF_IN_DOM(n);
       int tile_total = 0, incl = 0;
       if (!dense) incl = uf_block_scan(fpn ? 1 : 0, &tile_total);
       if (n < N) {
@@ -315,7 +323,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
   int running = 0;  // feasible nodes before this tile
   for (int base = 0; base < N; base += UF_THREADS) {
     const int n = base + tid;
-    const bool fpn = n < N && fp_y[n] && valid[n] && UF_IN_DOM(n);
+    const bool fpn = n < N && fp_y[n] && valid_b[n] && UF_IN_DOM(n);
     int tile_total = 0;
     int incl = 0;
     if (!dense) incl = uf_block_scan(fpn ? 1 : 0, &tile_total);
@@ -327,9 +335,9 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
         score = __fadd_rn(score, topology[(size_t)n * NL + pl] == pref_dom
                                      ? 10000.0f
                                      : 0.0f);
-      if (kai_better(score, n, tv[k - 1], ti[k - 1])) {
+      if (kai_topk_better(score, n, tv[k - 1], ti[k - 1])) {
         int j = k - 1;
-        while (j > 0 && kai_better(score, n, tv[j - 1], ti[j - 1])) {
+        while (j > 0 && kai_topk_better(score, n, tv[j - 1], ti[j - 1])) {
           tv[j] = tv[j - 1];
           ti[j] = ti[j - 1];
           --j;
@@ -350,7 +358,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     for (int off = 16; off > 0; off >>= 1) {
       const float v2 = __shfl_down_sync(0xffffffffu, v, off);
       const int i2 = __shfl_down_sync(0xffffffffu, ix, off);
-      if (kai_better(v2, i2, v, ix)) {
+      if (kai_topk_better(v2, i2, v, ix)) {
         v = v2;
         ix = i2;
       }
@@ -362,7 +370,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     __syncthreads();
     if (tid == 0) {
       for (int w = 1; w < UF_WARPS; ++w)
-        if (kai_better(s_wv[w], s_wi[w], v, ix)) {
+        if (kai_topk_better(s_wv[w], s_wi[w], v, ix)) {
           v = s_wv[w];
           ix = s_wi[w];
         }
@@ -380,7 +388,7 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
     unsigned int cum = 0;  // int32 arithmetic, wrapping as the reference's
     for (int i = 0; i < k; ++i) {
       const int o = s_order[i];
-      const bool feas = fp_y[o] && valid[o] && UF_IN_DOM(o);
+      const bool feas = fp_y[o] && valid_b[o] && UF_IN_DOM(o);
       const int c = feas ? uf_clamp(cp[(size_t)ty * N + o], feas, L.opn,
                                     prior_b, T, o)
                          : 0;
@@ -422,8 +430,8 @@ __global__ void __launch_bounds__(UF_THREADS) uniform_fill_kernel(
       if (placed_t) {
         const size_t o = (size_t)ty * N + node;
         const bool in_dom = UF_IN_DOM(node);
-        const bool fit_pipe = fp[o] && valid[node] && in_dom;
-        const bool fit_idle = fi[o] && valid[node] && in_dom;
+        const bool fit_pipe = fp[o] && valid_b[node] && in_dom;
+        const bool fit_idle = fi[o] && valid_b[node] && in_dom;
         const int c_pipe = uf_clamp(cp[o], fit_pipe, L.opn, prior_b, T, node);
         c_idle =
             min(uf_clamp(ci[o], fit_idle, L.opn, prior_b, T, node), c_pipe);
@@ -469,9 +477,10 @@ KAI_EXPORT int kai_uniform_fill(
     const int* topology, const int* srl0, const int* dom_caps_y,
     const int* level_of_dom, const int* order, const int* pref_level,
     const float* free_, int B, int T, int N, int Q, int Y, int G, int X,
-    int L, int dense, int stride, int hoisted, int qa_lanes, float jscale,
-    float* qa2, float* qan2, int* nodes_t, u8* pipe_t, u8* success,
-    float* free_rows, float* bind_rows, cudaStream_t stream) {
+    int L, int dense, int stride, int hoisted, int qa_lanes,
+    int valid_lanes, float jscale, float* qa2, float* qan2, int* nodes_t,
+    u8* pipe_t, u8* success, float* free_rows, float* bind_rows,
+    cudaStream_t stream) {
   if (B < 1 || T < 1 || N < 1 || Q < 1 || Y < 1 || G < 1 || X < 1 ||
       (T < N ? T : N) > UF_MAXK)
     return KAI_ERR_ARGS;
@@ -486,7 +495,7 @@ KAI_EXPORT int kai_uniform_fill(
       task_valid, gang_queue, preemptible, anti_self, task_type0, task_class0,
       fi, fp, ci, cp, sc, soft, valid, rows, score_bias, topology, srl0,
       dom_caps_y, level_of_dom, order, pref_level, free_, T, N, Q,
-      topo ? L : 1, dense, stride, hoisted, qa_lanes, jscale, qa2, qan2,
-      nodes_t, pipe_t, success, free_rows, bind_rows);
+      topo ? L : 1, dense, stride, hoisted, qa_lanes, valid_lanes, jscale,
+      qa2, qan2, nodes_t, pipe_t, success, free_rows, bind_rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,7 +66,7 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("uniform_fill",
                    "kai_scheduler_tpu_torch/csrc/uniform_fill.cu",
                    "kai_scheduler_tpu/ops/allocate.py:915",
-                   modes=("lanes", "topology", "preferred")),
+                   modes=("lanes", "topology", "preferred", "mask")),
         KernelInfo("sparse_accept",
                    "kai_scheduler_tpu_torch/csrc/sparse_accept.cu",
                    "kai_scheduler_tpu/ops/allocate.py:283",
@@ -86,7 +86,7 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("pertask_fill",
                    "kai_scheduler_tpu_torch/csrc/pertask_fill.cu",
                    "kai_scheduler_tpu/ops/allocate.py:517",
-                   modes=("topology", "banned")),
+                   modes=("topology", "banned", "mask")),
         KernelInfo("dense_accept",
                    "kai_scheduler_tpu_torch/csrc/dense_accept.cu",
                    "kai_scheduler_tpu/ops/allocate.py:1730",
@@ -97,6 +97,12 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("topo_tables_update",
                    "kai_scheduler_tpu_torch/csrc/topo_tables.cu",
                    "kai_scheduler_tpu/ops/allocate.py:1490"),
+        KernelInfo("affinity_mask",
+                   "kai_scheduler_tpu_torch/csrc/affinity.cu",
+                   "kai_scheduler_tpu/ops/allocate.py:171"),
+        KernelInfo("anti_mark",
+                   "kai_scheduler_tpu_torch/csrc/affinity.cu",
+                   "kai_scheduler_tpu/ops/allocate.py:189"),
     )
 }
 
@@ -142,17 +148,19 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "kai_drf_level": [_P] * 10 + [_F, _I, _I, _P, _P, _P],
     "kai_type_tables": [_P] * 10 + [_I] * 8 + [_P] * 5 + [_P],
-    "kai_uniform_fill": [_P] * 31 + [_I] * 12 + [_F] + [_P] * 7 + [_P],
+    "kai_uniform_fill": [_P] * 31 + [_I] * 13 + [_F] + [_P] * 7 + [_P],
     "kai_sparse_accept": [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P],
     "kai_cumsum_ds": [_P, _I, _I, _P, _P, _P],
     "kai_freed_by_mask": [_P] * 12 + [_I] * 5 + [_P] * 6 + [_P],
     "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
     + [_P],
     "kai_freed_by_lane": [_P] * 7 + [_I] * 5 + [_P] * 4 + [_P],
-    "kai_pertask_fill": [_P] * 40 + [_I] * 15 + [_F] + [_P] * 11 + [_P],
+    "kai_pertask_fill": [_P] * 41 + [_I] * 15 + [_F] + [_P] * 11 + [_P],
     "kai_dense_accept": [_P] * 15 + [_I] * 6 + [_P] * 6 + [_P],
     "kai_topo_tables_build": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
     "kai_topo_tables_update": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_P],
+    "kai_affinity_mask": [_P] * 8 + [_I] * 8 + [_P] + [_P],
+    "kai_anti_mark": [_P] * 6 + [_I] * 7 + [_P] + [_P],
 }
 
 _LIB = None

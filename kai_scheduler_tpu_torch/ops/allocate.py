@@ -1,8 +1,8 @@
 """The allocate action — gang all-or-nothing placement as a wavefront.
 
 Port of ``kai_scheduler_tpu/ops/allocate.py``: the auto-tuned variants
-the reference runs on snapshots without affinity terms or extended
-resources — the uniform whole-gang kernel with hoisted per-type tables
+the reference runs on snapshots without extended resources — the
+uniform whole-gang kernel with hoisted per-type tables
 (gangs of identical replicas, no device shares, binpack) under the
 sparse wavefront, or under the dense one with the required topology
 level's domain tables, the preferred-level band on either; and the
@@ -10,7 +10,9 @@ per-task path under the dense wavefront (GPU sharing: fractional and
 memory-based shares with the device table; heterogeneous gangs,
 subgroups and their required levels with the in-cycle domain retry,
 nominated nodes, anti-self domains, the preferred-level band, spread
-scoring) — both with the dynamic pop order.
+scoring) — both with the dynamic pop order, and both with the in-cycle
+affinity terms (cross-gang required anti-affinity, shared host ports and
+required positive affinity: the claimed-domain table ``anti_used``).
 
 Reference hot path (``actions/allocate/allocate.go:52-156``): pop jobs
 from the fairness heap; place each gang whole or not at all.  Here each
@@ -20,7 +22,7 @@ accepts the maximal order-prefix whose cumulative claims fit; the
 reference's ``lax.while_loop`` over chunks is a host loop with one sync
 per chunk.
 
-Six device programs of the chunk body are hand-written CUDA kernels,
+Eight device programs of the chunk body are hand-written CUDA kernels,
 each with its plain PyTorch version in this module (the wrapper runs the
 plain version only for CPU tensors):
 
@@ -50,6 +52,14 @@ plain version only for CPU tensors):
   and per-domain capacities and aggregates, built once per action and
   kept current at the nodes each commit touched (ref ``:1461``,
   ``:1490``).
+- **K12** :func:`affinity_mask` (``csrc/affinity.cu``) — each lane's node
+  mask from the claimed-domain table: no avoid row has claimed the node's
+  domain, every need row has; replaces ``anti_forbid_nodes`` +
+  ``attract_allow_nodes`` (ref ``:171``, ``:232``) under the lane axis.
+  K3 and K9 take it as their mask mode.
+- **K13** :func:`anti_mark` (same source) — the taken lanes' placements
+  claimed in their mark rows, in place on the action's copy of the table;
+  replaces ``anti_mark_placements`` (ref ``:189``).
 
 Everything else in the chunk is elementwise work, scatters and sorts and
 stays as PyTorch ops.  JAX's out-of-bounds-dropping scatters at the junk
@@ -139,6 +149,253 @@ def init_result(state: ClusterState) -> AllocationResult:
     )
 
 
+# ---------------------------------------------------------------------------
+# the affinity gates: the cycle's claimed-domain table ``anti_used``
+# ---------------------------------------------------------------------------
+
+def anti_domain_tables(state: ClusterState) -> Tensor:
+    """Per-LEVEL dense domain ids of the in-cycle exclusion table (ref
+    ``:150``): ``dom_static`` i32 [L+1, N] — rows 0..L-1 the topology
+    levels (a node LACKING the level's label is its own per-node domain
+    ``N*L + node``), row L the per-node granularity; padded node slots map
+    to the junk id ``AD = N*L + N``."""
+    n = state.nodes
+    N, L = n.n, n.topology.shape[1]
+    ND = N * L
+    AD = ND + N
+    node_slot = ND + torch.arange(N, dtype=torch.int32, device=n.valid.device)
+    rows = [torch.where(n.valid, torch.where(n.topology[:, lvl] >= 0,
+                                             n.topology[:, lvl], node_slot),
+                        AD) for lvl in range(L)]
+    rows.append(torch.where(n.valid, node_slot, AD))
+    return torch.stack(rows).to(torch.int32).contiguous()
+
+
+def _term_rows(state: ClusterState, slots: Tensor, what: str):
+    """The term rows of a gang's slots: ``(t_safe, level)`` — the slot
+    clipped to a real row, the row's level clipped to ``[0, L]``."""
+    g = state.gangs
+    TA = g.anti_term_level.shape[0]
+    if TA <= 0:
+        raise ValueError(f"{what} kernels compiled without terms")
+    L = state.nodes.topology.shape[1]
+    t_safe = torch.clamp(slots, 0, TA - 1).long()
+    return t_safe, torch.clamp(g.anti_term_level[t_safe], 0, L).long()
+
+
+def _gang_rows(state: ClusterState, gang_idx: Tensor) -> Tensor:
+    """``max(g, 0)``, clamped to a real row as JAX's gathers clamp."""
+    return torch.clamp(gang_idx, 0, state.gangs.g - 1).long()
+
+
+def _claimed_at(anti_used: Tensor, dom_static: Tensor, t_safe: Tensor,
+                lvl: Tensor, static: Tensor | None = None) -> Tensor:
+    """bool [..., N]: ``anti_used[t, dom_static[lvl]]`` for every slot's
+    (row, level) — each distinct pair gathered once over the nodes (OR-ed
+    with its row of ``static`` when given), then spread to the slots."""
+    L1 = dom_static.shape[0]
+    pair, inv = torch.unique(t_safe * L1 + lvl, return_inverse=True)
+    row, lv = pair // L1, pair % L1
+    hit = anti_used[row[:, None], dom_static[lv].long()]     # [U, N]
+    if static is not None:
+        hit = hit | static[row]
+    return hit[inv]
+
+
+def anti_forbid_nodes(state: ClusterState, anti_used: Tensor,
+                      dom_static: Tensor, gang_idx: Tensor) -> Tensor:
+    """bool [..., N] — nodes whose domain one of the gang's avoid rows
+    has claimed this cycle (ref ``:171``; ``gang_idx`` of any shape)."""
+    avoids = state.gangs.anti_avoids[_gang_rows(state, gang_idx)]  # [..., KT]
+    t_safe, lvl = _term_rows(state, avoids, "anti")
+    hit = _claimed_at(anti_used, dom_static, t_safe, lvl)    # [..., KT, N]
+    return (hit & (avoids >= 0)[..., None]).any(-2)
+
+
+def anti_mark_cells(state: ClusterState, dom_static: Tensor,
+                    gang_idx: Tensor, nodes_t: Tensor,
+                    valid: Tensor) -> tuple[Tensor, Tensor]:
+    """The (row, column) cells the committed placements claim, long
+    [..., KT, T] each (ref ``:189``): every (mark slot, placed task) names
+    (row, domain of its node); an unused pair names the junk cell (TA, AD),
+    as the reference's scatter does.  ``valid`` gates whole gangs/lanes."""
+    marks = state.gangs.anti_marks[_gang_rows(state, gang_idx)]  # [..., KT]
+    t_safe, lvl = _term_rows(state, marks, "anti")
+    TA = state.gangs.anti_term_level.shape[0]
+    AD = dom_static.shape[1] * dom_static.shape[0]
+    placed = (nodes_t >= 0) & valid[..., None]               # [..., T]
+    doms = dom_static[lvl[..., None],
+                      torch.clamp(nodes_t, min=0).long()[..., None, :]]
+    ok = placed[..., None, :] & (marks >= 0)[..., None]      # [..., KT, T]
+    return (torch.where(ok, t_safe[..., None], TA),
+            torch.where(ok, doms.long(), AD))
+
+
+def anti_mark_placements(state: ClusterState, anti_used: Tensor,
+                         dom_static: Tensor, gang_idx: Tensor,
+                         nodes_t: Tensor, valid: Tensor) -> Tensor:
+    """A new table: ``anti_used`` with the committed placements' cells
+    (:func:`anti_mark_cells`) set True (ref ``:189``)."""
+    out = anti_used.clone()
+    out[anti_mark_cells(state, dom_static, gang_idx, nodes_t, valid)] = True
+    return out
+
+
+def _slot_meets(a: Tensor, b: Tensor, a_on: Tensor, b_on: Tensor) -> Tensor:
+    """bool [B, B]: lane i's slots ``a`` (where ``a_on``) share a row with
+    lane j's slots ``b`` (where ``b_on``)."""
+    return ((a[:, None, :, None] == b[None, :, None, :])
+            & a_on[:, None, :, None] & b_on[None, :, None, :]).any(3).any(2)
+
+
+def _earlier_valid(hit: Tensor, cand_valid: Tensor) -> Tensor:
+    """bool [B]: a valid lane meets an EARLIER valid lane in ``hit``."""
+    B = hit.shape[0]
+    ar = torch.arange(B, device=hit.device)
+    earlier = ar[None, :] < ar[:, None]
+    return (hit & earlier & cand_valid[None, :]).any(1) & cand_valid
+
+
+def anti_defer_lanes(state: ClusterState, cand_g: Tensor,
+                     cand_valid: Tensor) -> Tensor:
+    """bool [B] — lanes whose avoid rows meet an EARLIER valid lane's mark
+    rows this chunk (ref ``:213``): they retry next chunk against the
+    updated table."""
+    gi = _gang_rows(state, cand_g)
+    marks = state.gangs.anti_marks[gi]                       # [B, KT]
+    avoids = state.gangs.anti_avoids[gi]
+    return _earlier_valid(_slot_meets(avoids, marks, avoids >= 0,
+                                      marks >= 0), cand_valid)
+
+
+def attract_allow_nodes(state: ClusterState, anti_used: Tensor,
+                        dom_static: Tensor, gang_idx: Tensor) -> Tensor:
+    """bool [..., N] — nodes permitted by the gang's need rows (ref
+    ``:232``): EVERY need row claims the node's domain at the row's level,
+    statically (``attract_static``) or in this cycle; unused slots pass."""
+    g = state.gangs
+    needs = g.attract_needs[_gang_rows(state, gang_idx)]     # [..., KP]
+    t_safe, lvl = _term_rows(state, needs, "attract")
+    claimed = _claimed_at(anti_used, dom_static, t_safe, lvl,
+                          g.attract_static)                  # [..., KP, N]
+    return (claimed | (needs < 0)[..., None]).all(-2)
+
+
+def attract_defer_lanes(state: ClusterState, cand_g: Tensor,
+                        cand_valid: Tensor, anti_used: Tensor) -> Tensor:
+    """bool [B] — lanes with a still-UNCLAIMED need row that an EARLIER
+    valid lane would mark (ref ``:257``): they sit the chunk out, so an
+    anchor and its depender in one chunk land in order.  Lane 0 never
+    defers."""
+    g = state.gangs
+    TA = g.anti_term_level.shape[0]
+    AD = anti_used.shape[1] - 1
+    gi = _gang_rows(state, cand_g)
+    needs = g.attract_needs[gi]                              # [B, KP]
+    marks = g.anti_marks[gi]                                 # [B, KT]
+    row_any = anti_used[:TA, :AD].any(1) | g.attract_static.any(1)  # [TA]
+    open_need = (needs >= 0) & ~row_any[torch.clamp(needs, 0, TA - 1).long()]
+    return _earlier_valid(_slot_meets(needs, marks, open_need, marks >= 0),
+                          cand_valid)
+
+
+# ---------------------------------------------------------------------------
+# K12 / K13: the lanes' node mask and the marking of the taken placements
+# ---------------------------------------------------------------------------
+
+def affinity_mask_plain(state: ClusterState, anti_used: Tensor,
+                        dom_static: Tensor, cand: Tensor, *,
+                        attract: bool) -> Tensor:
+    """Plain PyTorch version of K12: bool [B, N], each lane's allowed nodes
+    — the valid nodes no avoid row has claimed and, with ``attract``, that
+    every need row has claimed (ref ``:1670-1680``, and ``n.valid &
+    domain_mask`` of ``_attempt_gang`` ``:1259``)."""
+    mask = state.nodes.valid & ~anti_forbid_nodes(state, anti_used,
+                                                  dom_static, cand)
+    if attract:
+        mask = mask & attract_allow_nodes(state, anti_used, dom_static, cand)
+    return mask
+
+
+def affinity_mask(state: ClusterState, anti_used: Tensor, dom_static: Tensor,
+                  cand: Tensor, *, attract: bool) -> Tensor:
+    """K12 — every lane's node mask (see :func:`affinity_mask_plain`).  CPU
+    tensors run the plain version; CUDA tensors launch one thread per
+    (lane, node) or raise."""
+    if not kernels.on_card(anti_used):
+        return affinity_mask_plain(state, anti_used, dom_static, cand,
+                                   attract=attract)
+    g, n = state.gangs, state.nodes
+    B = cand.shape[0]
+    N, L = n.n, n.topology.shape[1]
+    TA = g.anti_term_level.shape[0]
+    KT, KP = g.anti_avoids.shape[1], g.attract_needs.shape[1]
+    if TA <= 0:
+        raise ValueError("anti kernels compiled without terms")
+    i32, b = torch.int32, torch.bool
+    ts = dict(anti_used=anti_used, dom_static=dom_static,
+              term_level=g.anti_term_level, avoids=g.anti_avoids,
+              needs=g.attract_needs, attract_static=g.attract_static,
+              valid=n.valid, cand=cand)
+    dev = kernels.require_cuda("affinity_mask", ts, dict(
+        anti_used=b, dom_static=i32, term_level=i32, avoids=i32, needs=i32,
+        attract_static=b, valid=b, cand=i32))
+    if anti_used.shape != (TA + 1, N * L + N + 1) or \
+            dom_static.shape != (L + 1, N):
+        raise ValueError("affinity_mask: anti_used must be [TA+1, AD+1] and "
+                         "dom_static [L+1, N]")
+    out = torch.empty((B, N), dtype=b, device=dev)
+    rc = kernels.library().kai_affinity_mask(
+        *(kernels.ptr(t) for t in ts.values()), B, N, L, TA, g.g, KT, KP,
+        int(attract), kernels.ptr(out), kernels.stream_of(anti_used))
+    kernels.check(rc, "affinity_mask")
+    kernels.count_launch("affinity_mask")
+    return out
+
+
+def anti_mark_plain(state: ClusterState, anti_used: Tensor,
+                    dom_static: Tensor, cand: Tensor, nodes_b: Tensor,
+                    take: Tensor) -> Tensor:
+    """Plain PyTorch version of K13: sets the taken lanes' cells
+    (:func:`anti_mark_cells`) True in ``anti_used`` itself and returns it."""
+    anti_used[anti_mark_cells(state, dom_static, cand, nodes_b, take)] = True
+    return anti_used
+
+
+def anti_mark(state: ClusterState, anti_used: Tensor, dom_static: Tensor,
+              cand: Tensor, nodes_b: Tensor, take: Tensor) -> Tensor:
+    """K13 — claims the taken lanes' placements in ``anti_used`` IN PLACE
+    and returns it (``cand`` i32 [B], ``nodes_b`` i32 [B, T], ``take`` bool
+    [B]; the table only grows within a cycle, and each action marks a copy
+    of its own).  CPU tensors run :func:`anti_mark_plain`; CUDA tensors
+    launch one thread per (lane, mark slot, task), or raise."""
+    if not kernels.on_card(anti_used):
+        return anti_mark_plain(state, anti_used, dom_static, cand, nodes_b,
+                               take)
+    g, n = state.gangs, state.nodes
+    B, T = nodes_b.shape
+    N, L = n.n, n.topology.shape[1]
+    TA = g.anti_term_level.shape[0]
+    if TA <= 0:
+        raise ValueError("anti kernels compiled without terms")
+    i32, b = torch.int32, torch.bool
+    ts = dict(dom_static=dom_static, term_level=g.anti_term_level,
+              marks=g.anti_marks, cand=cand, nodes_b=nodes_b, take=take)
+    kernels.require_cuda("anti_mark", dict(ts, anti_used=anti_used), dict(
+        anti_used=b, dom_static=i32, term_level=i32, marks=i32, cand=i32,
+        nodes_b=i32, take=b))
+    if anti_used.shape != (TA + 1, N * L + N + 1) or take.shape != (B,):
+        raise ValueError("anti_mark: anti_used must be [TA+1, AD+1] and "
+                         "take [B]")
+    rc = kernels.library().kai_anti_mark(
+        *(kernels.ptr(t) for t in ts.values()), B, T, N, L, TA, g.g,
+        g.anti_marks.shape[1], kernels.ptr(anti_used),
+        kernels.stream_of(anti_used))
+    kernels.check(rc, "anti_mark")
+    kernels.count_launch("anti_mark")
+    return anti_used
+
+
 @dataclasses.dataclass(frozen=True)
 class AllocateConfig:
     """Knobs of the allocate action — the reference's fields, one for one
@@ -170,17 +427,16 @@ def check_supported(config: AllocateConfig) -> None:
     combination the reference itself rejects).
 
     Both paths take the required and subgroup topology levels
-    (``subgroup_topology``) and the preferred-level band; the per-task path
-    also takes the device share table (``track_devices``).  The victim
-    actions keep their own, narrower check
+    (``subgroup_topology``), the preferred-level band and the in-cycle
+    affinity terms (``anti_groups``, ``attract_groups``); the per-task
+    path also takes the device share table (``track_devices``).  The
+    victim actions keep their own, narrower check
     (``victims.check_placement_ported``)."""
     if config.uniform_tasks and config.track_devices:
         raise ValueError(
             "uniform_tasks fast path requires track_devices=False")
     unsupported = [
         (config.extended, "extended=True (MIG/DRA scalar resources)"),
-        (config.anti_groups, "anti_groups=True"),
-        (config.attract_groups, "attract_groups=True"),
         (config.queue_depth is not None, "queue_depth"),
         (not config.dynamic_order, "dynamic_order=False"),
         (not config.sparse_wavefront, "sparse_wavefront=False"),
@@ -230,7 +486,21 @@ def type_tables_plain(nodes: NodeState, free: Tensor, extra: Tensor,
     bands (f32 [Y, N], unmasked — the lanes add the soft and jitter
     bands and mask).  ``extra`` is one [N, R] pool for every row, or one
     pool per row, [Y, N, R] (the victim wavefront: row b is lane b's
-    gang type with the lane's own freed capacity)."""
+    gang type with the lane's own freed capacity).  Rows repeat when each
+    lane names its own type's row: with one shared pool each distinct row
+    is computed once (a row depends on its own inputs only)."""
+    if extra.dim() == 2 and type_req.shape[0] > 1:
+        key = torch.cat([type_req.view(torch.int32), type_selector,
+                         type_class[:, None]], 1)
+        uniq, inv = torch.unique(key, dim=0, return_inverse=True)
+        if uniq.shape[0] < key.shape[0]:
+            first = torch.full((uniq.shape[0],), key.shape[0],
+                               dtype=torch.int64, device=key.device)
+            first.scatter_reduce_(0, inv, torch.arange(
+                key.shape[0], device=key.device), reduce="amin")
+            return tuple(t[inv] for t in type_tables_plain(
+                nodes, free, extra, type_req[first], type_selector[first],
+                type_class[first], placement))
     zero = torch.zeros(type_req.shape[:-1], dtype=type_req.dtype,
                        device=type_req.device)
     fi, fp = feasible_nodes_dual(
@@ -243,6 +513,19 @@ def type_tables_plain(nodes: NodeState, free: Tensor, extra: Tensor,
     return fi, fp, ci, cp, sc
 
 
+def _tier_limit(name: str, placement: PlacementConfig) -> None:
+    if tuple(placement.tiers) != DEFAULT_TIERS:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel composes the default tiers "
+            f"DEFAULT_TIERS={DEFAULT_TIERS}, not {tuple(placement.tiers)}")
+
+
+def type_tables_limits(placement: PlacementConfig) -> None:
+    """Raise ``NotImplementedError`` naming the limit K2's kernel does not
+    take: a plugin tier list other than ``DEFAULT_TIERS``."""
+    _tier_limit("type_tables", placement)
+
+
 def type_tables(nodes: NodeState, free: Tensor, extra: Tensor,
                 type_req: Tensor, type_selector: Tensor, type_class: Tensor,
                 placement: PlacementConfig):
@@ -252,10 +535,7 @@ def type_tables(nodes: NodeState, free: Tensor, extra: Tensor,
     if not kernels.on_card(free):
         return type_tables_plain(nodes, free, extra, type_req, type_selector,
                                  type_class, placement)
-    if tuple(placement.tiers) != DEFAULT_TIERS:
-        raise NotImplementedError(
-            f"type_tables: the CUDA kernel composes the default tiers "
-            f"{DEFAULT_TIERS}, not {tuple(placement.tiers)}")
+    type_tables_limits(placement)
     N, R_ = free.shape
     Y, K = type_selector.shape
     X = nodes.filter_masks.shape[0]
@@ -511,11 +791,17 @@ class LaneTables:
 
 
 def topk_lax_order(scores: Tensor, k: int) -> Tensor:
-    """Indices of the ``k`` best entries of each row in ``lax.top_k``
-    order: score descending, the LOWER index first among ties (a stable
-    descending sort's prefix; ``torch.topk`` promises no tie order)."""
-    return torch.sort(scores, dim=-1, descending=True,
-                      stable=True).indices[..., :k]
+    """Indices of the ``k`` best entries of each f32 row in ``lax.top_k``
+    order: score descending in the total order of f32 (-0.0 below +0.0, as
+    XLA compares), the LOWER index first among ties (``torch.topk``
+    promises no tie order).  Each score becomes its order-preserving
+    integer, combined with its reversed index into one unique int64 key,
+    whose top-k is that order."""
+    N = scores.shape[-1]
+    bits = scores.view(torch.int32).to(torch.int64)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    rev = N - 1 - torch.arange(N, dtype=torch.int64, device=scores.device)
+    return torch.topk(key * N + rev, k, dim=-1).indices
 
 
 def _jitter_scale(N: int) -> Tensor:
@@ -567,6 +853,11 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
     with per-chunk type tables ``((bands + soft) + jitter)``, without
     (``Yu > B``) ``(bands + (jitter + soft))``.
 
+    ``valid`` is the nodes every lane may use, bool [N], or each lane's
+    own, [B, N] (the mask mode: the affinity gates' node mask, K12, ANDed
+    into the fits after the hoisted type tables, ref ``:1010-1011``,
+    ``:1020-1021``).
+
     The victim wavefront's lanes add three things: ``qa`` may be one
     table per lane, [B, Q, R] (each lane's queue allocation net of its
     own victims); ``rows`` i32 [B] names each lane's row of the tables
@@ -588,7 +879,7 @@ def uniform_fill_plain(cand: Tensor, prior: Tensor, quota_b: Tensor,
     each, zero where the slot placed nothing."""
     fi_y, fp_y, ci_y, cp_y, sc_y = tables
     B, T = prior.shape
-    N = valid.shape[0]
+    N = valid.shape[-1]
     dev = prior.device
     i32 = torch.int32
     gi = cand.long()
@@ -751,6 +1042,15 @@ def _uniform_domain(topo: UniformTopo, gi: Tensor, ty: Tensor, prior: Tensor,
 MAX_TOPK = 64
 
 
+def uniform_fill_limits(T: int, N: int) -> None:
+    """Raise ``NotImplementedError`` naming the limit K3's kernel does not
+    take: a top-k of ``min(T, N)`` above ``MAX_TOPK``."""
+    if min(T, N) > MAX_TOPK:
+        raise NotImplementedError(
+            f"uniform_fill: a top-k of {min(T, N)} exceeds the kernel's "
+            f"MAX_TOPK={MAX_TOPK}")
+
+
 def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
                  qan: Tensor, limit_eff: Tensor, quota_eff: Tensor,
                  chain: Tensor, lt: LaneTables, tables,
@@ -761,7 +1061,9 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
                  free: Tensor | None = None):
     """K3 — every lane's whole-gang placement (see
     :func:`uniform_fill_plain` for the contract).  CPU tensors run the
-    plain version; CUDA tensors launch one block per lane or raise."""
+    plain version; CUDA tensors launch one block per lane or raise.  A
+    [B, N] ``valid`` runs the mask mode (each block reads its lane's
+    row)."""
     if not kernels.on_card(prior):
         return uniform_fill_plain(cand, prior, quota_b, qa, qan, limit_eff,
                                   quota_eff, chain, lt, tables, soft_scores,
@@ -777,9 +1079,7 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
     Y, N = fp_y.shape
     G = lt.queue.shape[0]
     X = soft_scores.shape[0]
-    if min(T, N) > MAX_TOPK:
-        raise ValueError(f"uniform_fill: top-k of {min(T, N)} exceeds the "
-                         f"kernel's {MAX_TOPK}")
+    uniform_fill_limits(T, N)
     if R_ != 3:
         raise ValueError("uniform_fill: resource axis must be 3")
     f32, i32, b = torch.float32, torch.int32, torch.bool
@@ -807,6 +1107,9 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
         raise ValueError("uniform_fill: rows must be [B]")
     if score_bias is not None and score_bias.shape != (B, N):
         raise ValueError("uniform_fill: score_bias must be [B, N]")
+    masked = valid.dim() == 2
+    if valid.shape != ((B, N) if masked else (N,)):
+        raise ValueError("uniform_fill: valid must be [N] or [B, N]")
     L = 0 if tp.topology is None else tp.topology.shape[1]
     if tp.required and (tp.srl0 is None or tp.dom_caps_y.shape[1] != N * L):
         raise ValueError("uniform_fill: the required level needs srl0 and "
@@ -825,14 +1128,14 @@ def uniform_fill(cand: Tensor, prior: Tensor, quota_b: Tensor, qa: Tensor,
         *(kernels.ptr(t) for t in ts.values()),
         *(None if v is None else kernels.ptr(v) for v in opt.values()),
         B, T, N, Q, Y, G, X, L, int(dense), int(stride), int(hoisted),
-        int(qa_lanes), float(_jitter_scale(N)),
+        int(qa_lanes), int(masked), float(_jitter_scale(N)),
         *(kernels.ptr(t) for t in outs[:5]),
         *(kernels.ptr(t) for t in outs[5:]), *([None, None] * (free is None)),
         kernels.stream_of(prior))
     kernels.check(rc, "uniform_fill")
     kernels.count_launch("uniform_fill", lanes=qa_lanes,
                          topology=tp.required,
-                         preferred=tp.pref_level is not None)
+                         preferred=tp.pref_level is not None, mask=masked)
     return tuple(outs)
 
 
@@ -1054,7 +1357,8 @@ def attempt_gang_in_domain_plain(
         quota_eff: Tensor, *, placement: PlacementConfig,
         track_devices: bool, topo: TopoStatic | None = None,
         banned: Tensor | None = None,
-        lane_ids: Tensor | None = None) -> PerTaskOut:
+        lane_ids: Tensor | None = None,
+        mask: Tensor | None = None) -> PerTaskOut:
     """Plain PyTorch version of K9: the reference's
     ``_attempt_gang_in_domain`` (``:517``) for every lane ``b`` of a chunk
     (gang ``cand[b]``, tie-break lane ``b``, prior placements ``prior[b]``),
@@ -1072,9 +1376,12 @@ def attempt_gang_in_domain_plain(
     lane; the subgroups' domain locks, seeded from prior placements; the
     remaining-chunk gate and the domain-binpack band on a subgroup's first
     placement; and the ``sub_dom`` output.  ``banned`` i32 [B, S] bars
-    each lane's subgroups from one domain (the in-cycle retry); and
+    each lane's subgroups from one domain (the in-cycle retry);
     ``lane_ids`` i32 [B] gives each lane its tie-break lane (default: its
-    row)."""
+    row); and ``mask`` bool [B, N] confines each lane to its own nodes
+    (the mask mode: the affinity gates' node mask, K12; ref ``allowed =
+    domain_mask & ~forbidden`` ``:720`` with ``domain_mask = n.valid &
+    mask`` ``:1259``)."""
     B, T = prior.shape
     N, R_ = free.shape
     D = dev.shape[1]
@@ -1223,6 +1530,8 @@ def attempt_gang_in_domain_plain(
                 extra_device_releasing=None, devices=False,
                 task_class=cls)
         allowed = nodes.valid[None] & ~forbidden[ix]
+        if mask is not None:
+            allowed = allowed & mask[ix]
         if topo is not None:
             # a subgroup with a required level stays in the domain its
             # first placement locked; that first placement needs a domain
@@ -1361,6 +1670,32 @@ PERTASK_MAX_S = 32
 DENSE_ACCEPT_MAX_B = 256
 
 
+def pertask_fill_limits(T: int, D: int, S: int,
+                        placement: PlacementConfig) -> None:
+    """Raise ``NotImplementedError`` naming the limit K9's kernel does not
+    take: more than ``PERTASK_MAX_T`` task slots, ``PERTASK_MAX_D``
+    devices a node or ``PERTASK_MAX_S`` subgroups, or a plugin tier list
+    other than ``DEFAULT_TIERS``."""
+    for v, cap, what in ((T, PERTASK_MAX_T, "PERTASK_MAX_T"),
+                         (D, PERTASK_MAX_D, "PERTASK_MAX_D"),
+                         (S, PERTASK_MAX_S, "PERTASK_MAX_S")):
+        if v > cap:
+            raise NotImplementedError(
+                f"pertask_fill: {v} exceeds the kernel's {what}={cap}")
+    _tier_limit("pertask_fill", placement)
+
+
+def dense_accept_limits(B: int, D: int) -> None:
+    """Raise ``NotImplementedError`` naming the limit K10's kernel does not
+    take: more than ``DENSE_ACCEPT_MAX_B`` lanes or ``PERTASK_MAX_D``
+    devices a node."""
+    for v, cap, what in ((B, DENSE_ACCEPT_MAX_B, "DENSE_ACCEPT_MAX_B"),
+                         (D, PERTASK_MAX_D, "PERTASK_MAX_D")):
+        if v > cap:
+            raise NotImplementedError(
+                f"dense_accept: {v} exceeds the kernel's {what}={cap}")
+
+
 def pertask_fill_plain(nodes: NodeState, tt: TaskTables, cand: Tensor,
                        prior: Tensor, free: Tensor, dev: Tensor, qa: Tensor,
                        qan: Tensor, extra: Tensor, extra_dev: Tensor,
@@ -1370,7 +1705,8 @@ def pertask_fill_plain(nodes: NodeState, tt: TaskTables, cand: Tensor,
                        banned: Tensor | None = None,
                        active: Tensor | None = None,
                        base: PerTaskOut | None = None,
-                       agg: Tensor | None = None) -> PerTaskOut:
+                       agg: Tensor | None = None,
+                       mask: Tensor | None = None) -> PerTaskOut:
     """Plain PyTorch version of K9 with the retry's lane selection (see
     :func:`pertask_fill`): :func:`attempt_gang_in_domain_plain` over every
     lane, or over the ``active`` lanes only — each with its own lane index
@@ -1382,12 +1718,13 @@ def pertask_fill_plain(nodes: NodeState, tt: TaskTables, cand: Tensor,
             limit_eff, quota_eff, placement=placement,
             track_devices=track_devices, topo=topo, **kw)
     if active is None:
-        return plain(cand, prior, banned=banned)
+        return plain(cand, prior, banned=banned, mask=mask)
     ix = torch.nonzero(active).flatten()
     if ix.numel() == 0:
         return base
     sub = plain(cand[ix], prior[ix], banned=banned[ix],
-                lane_ids=ix.to(torch.int32))
+                lane_ids=ix.to(torch.int32),
+                mask=None if mask is None else mask[ix])
     merged = {}
     for f in dataclasses.fields(base):
         v = getattr(base, f.name)
@@ -1406,7 +1743,8 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                  topo: TopoStatic | None = None,
                  banned: Tensor | None = None, active: Tensor | None = None,
                  base: PerTaskOut | None = None,
-                 agg: Tensor | None = None) -> PerTaskOut:
+                 agg: Tensor | None = None,
+                 mask: Tensor | None = None) -> PerTaskOut:
     """K9 — every lane's per-task placement (see
     :func:`attempt_gang_in_domain_plain` for the contract).  CPU tensors
     run the plain version; CUDA tensors launch one block per lane or
@@ -1422,7 +1760,10 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
     (:func:`pertask_agg_scratch`; one is allocated per call without it).
     A first launch sums the chunk-start aggregate into its last row; a
     retry launch given the scratch of its chunk's first launch copies
-    that row into the retried lanes' rows and sums nothing."""
+    that row into the retried lanes' rows and sums nothing.
+
+    ``mask`` bool [B, N] runs the mask mode: each block reads its lane's
+    row of the affinity gates' node mask (K12)."""
     if active is not None and base is None:
         raise ValueError("pertask_fill: active lanes need the base output")
     if not kernels.on_card(free):
@@ -1430,11 +1771,7 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
             nodes, tt, cand, prior, free, dev, qa, qan, extra, extra_dev,
             chain, limit_eff, quota_eff, placement=placement,
             track_devices=track_devices, topo=topo, banned=banned,
-            active=active, base=base, agg=agg)
-    if tuple(placement.tiers) != DEFAULT_TIERS:
-        raise NotImplementedError(
-            f"pertask_fill: the CUDA kernel composes the default tiers "
-            f"{DEFAULT_TIERS}, not {tuple(placement.tiers)}")
+            active=active, base=base, agg=agg, mask=mask)
     B, T = prior.shape
     N, R_ = free.shape
     D = dev.shape[1]
@@ -1443,11 +1780,9 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
     X = nodes.filter_masks.shape[0]
     L = nodes.topology.shape[1]
     Q = qa.shape[0]
-    if (R_ != 3 or T > PERTASK_MAX_T or D > PERTASK_MAX_D
-            or S > PERTASK_MAX_S):
-        raise ValueError(
-            f"pertask_fill: R={R_}, T={T}, D={D}, S={S} outside the "
-            f"kernel's 3, {PERTASK_MAX_T}, {PERTASK_MAX_D}, {PERTASK_MAX_S}")
+    pertask_fill_limits(T, D, S, placement)
+    if R_ != 3:
+        raise ValueError("pertask_fill: resource axis must be 3")
     f32, i32, b = torch.float32, torch.int32, torch.bool
     gang = dict(task_req=tt.task_req, task_valid=tt.task_valid,
                 task_selector=tt.task_selector, task_portion=tt.task_portion,
@@ -1480,16 +1815,18 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                   device_memory_gib=f32, topology=i32, qa=f32, qan=f32,
                   limit_eff=f32, quota_eff=f32, chain=b, cand=i32,
                   prior=i32, dom_ptr=i32, dom_nodes=i32, banned=i32,
-                  active=b)
+                  active=b, mask=b)
     ts = dict(**gang, **node, **queue, **lane,
               subgroup_required_level=tt.subgroup_required_level)
     opt = dict(dom_ptr=None if topo is None else topo.dom_ptr,
                dom_nodes=None if topo is None else topo.dom_nodes,
-               banned=banned, active=active)
+               banned=banned, active=active, mask=mask)
     dv = kernels.require_cuda("pertask_fill", dict(
         ts, **{k: v for k, v in opt.items() if v is not None}), dtypes)
     if banned is not None and (topo is None or banned.shape != (B, S)):
         raise ValueError("pertask_fill: banned needs topo and is [B, S]")
+    if mask is not None and mask.shape != (B, N):
+        raise ValueError("pertask_fill: mask must be [B, N]")
     if base is not None:
         out = PerTaskOut(**{f.name: getattr(base, f.name).clone()
                             for f in dataclasses.fields(base)
@@ -1532,7 +1869,7 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
     kernels.check(rc, "pertask_fill")
     kernels.count_launch("pertask_fill",
                          topology=topo is not None and banned is None,
-                         banned=banned is not None)
+                         banned=banned is not None, mask=mask is not None)
     return out
 
 
@@ -1658,9 +1995,9 @@ def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
     N, R_ = free.shape
     D = dev.shape[1] if track_devices else 0
     Q = qa.shape[0]
-    if R_ != 3 or B > DENSE_ACCEPT_MAX_B or D > PERTASK_MAX_D:
-        raise ValueError(f"dense_accept: R={R_}, B={B}, D={D} outside the "
-                         f"kernel's 3, {DENSE_ACCEPT_MAX_B}, {PERTASK_MAX_D}")
+    dense_accept_limits(B, D)
+    if R_ != 3:
+        raise ValueError("dense_accept: resource axis must be 3")
     f32, i32, b = torch.float32, torch.int32, torch.bool
     names = ("nodes_b", "ok", "gate_ok", "free_rows", "dev_rows",
              "bind_rows", "devbind_rows", "free", "dev", "rel_floor",
@@ -1699,19 +2036,23 @@ def _attempt_gang(state: ClusterState, cand: Tensor, prior: Tensor,
                   config: AllocateConfig, chain: Tensor,
                   limit_eff: Tensor, quota_eff: Tensor, lt: LaneTables,
                   tables, hoisted: bool, topo: UniformTopo | None = None,
-                  free: Tensor | None = None):
+                  free: Tensor | None = None, mask: Tensor | None = None,
+                  rows: Tensor | None = None):
     """Try to place every uniform lane's gang (ref ``_attempt_gang``,
     ``:1208``, under the chunk's lane vmap) through the whole-gang fill,
     K3: placements only (the sparse protocol), or with ``free`` the dense
     protocol's rows; ``topo`` carries the required-level tables and the
-    preferred band."""
+    preferred band; ``mask`` bool [B, N] is each lane's node mask (valid
+    nodes folded in: K12's output); ``rows`` i32 [B] names each lane's
+    row of ``tables`` where they hold only the chunk's own types."""
     N = state.nodes.n
     return uniform_fill(
         cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, lt,
-        tables, state.nodes.soft_scores, state.nodes.valid,
+        tables, state.nodes.soft_scores,
+        state.nodes.valid if mask is None else mask,
         dense=config.dense_feasibility,
         stride=max(1, N // max(1, config.batch_size)), hoisted=hoisted,
-        topo=topo, free=free)
+        topo=topo, free=free, rows=rows)
 
 
 def _ancestor_gate(parent: Tensor, q: Tensor, num_levels: int, used: Tensor,
@@ -1736,14 +2077,15 @@ def attempt_gang_dense(state: ClusterState, gi: int, free: Tensor,
                        qa: Tensor, qan: Tensor, extra: Tensor, *,
                        config: AllocateConfig, chain: Tensor,
                        limit_eff: Tensor, quota_eff: Tensor,
-                       lt: LaneTables):
+                       lt: LaneTables, domain_mask: Tensor | None = None):
     """One gang's whole placement with dense outputs — the reference's
     ``_attempt_gang`` (``:1208``) as the victim solver calls it: lane 0, no
     prior placements and no re-push quota (its ``legacy`` protocol:
     success iff at least ``min_needed`` tasks place), no hoisted tables.
     Routes through K2 for the gang's task type against ``(free, extra)``
     and K3 with one lane; ``lt`` must map every gang to type row 0
-    (:func:`single_type_lanes`).
+    (:func:`single_type_lanes`).  ``domain_mask`` bool [N] (the affinity
+    gates' mask, ref ``:1259``) runs K3's mask mode with one lane.
 
     Returns ``(free2 [N, R], qa2 [Q, R], qan2 [Q, R], nodes_t i32 [T],
     pipe_t bool [T], success bool [])``; the device and extended pools
@@ -1760,7 +2102,9 @@ def attempt_gang_dense(state: ClusterState, gi: int, free: Tensor,
     quota_b = torch.full((1,), T, dtype=torch.int32, device=dev)
     qa2, qan2, nodes_t, pipe_t, _ = uniform_fill(
         cand, prior, quota_b, qa, qan, limit_eff, quota_eff, chain, lt,
-        tables, n.soft_scores, n.valid, dense=config.dense_feasibility,
+        tables, n.soft_scores,
+        n.valid if domain_mask is None else (n.valid & domain_mask)[None],
+        dense=config.dense_feasibility,
         stride=max(1, N // max(1, config.batch_size)), hoisted=False)
     nodes_t, pipe_t = nodes_t[0], pipe_t[0]
     placed = nodes_t >= 0
@@ -1920,6 +2264,14 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         srl0 = g.subgroup_required_level[:, 0].contiguous()
     pref_level = (g.preferred_level.contiguous()
                   if uniform and config.preferred_topology else None)
+    # the in-cycle affinity terms: each lane's node mask (K12) and the
+    # chunk's deferred lanes, the taken placements' domains claimed (K13)
+    # after each commit (ref :1525-1530, :1665-1680, :1855-1859)
+    anti = config.anti_groups
+    anti_used = init.anti_used
+    if anti:
+        dom_static = anti_domain_tables(state)
+        anti_used = anti_used.clone()       # K13 marks this action's copy
 
     # loop state; row G of each gang buffer is the junk row
     placements = _pad_row(init.placements, -1)
@@ -1970,9 +2322,30 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         quota_b = torch.where(placed_cnt < need, need - placed_cnt, 1).to(i32)
 
         dev_rows = devbind_rows = None
+        dmask_b = dup_b = None
+        if anti:
+            dmask_b = affinity_mask(state, anti_used, dom_static,
+                                    cand_c.to(i32),
+                                    attract=config.attract_groups)
+            dup_b = anti_defer_lanes(state, cand_c, cand_valid)
+            if config.attract_groups:
+                dup_b = dup_b | attract_defer_lanes(state, cand_c,
+                                                    cand_valid, anti_used)
         if uniform:
-            tables = type_tables(n, free, extra, g.type_req, g.type_selector,
-                                 g.type_class, config.placement)
+            ty_rows = None
+            if hoisted:
+                tables = type_tables(n, free, extra, g.type_req,
+                                     g.type_selector, g.type_class,
+                                     config.placement)
+            else:
+                # more types than lanes: the reference builds each lane's
+                # fit and bands itself (ref :1548), so the tables hold one
+                # row per lane, its own type's (no host read)
+                ty = lt.task_type0[cand_c].long()
+                tables = type_tables(n, free, extra, g.type_req[ty],
+                                     g.type_selector[ty], g.type_class[ty],
+                                     config.placement)
+                ty_rows = lanes_b
             utopo = None
             if hoist_topo or pref_level is not None:
                 utopo = UniformTopo(topology=n.topology,
@@ -1986,7 +2359,8 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
                 state, cand_c.to(i32), prior_b, quota_b, qa, qan,
                 config=config, chain=chain, limit_eff=limit_eff,
                 quota_eff=quota_eff, lt=lt, tables=tables, hoisted=hoisted,
-                topo=utopo, free=None if sparse else free)
+                topo=utopo, free=None if sparse else free, mask=dmask_b,
+                rows=ty_rows)
             qa2_b, qan2_b, nodes_b, pipe_b, succ_b = outs[:5]
             if not sparse:
                 free_rows, bind_rows = outs[5:]
@@ -1997,7 +2371,7 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
                 extra, extra_dev, chain, limit_eff, quota_eff,
                 placement=config.placement,
                 track_devices=config.track_devices, topo=topo_st,
-                agg=agg_scratch)
+                agg=agg_scratch, mask=dmask_b)
             if topo_st is not None:
                 # in-cycle retry over the next domain (ref :1274-1289):
                 # a lane whose locked domain failed the fill is attempted
@@ -2010,7 +2384,7 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
                     placement=config.placement,
                     track_devices=config.track_devices, topo=topo_st,
                     banned=lanes_out.sub_dom, active=retry, base=lanes_out,
-                    agg=agg_scratch)
+                    agg=agg_scratch, mask=dmask_b)
                 retries += retry.sum()
                 retry_chunks += retry.any()
             qa2_b, qan2_b, nodes_b, pipe_b, succ_b, devt_b = (
@@ -2020,6 +2394,13 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
             dev_rows = lanes_out.dev_rows
             devbind_rows = lanes_out.devbind_rows
         succ_b = succ_b & cand_valid
+        # a deferred lane is conflict-rejected: it retries next chunk and
+        # is neither done nor failed, even where its own attempt failed
+        # (ref :1706-1707, :1808-1810)
+        settled = succ_b
+        if dup_b is not None:
+            succ_b = succ_b & ~dup_b
+            settled = succ_b | dup_b
 
         ok = succ_b[:, None, None]
         d_qa = torch.where(ok, qa2_b - qa, 0.0)              # [B, Q, R]
@@ -2071,8 +2452,8 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         valid_cnt = lt.task_valid[cand_c].sum(-1, dtype=i32)
         # done: whole, or failed (failure is final — capacity only
         # shrinks); successful partial gangs re-enter the heap
-        done_b = cand_valid & ((take & (total_cnt >= valid_cnt)) | ~succ_b)
-        fail_fresh = cand_valid & ~succ_b & (placed_cnt == 0)
+        done_b = cand_valid & ((take & (total_cnt >= valid_cnt)) | ~settled)
+        fail_fresh = cand_valid & ~settled & (placed_cnt == 0)
         fit_reason[cand] = torch.where(
             fail_fresh, 3, torch.where(take, 0, fit_reason[cand])).to(i32)
         new_t = nodes_b >= 0
@@ -2091,6 +2472,11 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
             skip_now = remaining[:G] & (failed_sig[sig] > 0)
             fit_reason[:G] = torch.where(skip_now, 2, fit_reason[:G])
             remaining[:G] = remaining[:G] & ~skip_now
+        if anti:
+            # taken lanes claim their placements' domains in their mark
+            # rows (ref :1855-1859)
+            anti_mark(state, anti_used, dom_static, cand_c.to(i32),
+                      nodes_b.contiguous(), take)
         if hoist_topo:
             # the committed replicas' nodes and domains (ref :1861)
             req0_b = g.type_req[g.task_type[cand_c, 0].long(), 0]
@@ -2106,6 +2492,6 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         pipelined=pipelined[:G], allocated=allocated[:G],
         attempted=attempted[:G], fit_reason=fit_reason[:G], free=free,
         device_free=dev_free, queue_allocated=qa,
-        queue_allocated_nonpreemptible=qan)
+        queue_allocated_nonpreemptible=qan, anti_used=anti_used)
     return result, AllocateCounts(chunks=chunks, retries=int(retries),
                                   retry_chunks=int(retry_chunks))

@@ -38,6 +38,15 @@ _INT_MIN = -2 ** 31
 MAX_QUEUES = 1024
 
 
+def divide_level_limits(Q: int) -> None:
+    """Raise ``NotImplementedError`` naming the limit K1's kernel does not
+    take: more than ``MAX_QUEUES`` queues."""
+    if Q > MAX_QUEUES:
+        raise NotImplementedError(
+            f"drf_water_fill: {Q} queues exceed the kernel's "
+            f"MAX_QUEUES={MAX_QUEUES}")
+
+
 def _segment_sum(values: Tensor, seg: Tensor, num_segments: int) -> Tensor:
     """``segment_sum`` over the queue axis [Q, ...] with each segment
     summed sequentially in ascending queue index, starting from 0."""
@@ -182,10 +191,7 @@ def drf_water_fill(seg_total: Tensor, quota: Tensor, weight: Tensor,
     if seg_total.shape != (Q + 1, R_):
         raise ValueError(f"seg_total {tuple(seg_total.shape)} is not "
                          f"[{Q + 1}, {R_}]")
-    if Q > MAX_QUEUES:
-        raise ValueError(
-            f"drf_water_fill holds at most {MAX_QUEUES} queues per block, "
-            f"got {Q}")
+    divide_level_limits(Q)
     f32, i32 = torch.float32, torch.int32
     ts = dict(seg_total=seg_total, quota=quota, weight=weight, limit=limit,
               request=request, usage=usage, priority=priority, seg=seg,

@@ -35,6 +35,14 @@ read per chunk, every lane's freed pools from **K8**
 through K2 (one table row per lane) and K3 (per-lane queue tables and
 score bias), and the sparse accept through K4 with the lanes' freed
 credit.
+
+With in-cycle affinity terms (``anti_groups``, ``attract_groups``) both
+engines read and extend the cycle's claimed-domain table that allocate
+began: each placement is confined to its gang's node mask (**K12**
+:func:`.allocate.affinity_mask`, through K3's mask mode), a wavefront
+lane whose terms meet an earlier lane's is deferred to the next chunk,
+and each committed placement claims its domains (**K13**
+:func:`.allocate.anti_mark`).
 """
 from __future__ import annotations
 
@@ -50,8 +58,10 @@ from ..utils.numerics import cumsum_blocked, cumsum_ds
 from . import ordering
 from .allocate import (AllocateConfig, AllocationResult, LaneTables,
                        _ancestor_gate, _chain_membership, _pad_row,
-                       attempt_gang_dense, check_supported, single_type_lanes,
-                       sparse_accept, type_tables, uniform_fill)
+                       affinity_mask, anti_defer_lanes, anti_domain_tables,
+                       anti_mark, attempt_gang_dense, attract_defer_lanes,
+                       check_supported, single_type_lanes, sparse_accept,
+                       type_tables, uniform_fill)
 from .scoring import W_OWN_FREED
 
 Tensor = torch.Tensor
@@ -647,8 +657,10 @@ def action_context(state: ClusterState, result: AllocationResult,
 def solve_for_preemptor(state: ClusterState, gi: int,
                         result: AllocationResult, fair_share: Tensor, *,
                         num_levels: int, mode: str, config: VictimConfig,
-                        act: _Action):
-    """One preemptor's scenario search (ref ``:390``).  Returns ``None``
+                        act: _Action, domain_mask: Tensor | None = None):
+    """One preemptor's scenario search (ref ``:390``); ``domain_mask``
+    bool [N] is the affinity gates' node mask (ref ``:402``, ``:539``),
+    applied to every scenario's placement.  Returns ``None``
     when no scenario places it, else ``(victim_mask [M], nodes_t [T],
     pipe_t [T], moves [M] | None, free', device_free', extra', extra_dev',
     qa', qan', ext', ext_extra')`` — the commit-set fields a success
@@ -747,7 +759,7 @@ def solve_for_preemptor(state: ClusterState, gi: int,
         free2, qa2, qan2, nodes_t, pipe_t, success = attempt_gang_dense(
             state, gi, free, qa_eff, qan, extra_eff, config=cfg,
             chain=chain, limit_eff=act.limit_eff, quota_eff=act.quota_eff,
-            lt=act.lanes)
+            lt=act.lanes, domain_mask=domain_mask)
         dev2, ext2 = result.device_free, result.extended_free
         moves = None
         if reclaim:
@@ -970,6 +982,9 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
     stats = act.stats
     g, q, n, r = state.gangs, state.queues, state.nodes, state.running
     G, T, M, Q, N = g.g, g.t, r.m, q.q, n.n
+    anti = config.placement.anti_groups
+    if anti:
+        dom_static = anti_domain_tables(state)
     R_ = n.free.shape[1]
     dev = state.device
     i32, f32 = torch.int32, torch.float32
@@ -1039,8 +1054,11 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
     tb = _unit_tables(sparse, reclaim, unit_req, unit_leaf, unit_prio, chain,
                       Q, KU)
 
-    # loop state; row G of each gang buffer is the junk row
+    # loop state; row G of each gang buffer is the junk row; K13 marks
+    # this action's copy of the claimed-domain table
     res = dataclasses.replace(result)
+    if anti:
+        res.anti_used = result.anti_used.clone()
     placements = _pad_row(result.placements, -1)
     placement_device = _pad_row(result.placement_device, -1)
     pipelined = _pad_row(result.pipelined, False)
@@ -1225,6 +1243,17 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
         bias_b = W_OWN_FREED * own_incr_b.to(f32)
         if not reclaim:
             bias_b = torch.where(lead[:, None], 0.0, bias_b)
+        # the affinity gates (ref :1349-1360): each lane's node mask (K12)
+        # and the lanes deferred behind an earlier lane's marks
+        dmask_b = n.valid
+        if anti:
+            dmask_b = affinity_mask(state, res.anti_used, dom_static,
+                                    gsafe_b.to(i32),
+                                    attract=pcfg.attract_groups)
+            dup_b = anti_defer_lanes(state, gsafe_b, cand_valid)
+            if pcfg.attract_groups:
+                dup_b = dup_b | attract_defer_lanes(state, gsafe_b,
+                                                    cand_valid, res.anti_used)
 
         # ---- every lane's placement: K2 one row per lane, K3 ------------
         ty_b = g.task_type[gsafe_b, 0].long()
@@ -1235,12 +1264,16 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
             gsafe_b.to(i32), torch.full((B, T), -1, dtype=i32, device=dev),
             torch.full((B,), T, dtype=i32, device=dev), qa_eff_b, qan,
             limit_eff_q, quota_eff_q, chain, act.lanes, tables, n.soft_scores,
-            n.valid, dense=pcfg.dense_feasibility,
+            dmask_b, dense=pcfg.dense_feasibility,
             stride=max(1, N // max(1, pcfg.batch_size)), hoisted=False,
             rows=lanes, score_bias=bias_b)
         placed_b = nodes_b >= 0
         # the reference's legacy protocol: min_needed tasks placed
         succ_b = placed_b.sum(1, dtype=i32) >= g.min_needed[gsafe_b]
+        if anti:
+            # a deferred lane is conflict-rejected, never terminal (ref
+            # :1389-1392, :1545, :1549)
+            succ_b = succ_b & ~dup_b
         ok_pre = gate_b & succ_b
         okm = ok_pre[:, None, None]
         d_qa = torch.where(okm, qa2_b - qa_eff_b, 0.0)
@@ -1324,6 +1357,8 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
             first_fail = first_bad & ~ok_pre & lead
         else:
             first_fail = first_bad & ~ok_pre & ~prev_lo
+        if anti:
+            first_fail = first_fail & ~dup_b
         any_take = take.any()
         star = torch.argmax(torch.where(take, lanes, -1)).reshape(1)
         victims = (lane_of_pod <= star) & any_take
@@ -1358,6 +1393,10 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
             queue_allocated=new_qa,
             queue_allocated_nonpreemptible=qan + _lane_sum(w, d_qan),
             victim=res.victim | victims)
+        if anti:
+            # taken lanes claim their placements' domains (ref :1628-1631)
+            anti_mark(state, res.anti_used, dom_static, gsafe_b.to(i32),
+                      torch.where(take[:, None], nodes_b, -1), take)
         tk = take[:, None]
         placements[cand_g] = torch.where(tk, nodes_b, placements[cand_g])
         placement_device[cand_g] = torch.where(tk, -1,
@@ -1413,7 +1452,8 @@ def check_placement_ported(placement: AllocateConfig) -> None:
     wavefront run the uniform whole-gang kernel only) and topology — the
     required and subgroup levels (the solver's per-lane domain pick, ref
     ``:1055-1076``; the dense wavefront has none) and the uniform path's
-    preferred band."""
+    preferred band.  The in-cycle affinity terms run on uniform
+    snapshots."""
     for bad, what in (
             (not placement.uniform_tasks,
              "uniform_tasks=False (the per-task placement path)"),
@@ -1532,6 +1572,14 @@ def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
             task_req_g=task_req_g), stats
     res = dataclasses.replace(result)
     q_att = torch.zeros((Q,), dtype=i32, device=dev)
+    # the affinity gates (ref :1730-1757, :1798-1804): the preemptor's
+    # node mask (K12, one lane) confines every scenario's placement; each
+    # step claims a success's domains (K13)
+    anti = config.placement.anti_groups
+    if anti:
+        dom_static = anti_domain_tables(state)
+        res.anti_used = result.anti_used.clone()    # K13 marks this copy
+        no_nodes = torch.full((1, g.t), -1, dtype=i32, device=dev)
     fuel = G
     while fuel > 0:
         gi_t = ordering.select_next_gang(g, q, res.queue_allocated,
@@ -1547,10 +1595,17 @@ def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
             break
         stats.steps += 1
         won = None
+        gi_b = gi_t.to(i32)
         if runnable:
+            dmask = None
+            if anti:
+                dmask = affinity_mask(
+                    state, res.anti_used, dom_static, gi_b,
+                    attract=config.placement.attract_groups)[0]
             won = solve_for_preemptor(state, gi, res, fair_share,
                                       num_levels=num_levels, mode=mode,
-                                      config=config, act=act)
+                                      config=config, act=act,
+                                      domain_mask=dmask)
         if won is not None:
             (victims, nodes_t, pipe_t, moves, free2, dev2, extra2,
              extra_dev2, qa2, qan2, ext2, ext_extra2) = won
@@ -1570,6 +1625,14 @@ def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
                 pipelined=pipelined,
                 allocated=_set_row(res.allocated, gi, True),
                 victim=res.victim | victims, victim_move=victim_move)
+        if anti:
+            # every step marks, as the reference's does: a failed one sets
+            # only the junk cell
+            ok = (torch.ones if won is not None else torch.zeros)(
+                (1,), dtype=torch.bool, device=dev)
+            anti_mark(state, res.anti_used, dom_static, gi_b,
+                      no_nodes if won is None else won[1][None].contiguous(),
+                      ok)
         if runnable:
             res = dataclasses.replace(
                 res, attempted=_set_row(res.attempted, gi, True))

@@ -188,3 +188,118 @@ def topology_subgroup_objects(apis, make_cluster, *, num_nodes: int,
         pods += [apis.Pod(f"{name}-{t}", name, creation_timestamp=float(g),
                           **spec) for t, spec in enumerate(specs)]
     return nodes, queues, groups, pods, topo
+
+
+def _anti_self_term(apis, key: str, value: str):
+    """A required hostname anti-affinity term against ``key=value``."""
+    return apis.PodAffinityTerm(match_labels=((key, value),), anti=True,
+                                required=True)
+
+
+def affinity_objects(apis, make_cluster, *, num_nodes: int,
+                     node_accel: float, num_gangs: int, tasks_per_gang: int,
+                     services: int = 64, anchors: int = 256,
+                     dependers: int = 256, depender_tasks: int = 4,
+                     port_gangs: int = 512, port: int = 8443):
+    """An allocate backlog with in-cycle affinity terms, built with
+    ``make_cluster`` and the object API: ``make_cluster``'s empty cluster
+    and ``num_gangs`` gangs of ``tasks_per_gang`` replicas, gang i's pods
+    labelled ``app=svc-{i % services}`` with a required hostname
+    anti-affinity term against their own ``app`` (a service's replicas one
+    per host, across its gangs); then ``anchors`` one-pod gangs labelled
+    ``cache=c{k}``, ``dependers`` gangs of ``depender_tasks`` pods with a
+    required hostname affinity to ``cache=c{k % anchors}``, and
+    ``port_gangs`` one-pod gangs sharing host port ``port``, every pod of
+    one accelerator, round-robin over the leaf queues.  Returns ``(nodes,
+    queues, groups, pods, topology)``."""
+    nodes, queues, groups, pods, topo = make_cluster(
+        num_nodes=num_nodes, node_accel=node_accel, num_gangs=num_gangs,
+        tasks_per_gang=tasks_per_gang)
+    index = {g.name: i for i, g in enumerate(groups)}
+    for p in pods:
+        app = f"svc-{index[p.group] % services}"
+        p.labels = dict(p.labels, app=app)
+        p.pod_affinity = [_anti_self_term(apis, "app", app)]
+    leaves = [q.name for q in queues if q.parent is not None]
+    t0 = float(num_gangs)
+
+    def gang(name: str, n_pods: int, **pod_kw):
+        k = len(groups)
+        groups.append(apis.PodGroup(name, queue=leaves[k % len(leaves)],
+                                    min_member=n_pods,
+                                    creation_timestamp=t0 + k))
+        pods.extend(apis.Pod(f"{name}-{t}", name,
+                             resources=apis.ResourceVec(1.0, 1.0, 4.0),
+                             creation_timestamp=t0 + k, **pod_kw)
+                    for t in range(n_pods))
+    for k in range(anchors):
+        gang(f"cache-{k}", 1, labels={"cache": f"c{k}"})
+    for k in range(dependers):
+        need = apis.PodAffinityTerm(match_labels=(("cache",
+                                                   f"c{k % anchors}"),))
+        gang(f"reader-{k}", depender_tasks, pod_affinity=[need])
+    for k in range(port_gangs):
+        gang(f"port-{k}", 1, host_ports=[port])
+    return nodes, queues, groups, pods, topo
+
+
+def affinity_reclaim_objects(apis, make_cluster, *, services: int = 64,
+                             **shape):
+    """``make_cluster(**shape)`` (a saturated shape: running pods fill the
+    nodes, pending gangs wait in other queues) with the pending gangs' pods
+    labelled ``app=ha-{i % services}`` (``i`` counting the pending gangs)
+    and carrying a required hostname anti-affinity term against their own
+    ``app``; the running pods carry neither.  Returns ``(nodes, queues,
+    groups, pods, topology)``."""
+    nodes, queues, groups, pods, topo = make_cluster(**shape)
+    pending = {}
+    for g in groups:
+        if g.last_start_timestamp is None:
+            pending[g.name] = len(pending)
+    for p in pods:
+        if p.group in pending:
+            app = f"ha-{pending[p.group] % services}"
+            p.labels = dict(p.labels, app=app)
+            p.pod_affinity = [_anti_self_term(apis, "app", app)]
+    return nodes, queues, groups, pods, topo
+
+
+def affinity_sharing_objects(apis, *, num_nodes: int, shared_nodes: int,
+                             fractions: int, services: int, port_gangs: int,
+                             port: int = 8443, seed: int = 0):
+    """:func:`sharing_objects`' nodes, queues and running fractions, with a
+    pending backlog of ``fractions`` one-pod 0.5-fraction gangs in
+    ``services`` services (``app=frac-{k % services}``, each with a
+    required hostname anti-affinity term against its own ``app``) and
+    ``port_gangs`` one-pod whole-device gangs sharing host port ``port``,
+    interleaved, round-robin over the four leaves with priorities 0-2
+    drawn from ``seed``.  Returns ``(nodes, queues, groups, pods)``."""
+    rng = np.random.default_rng(seed)
+    nodes, queues, groups, pods = sharing_objects(
+        apis, num_nodes=num_nodes, shared_nodes=shared_nodes, training=0,
+        fractions=0, memory=0, launchers=0)
+    leaves = [q.name for q in queues if q.parent is not None]
+    every = max(1, (fractions + port_gangs) // max(1, port_gangs))
+    k_frac = k_port = 0
+    for g in range(fractions + port_gangs):
+        is_port = k_port < port_gangs and (g % every == every - 1
+                                           or k_frac >= fractions)
+        kw = dict(queue=leaves[g % len(leaves)],
+                  priority=int(rng.integers(0, 3)),
+                  creation_timestamp=float(g))
+        if is_port:
+            name = f"port-{k_port}"
+            k_port += 1
+            spec = dict(resources=apis.ResourceVec(1.0, 1.0, 4.0),
+                        host_ports=[port])
+        else:
+            app = f"frac-{k_frac % services}"
+            name = f"frac-{k_frac}"
+            k_frac += 1
+            spec = dict(resources=apis.ResourceVec(0.0, 1.0, 4.0),
+                        accel_portion=0.5, labels={"app": app},
+                        pod_affinity=[_anti_self_term(apis, "app", app)])
+        groups.append(apis.PodGroup(name, min_member=1, **kw))
+        pods.append(apis.Pod(f"{name}-0", name, creation_timestamp=float(g),
+                             **spec))
+    return nodes, queues, groups, pods

@@ -3,7 +3,8 @@ GPU.
 
     python3 scripts/profile_torch_cycle.py [--shape headline|contended|
         sharing|topology|topology_subgroups|saturated|
-        saturated_sequential|preempt_many_queues|fragmented]
+        saturated_sequential|preempt_many_queues|fragmented|affinity|
+        affinity_reclaim|affinity_reclaim_sequential|affinity_sharing]
 
 Runs the cycle of ``chip_smoke.py``'s shape once to warm up, then once
 under ``torch.profiler`` (CPU and CUDA activities), and prints:
@@ -24,8 +25,8 @@ The numbers go to ``chiprun_out/profile_<shape>_summary.json``; the trace
 (Chrome trace format) to ``chiprun_out/profile_<shape>.json`` for the
 headline and contended cells and to ``build/profile_<shape>.json`` for the
 sharing cell (the per-task path, ``chip_smoke.py``'s GPU-sharing fleet),
-the two topology cells and the victim cells, whose traces hold hundreds
-of thousands of events.
+the two topology cells, the victim cells and the four affinity cells,
+whose traces hold hundreds of thousands of events.
 Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -80,7 +81,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", default="headline", choices=(
         "headline", "contended", "sharing", *TOPOLOGY_CELLS,
-        *chip_smoke.VICTIM_CELLS))
+        *chip_smoke.VICTIM_CELLS, *chip_smoke.AFFINITY_CELLS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_cycle: no CUDA device", file=sys.stderr)
@@ -103,6 +104,15 @@ def main() -> int:
         _, _, warm = chip_smoke.run_topology_cycle(args.shape, "cuda")
         cluster = chip_smoke.topology_cluster(args.shape)
         sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+                          device="cuda")
+    elif args.shape in chip_smoke.AFFINITY_CELLS:
+        shape = {"affinity": chip_smoke.AFFINITY,
+                 "affinity_reclaim": chip_smoke.AFFINITY_RECLAIM,
+                 "affinity_reclaim_sequential": chip_smoke.AFFINITY_RECLAIM,
+                 "affinity_sharing": chip_smoke.AFFINITY_SHARING}[args.shape]
+        _, _, warm = chip_smoke.run_affinity_cycle(args.shape, "cuda")
+        cluster = chip_smoke.affinity_cluster(args.shape)
+        sched = Scheduler(chip_smoke.affinity_config(args.shape),
                           device="cuda")
     elif victim:
         shape = {"saturated": chip_smoke.SATURATED,
@@ -130,7 +140,8 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     trace_dir = (os.path.join(ROOT, "build")
-                 if victim or args.shape in ("sharing", *TOPOLOGY_CELLS)
+                 if victim or args.shape in ("sharing", *TOPOLOGY_CELLS,
+                                             *chip_smoke.AFFINITY_CELLS)
                  else out_dir)
     os.makedirs(trace_dir, exist_ok=True)
     trace_path = os.path.join(trace_dir, f"profile_{args.shape}.json")

@@ -152,6 +152,10 @@ def test_topk_tie_order_matches_lax_top_k():
         np.full(64, 109.0, np.float32),                        # all tied
         rng.integers(0, 4, 64).astype(np.float32),             # few levels
         np.where(rng.random(64) < 0.5, -1e30, 9.0).astype(np.float32),
+        # signed zeros tie (a compare has -0.0 == +0.0), -inf ties below
+        rng.choice(np.array([0.0, -0.0, -np.inf, 1.0, -1.0], np.float32),
+                   64),
+        np.where(rng.random(64) < 0.5, -np.inf, -0.0).astype(np.float32),
     ])
     for k in (1, 8, 64):
         _, want = jax.lax.top_k(rows, k)
@@ -166,6 +170,34 @@ def test_topk_tie_order_matches_lax_top_k():
 #: victim actions still refuse them (their placement check)
 VICTIM_ONLY = ("uniform_tasks", "track_devices", "subgroup_topology",
                "preferred_topology")
+#: settings the port now runs on both allocate and the victim actions: on
+#: a snapshot with term rows (with none the reference raises ValueError)
+#: the port's result must equal the reference's
+LIFTED = ("anti_groups", "attract_groups")
+
+
+def _lifted_run_matches(flag: str, base: A.AllocateConfig):
+    """``flag`` forced on (``attract_groups`` with ``anti_groups``, which
+    it requires) over a small affinity backlog: cross-gang anti terms,
+    anchors with dependers and a shared host port."""
+    from kai_scheduler_tpu_torch.state import fleets
+    objs = fleets.affinity_objects(
+        ref_apis, ref_make, num_nodes=64, node_accel=8.0, num_gangs=24,
+        tasks_per_gang=4, services=6, anchors=6, dependers=6, port_gangs=8)
+    ref_state, ref_index = ref_cs.build_snapshot(*objs, pad=32)
+    ses = RefSession.from_state(ref_state, ref_index, RefConfig())
+    flags = {"anti_groups": True, flag: True}
+    cfg = dataclasses.replace(base, **flags)
+    ref_cfg = dataclasses.replace(ses.config.allocate, **{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name != "placement"})
+    want = allocate_jit(ses.state, ses.state.queues.fair_share,
+                        num_levels=ses.config.num_levels, config=ref_cfg)
+    port = state_from_numpy(ref_leaves(ses.state), "cpu")
+    got = A.allocate(port, port.queues.fair_share,
+                     num_levels=ses.config.num_levels, config=cfg)
+    assert_results_equal(jax.device_get(want), got)
+    assert bool(got.allocated.any()) and bool(got.anti_used.any())
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -175,9 +207,16 @@ VICTIM_ONLY = ("uniform_tasks", "track_devices", "subgroup_topology",
     ("queue_depth", 2), ("dynamic_order", False),
     ("sparse_wavefront", False)])
 def test_unported_settings_raise_naming_the_flag(flag, value):
+    """A setting the port has not ported raises ``NotImplementedError``
+    naming it (the victim actions' own refusals for the settings only
+    allocate runs); the affinity flags, ported since, run instead and
+    must equal the reference on a snapshot with term rows."""
     base = A.AllocateConfig(track_devices=False, uniform_tasks=True,
                             subgroup_topology=False,
                             preferred_topology=False)
+    if flag in LIFTED:
+        _lifted_run_matches(flag, base)
+        return
     cfg = dataclasses.replace(base, **{flag: value})
     ref_state, _ = ref_cs.build_snapshot(*ref_make(num_nodes=4,
                                                    num_gangs=2), pad=32)
@@ -201,3 +240,48 @@ def test_uniform_fill_with_device_table_is_rejected():
                            subgroup_topology=False)
     with pytest.raises(ValueError, match="track_devices=False"):
         A.check_supported(cfg)
+
+
+def _tiers():
+    from kai_scheduler_tpu_torch.ops.scoring import PlacementConfig
+    return PlacementConfig(tiers=("resourcetype", "nodeplacement"))
+
+
+#: each kernel's shape or tier limit on the card, past it by one, and the
+#: limit's name the refusal must carry
+KERNEL_LIMITS = {
+    "K1_queues": (lambda D: D.divide_level_limits(D.MAX_QUEUES + 1),
+                  "MAX_QUEUES"),
+    "K2_tiers": (lambda D: A.type_tables_limits(_tiers()), "DEFAULT_TIERS"),
+    "K3_topk": (lambda D: A.uniform_fill_limits(A.MAX_TOPK + 1, 10_000),
+                "MAX_TOPK"),
+    "K9_tasks": (lambda D: A.pertask_fill_limits(
+        A.PERTASK_MAX_T + 1, 8, 1, A.PlacementConfig()), "PERTASK_MAX_T"),
+    "K9_devices": (lambda D: A.pertask_fill_limits(
+        8, A.PERTASK_MAX_D + 1, 1, A.PlacementConfig()), "PERTASK_MAX_D"),
+    "K9_subgroups": (lambda D: A.pertask_fill_limits(
+        8, 8, A.PERTASK_MAX_S + 1, A.PlacementConfig()), "PERTASK_MAX_S"),
+    "K9_tiers": (lambda D: A.pertask_fill_limits(8, 8, 1, _tiers()),
+                 "DEFAULT_TIERS"),
+    "K10_lanes": (lambda D: A.dense_accept_limits(
+        A.DENSE_ACCEPT_MAX_B + 1, 8), "DENSE_ACCEPT_MAX_B"),
+    "K10_devices": (lambda D: A.dense_accept_limits(
+        64, A.PERTASK_MAX_D + 1), "PERTASK_MAX_D"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_LIMITS))
+def test_kernel_limits_raise_not_implemented_naming_the_limit(name):
+    """Past a kernel's shape or tier limit the card path refuses with
+    ``NotImplementedError`` naming the limit (the port's contract for what
+    it has not ported); at the limit it does not."""
+    from kai_scheduler_tpu_torch.ops import drf as D
+    call, limit = KERNEL_LIMITS[name]
+    with pytest.raises(NotImplementedError, match=limit):
+        call(D)
+    D.divide_level_limits(D.MAX_QUEUES)
+    A.type_tables_limits(A.PlacementConfig())
+    A.uniform_fill_limits(A.MAX_TOPK, 10_000)
+    A.pertask_fill_limits(A.PERTASK_MAX_T, A.PERTASK_MAX_D, A.PERTASK_MAX_S,
+                          A.PlacementConfig())
+    A.dense_accept_limits(A.DENSE_ACCEPT_MAX_B, A.PERTASK_MAX_D)

@@ -867,3 +867,150 @@ def test_cuda_topology_cycle_equals_cpu_cycle(cuda, name):
         [dataclasses.astuple(b) for b in cpu.bind_requests]
     assert (gpu.retries, gpu.retry_chunks) == (cpu.retries,
                                                 cpu.retry_chunks)
+
+
+# ---------------------------------------------------------------------------
+# the affinity gates: K12 affinity_mask, K13 anti_mark, and the mask modes
+# of K3 and K9
+# ---------------------------------------------------------------------------
+
+def _affinity_session(cuda, num_nodes=512):
+    objs = fleets.affinity_objects(
+        apis, make_cluster, num_nodes=num_nodes, node_accel=8.0,
+        num_gangs=240, tasks_per_gang=8, services=16, anchors=32,
+        dependers=32, port_gangs=48)
+    return Session.open(*objs, device=cuda)
+
+
+def test_affinity_mask_and_anti_mark_match_plain(cuda):
+    """K12 (with and without the need rows) and K13 on the affinity
+    fleet's term tables with a random claimed-domain table, 256 lanes of
+    random gangs (junk lanes at the clamped last gang) and random taken
+    placements."""
+    ses = _affinity_session(cuda)
+    st = ses.state
+    g = st.gangs
+    rng = np.random.default_rng(0)
+    dom = A.anti_domain_tables(st)
+    shape = A.init_result(st).anti_used.shape
+    used = torch.from_numpy(rng.random(shape) < 0.05).to(cuda)
+    B, T = 256, g.t
+    cand = torch.from_numpy(rng.integers(0, g.g, B).astype(np.int32)).to(cuda)
+    kernels.reset_launch_counts()
+    for attract in (False, True):
+        assert_same(A.affinity_mask(st, used, dom, cand, attract=attract),
+                    A.affinity_mask_plain(st, used, dom, cand,
+                                          attract=attract))
+    nodes_b = torch.from_numpy(rng.integers(-1, st.nodes.n, (B, T)).astype(
+        np.int32)).to(cuda)
+    take = torch.from_numpy(rng.random(B) < 0.5).to(cuda)
+    want = A.anti_mark_placements(st, used, dom, cand, nodes_b, take)
+    assert not torch.equal(want, used)
+    got = A.anti_mark(st, used, dom, cand, nodes_b, take)   # in place
+    assert got is used
+    assert_same(got, want)
+    counts = kernels.launch_counts()
+    assert (counts["affinity_mask"], counts["anti_mark"]) == (2, 1)
+
+
+def _lane_mask(cuda, B, valid, seed=0):
+    rng = np.random.default_rng(seed)
+    m = rng.random((B, valid.shape[0])) < rng.choice([0.3, 0.7, 1.0],
+                                                      (B, 1))
+    return torch.from_numpy(m).to(cuda) & valid[None]
+
+
+@pytest.mark.parametrize("hoisted", [True, False])
+def test_uniform_fill_mask_mode_matches_plain(cuda, hoisted):
+    _, _, args, kw = _lanes(cuda)
+    kw.update(hoisted=hoisted)
+    B = args[0].shape[0]
+    args = args[:11] + (_lane_mask(cuda, B, args[11]),)
+    kernels.reset_launch_counts()
+    out = A.uniform_fill(*args, **kw)
+    assert kernels.launch_counts()["uniform_fill:mask"] == 1
+    assert_same(out, A.uniform_fill_plain(*args, **kw))
+
+
+def test_pertask_fill_mask_mode_matches_plain(cuda):
+    """K9's mask mode on the sharing lanes (device table), then with
+    subgroup topology: every lane, and the banned retry over the first
+    output."""
+    args, kw = _sharing_lanes(cuda, B=64, num_nodes=400, placement={},
+                              seed=3)
+    mask = _lane_mask(cuda, 64, args[0].valid)
+    kernels.reset_launch_counts()
+    assert_same(A.pertask_fill(*args, mask=mask, **kw).fields(),
+                A.attempt_gang_in_domain_plain(*args, mask=mask,
+                                               **kw).fields())
+    args, kw = _subgroup_topology_lanes(cuda)
+    mask = _lane_mask(cuda, args[2].shape[0], args[0].valid, 1)
+    out = A.pertask_fill(*args, mask=mask, **kw)
+    assert_same(out.fields(), A.attempt_gang_in_domain_plain(
+        *args, mask=mask, **kw).fields())
+    active = ~out.success
+    got = A.pertask_fill(*args, banned=out.sub_dom, active=active, base=out,
+                         mask=mask, **kw)
+    assert_same(got.fields(), A.pertask_fill_plain(
+        *args, banned=out.sub_dom, active=active, base=out, mask=mask,
+        **kw).fields())
+    assert kernels.launch_counts()["pertask_fill:mask"] == 3
+
+
+def test_cuda_affinity_cycle_equals_cpu_cycle(cuda):
+    """The affinity fleet at 512 nodes through the allocate-only Scheduler
+    on the card and on the CPU: packed commit, BindRequests and the
+    claimed-domain table equal; the card's cycle went through K12, K13
+    and K3's mask mode."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    out, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        objs = fleets.affinity_objects(
+            apis, make_cluster, num_nodes=512, node_accel=8.0, num_gangs=240,
+            tasks_per_gang=8, services=16, anchors=32, dependers=32,
+            port_gangs=48)
+        kernels.reset_launch_counts()
+        out[device] = Scheduler(SchedulerConfig(actions=("allocate",)),
+                                device=device).run_once(
+            Cluster.from_objects(*objs))
+        counts[device] = kernels.launch_counts()
+    need = ("affinity_mask", "anti_mark", "uniform_fill:mask",
+            "sparse_accept")
+    assert all(counts["cuda"][k] > 0 for k in need), counts["cuda"]
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.packed.tobytes() == cpu.packed.tobytes()
+    assert [dataclasses.astuple(b) for b in gpu.bind_requests] == \
+        [dataclasses.astuple(b) for b in cpu.bind_requests]
+    assert torch.equal(gpu.tensors.anti_used.cpu(), cpu.tensors.anti_used)
+
+
+@pytest.mark.parametrize("batch_size", [1, 64])
+def test_cuda_affinity_reclaim_cycle_equals_cpu_cycle(cuda, batch_size):
+    """The affinity_reclaim fleet at 256 nodes through the five default
+    actions on the card and on the CPU, with reclaim sequential (the
+    one-lane mask of the scenario search) and chunked: packed commit,
+    evictions and the claimed-domain table equal; K12, K13 and K3's mask
+    mode launched."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    from kai_scheduler_tpu_torch.framework.session import SessionConfig
+    from kai_scheduler_tpu_torch.ops.victims import VictimConfig
+    cfg = SchedulerConfig(session=SessionConfig(
+        victims=VictimConfig(batch_size=batch_size)))
+    out, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        objs = fleets.affinity_reclaim_objects(
+            apis, make_cluster, services=8, num_nodes=256, node_accel=4.0,
+            num_gangs=160, tasks_per_gang=8, running_fraction=0.8,
+            queue_accel_quota=30.0, partition_queues_by_running=True)
+        kernels.reset_launch_counts()
+        out[device] = Scheduler(cfg, device=device).run_once(
+            Cluster.from_objects(*objs))
+        counts[device] = kernels.launch_counts()
+    need = ("affinity_mask", "anti_mark", "uniform_fill:mask")
+    assert all(counts["cuda"][k] > 0 for k in need), counts["cuda"]
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.evictions
+    assert gpu.packed.tobytes() == cpu.packed.tobytes()
+    assert [dataclasses.astuple(e) for e in gpu.evictions] == \
+        [dataclasses.astuple(e) for e in cpu.evictions]
+    assert torch.equal(gpu.tensors.anti_used.cpu(), cpu.tensors.anti_used)

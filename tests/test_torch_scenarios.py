@@ -1,8 +1,9 @@
-"""The reference's allocate, hierarchy, GPU-sharing, topology and victim
-scenario catalogs (``tests/scenarios/``, traceable to the reference's Go
-suites) through both packages: one cycle of each case with the reference's
-auto-tuned config — allocate only for the allocate, hierarchy, sharing and
-topology catalogs, the five
+"""The reference's allocate, hierarchy, GPU-sharing, topology, DRA,
+deletion/mixed and victim scenario catalogs (``tests/scenarios/``,
+traceable to the reference's Go suites) through both packages: one cycle
+of each case with the reference's auto-tuned config — allocate only for
+the allocate, hierarchy, sharing, topology, DRA and deletion/mixed
+catalogs, the five
 default actions for the victim catalog, both with the sequential victim
 engine (``VictimConfig(batch_size=1)``) and at the default config (reclaim
 and preempt through the chunked wavefront).  Where the port implements that
@@ -39,16 +40,18 @@ from kai_scheduler_tpu_torch.ops.victims import (VictimConfig,
                                                  check_placement_ported)
 from kai_scheduler_tpu_torch.runtime.cluster import Cluster
 from scenarios import (test_allocate_scenarios,
+                       test_deletion_mixed_scenarios, test_dra_scenarios,
                        test_hierarchy_order_scenarios,
                        test_sharing_scenarios, test_topology_scenarios,
                        test_victim_scenarios)
 from scenarios.harness import _build
 from jax_executables import release_jax_executables  # noqa: F401
 
-CASES = {c.name: c for c in (test_allocate_scenarios.CASES
-                             + test_hierarchy_order_scenarios.CASES
-                             + test_sharing_scenarios.CASES
-                             + test_topology_scenarios.CASES)}
+CATALOGS = (test_allocate_scenarios, test_hierarchy_order_scenarios,
+            test_sharing_scenarios, test_topology_scenarios,
+            test_dra_scenarios, test_deletion_mixed_scenarios)
+CASES = {c.name: c for m in CATALOGS for c in m.CASES}
+assert len(CASES) == sum(len(m.CASES) for m in CATALOGS), "duplicate names"
 VICTIM_CASES = {c.name: c for c in test_victim_scenarios.CASES}
 
 
@@ -269,3 +272,17 @@ def test_victim_cycle_on_per_task_snapshot_is_refused(name, pad32):
         device="cpu")
     with pytest.raises(NotImplementedError, match="uniform_tasks=False"):
         sched.run_once(_port_cluster(ref_cluster))
+
+
+def test_dra_and_deletion_catalogs_run_on_the_port():
+    """Allocate runs every DRA case and the deletion/mixed catalog's cases
+    but its three MIG ones, which it refuses by name (``extended=True``):
+    the parity test above compares the rest byte for byte."""
+    for catalog, refused_n in ((test_dra_scenarios, 0),
+                               (test_deletion_mixed_scenarios, 3)):
+        reasons = [_refusal(_auto_config(c)) for c in catalog.CASES]
+        refused = [r for r in reasons if r is not None]
+        assert len(refused) == refused_n, refused
+        assert all("extended=True" in r for r in refused)
+    assert len(test_dra_scenarios.CASES) == 17
+    assert len(test_deletion_mixed_scenarios.CASES) == 16
