@@ -6,9 +6,12 @@ Drives ``kai_scheduler_tpu_torch`` end to end on the card and fails
 (non-zero exit, no result line) on any build error, launch error or
 mismatch:
 
-1. builds the hand-written CUDA kernels K1-K13 from ``csrc/`` (one
-   ``nvcc`` per source, all started together; fourteen entry points: K11
+1. builds the hand-written CUDA kernels K1-K15 from ``csrc/`` (one
+   ``nvcc`` per source, all started together; sixteen entry points: K11
    is a build and an update) and prints the card's name and power limit;
+   every cycle below runs the cluster-health pass (K14) at the default
+   ``analytics_every=1``, and its bundle rides the packed commit that
+   must equal the oracle's;
 2. runs one warm-up allocate cycle of the headline cluster (10,000 nodes
    x 6,250 gangs x 8 replicas = 50,000 pending pods) through
    ``Scheduler(device="cuda").run_once``, capturing the inputs each
@@ -109,12 +112,31 @@ mismatch:
      two) — K9's mask mode, K10, K12, K13;
    then K12, K13 and the mask modes of K3 and K9 are held against their
    plain versions on the captured inputs (tolerance 0) and timed;
-9. prints one JSON line of per-kernel numbers (a row per kernel and per
-   topology and mask mode), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+9. runs the *repack_racks* cell (allocate only, the default analytics and
+   repack knobs): 5,120 nodes x 8 accelerators in 640 racks of 8, 35,840
+   running one-device preemptible pods leaving one device free per node,
+   4 pending rack-required gangs of 32 — four cycles with a binder pass
+   and a tick after each, under the profiler with K14's, K15's and K4's
+   repack inputs captured, then timed (counts reset before the first
+   cycle, read after the last), then on the CPU oracle: every cycle's
+   commit (analytics and plan tails included), decisions and documents
+   equal; the trigger fires on cycle 3 with 24 moves out of one rack,
+   none into it, and cycle 4 binds the 32 pods there; then K14 (on the
+   headline, sharing, affinity and repack_racks inputs), K15 and K4's
+   repack mode are held against their plain versions and timed;
+10. runs the headline's five and three of affinity's timed cycles again,
+   each against its oracle, once the oracle process (below) is idle, and
+   prints both medians beside those of the runs it was busy for;
+11. prints one JSON line of per-kernel numbers (a row per kernel and per
+   topology, mask and repack mode), the card line, and last ``{"ok":
+   true, "device": {...}}``.
 
-Longer output (the compiler's register/spill report, per-phase numbers)
-goes to ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
+The CPU oracles of the sharing and affinity cells (the slowest) run in
+one spawned child process beside the card's work, on half the cores,
+submitted when the script starts; each cell is compared with its oracle
+when the result arrives (sharing after the last cell).  Longer output
+(the compiler's register/spill report, per-phase numbers) goes to
+``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -162,10 +184,13 @@ class Capture:
     #: levels, the first and the tenth wavefront chunk (an empty cluster,
     #: then a partly filled one)
     ALLOCATE_KEEP = {"drf_water_fill": (0, 1), "type_tables": (0, 9),
-                     "uniform_fill": (0, 9), "sparse_accept": (0, 9)}
+                     "uniform_fill": (0, 9), "sparse_accept": (0, 9),
+                     "cluster_analytics": (0,)}
 
     def __init__(self, keep: dict):
-        from kai_scheduler_tpu_torch.ops import allocate, drf, stale, victims
+        from kai_scheduler_tpu_torch.framework import scheduler
+        from kai_scheduler_tpu_torch.ops import (allocate, drf, repack, stale,
+                                                 victims)
         self.keep = keep
         self.calls: dict[str, list] = {}
         # (module, attribute, key): every place the main path looks the
@@ -191,7 +216,11 @@ class Capture:
                        (allocate, "affinity_mask", "affinity_mask"),
                        (allocate, "anti_mark", "anti_mark"),
                        (victims, "affinity_mask", "affinity_mask:victims"),
-                       (victims, "anti_mark", "anti_mark:victims"))
+                       (victims, "anti_mark", "anti_mark:victims"),
+                       (scheduler, "cluster_analytics",
+                        "cluster_analytics"),
+                       (repack, "repack_fill", "repack_fill"),
+                       (repack, "sparse_accept", "sparse_accept:repack"))
         self._orig = {k: getattr(mod, a) for mod, a, k in self._sites}
         self._saved = [(mod, a, getattr(mod, a)) for mod, a, _ in self._sites]
 
@@ -432,7 +461,7 @@ HEADLINE_RUNS = 5
 CONTENDED_RUNS = 3
 #: the kernels an allocate-only cycle launches
 ALLOCATE_KERNELS = ("drf_water_fill", "type_tables", "uniform_fill",
-                    "sparse_accept")
+                    "sparse_accept", "cluster_analytics")
 #: the repo's worst-case production shape (bench.py's saturated cycle):
 #: 40,000 running pods fill 10,000 nodes x 4 accelerators, 10,000 pending
 #: pods wait in the other queues
@@ -478,13 +507,14 @@ VICTIM_KEEP = {
 #: the kernels each victim cell must launch
 VICTIM_NEED = {
     "saturated": ("cumsum_ds", "freed_by_mask", "freed_by_lane",
-                  "type_tables", "uniform_fill"),
+                  "type_tables", "uniform_fill", "cluster_analytics"),
     "saturated_sequential": ("cumsum_ds", "freed_by_mask", "type_tables",
-                             "uniform_fill"),
+                             "uniform_fill", "cluster_analytics"),
     "preempt_many_queues": ("cumsum_ds", "freed_by_lane", "type_tables",
-                            "uniform_fill", "sparse_accept"),
+                            "uniform_fill", "sparse_accept",
+                            "cluster_analytics"),
     "fragmented": ("cumsum_ds", "freed_by_mask", "replace_victims",
-                   "type_tables", "uniform_fill"),
+                   "type_tables", "uniform_fill", "cluster_analytics"),
 }
 
 
@@ -506,9 +536,11 @@ SHARING = dict(num_nodes=10_000, shared_nodes=5_000,
 SHARING_RUNS = 3
 #: K9 and K10 calls kept in the sharing warm-up: the first chunk (every
 #: lane on the fresh fleet) and a later one
-SHARING_KEEP = {"pertask_fill": (0, 20), "dense_accept": (0, 20)}
+SHARING_KEEP = {"pertask_fill": (0, 20), "dense_accept": (0, 20),
+                "cluster_analytics": (0,)}
 #: the kernels a sharing (per-task) allocate cycle launches
-SHARING_KERNELS = ("drf_water_fill", "pertask_fill", "dense_accept")
+SHARING_KERNELS = ("drf_water_fill", "pertask_fill", "dense_accept",
+                   "cluster_analytics")
 #: the topology cell: BASELINE config 4 (bench.py:240), uncut — 5,000
 #: nodes of 8 accelerators in 8 blocks x 16 racks, 2,500 rack-required
 #: gangs of 8 replicas (20,000 pods); the uniform path with the domain
@@ -524,7 +556,7 @@ TOPOLOGY_KEEP = {"topo_tables_build": (0,), "topo_tables_update": (0, 4),
 TOPOLOGY_KERNELS = ("drf_water_fill", "type_tables", "uniform_fill",
                     "uniform_fill:topology", "dense_accept",
                     "dense_accept:no_devices", "topo_tables_build",
-                    "topo_tables_update")
+                    "topo_tables_update", "cluster_analytics")
 #: the topology_subgroups cell (the per-task path) on the same tree:
 #: ``state.fleets.topology_subgroup_objects`` with 600 gangs, uncut — a
 #: cycle is one chunk per one to two gangs (every lane's domain-binpack
@@ -538,7 +570,7 @@ TOPO_SUB_RUNS = 3
 TOPO_SUB_KEEP = {"pertask_fill": (0, 1, 40, 41), "dense_accept": (0, 20)}
 TOPO_SUB_KERNELS = ("drf_water_fill", "pertask_fill",
                     "pertask_fill:topology", "pertask_fill:banned",
-                    "dense_accept")
+                    "dense_accept", "cluster_analytics")
 #: the affinity cell (allocate only, the uniform path, uncut): the headline
 #: backlog (10,000 nodes, 6,250 gangs of 8) as 64 services whose replicas
 #: keep one per host across gangs (a required hostname anti term against
@@ -566,22 +598,26 @@ AFFINITY_SHARING = dict(num_nodes=10_000, shared_nodes=5_000, services=16,
                         **{k: v // AFFINITY_SHARING_CUT
                            for k, v in AFFINITY_SHARING_FULL.items()})
 AFFINITY_SHARING_RUNS = 3
+#: affinity runs repeated at the end with the oracle process idle
+IDLE_AFFINITY_RUNS = 3
 #: per cell: (timed runs, kernel calls kept in its warm-up, the kernels
 #: and modes every timed run must launch)
 AFFINITY_CELLS = {
     "affinity": (AFFINITY_RUNS, {"affinity_mask": (0, 60),
                                  "anti_mark": (0, 60),
-                                 "uniform_fill": (0, 60)},
+                                 "uniform_fill": (0, 60),
+                                 "cluster_analytics": (0,)},
                  ("drf_water_fill", "type_tables", "uniform_fill",
                   "uniform_fill:mask", "sparse_accept", "affinity_mask",
-                  "anti_mark")),
+                  "anti_mark", "cluster_analytics")),
     "affinity_reclaim": (1, {"affinity_mask:victims": (0, 1, 2),
                              "anti_mark:victims": (0, 1, 2),
                              "uniform_fill:lanes": (0, 1, 2)},
                          ("cumsum_ds", "freed_by_lane", "type_tables",
                           "type_tables:lanes", "uniform_fill",
                           "uniform_fill:lanes", "uniform_fill:mask",
-                          "affinity_mask", "anti_mark")),
+                          "affinity_mask", "anti_mark",
+                          "cluster_analytics")),
     # the affinity_reclaim fleet on the sequential victim engine, cut as
     # saturated_sequential is (``SEQUENTIAL_QUEUE_DEPTH``): reclaim's
     # scenario search confined to each preemptor's one-lane mask (K12 at
@@ -591,18 +627,255 @@ AFFINITY_CELLS = {
         1, {"affinity_mask:victims": (0, 1, 2),
             "anti_mark:victims": (0, 1, 2), "uniform_fill": (0, 1, 2)},
         ("cumsum_ds", "freed_by_mask", "type_tables", "uniform_fill",
-         "uniform_fill:mask", "affinity_mask", "anti_mark")),
+         "uniform_fill:mask", "affinity_mask", "anti_mark",
+         "cluster_analytics")),
     "affinity_sharing": (AFFINITY_SHARING_RUNS,
                          {"affinity_mask": (0, 30), "anti_mark": (0, 30),
                           "pertask_fill": (0, 30)},
                          ("drf_water_fill", "pertask_fill",
                           "pertask_fill:mask", "dense_accept",
-                          "affinity_mask", "anti_mark")),
+                          "affinity_mask", "anti_mark",
+                          "cluster_analytics")),
 }
+#: the cells with a profiled run (each kernel's in-cycle device time)
+#: the repack_racks cell (``state.fleets.repack_objects``, allocate only
+#: at the default analytics and repack knobs), uncut: 5,120 nodes of 8
+#: accelerators in 640 racks of 8, every node running 7 one-device
+#: preemptible pods (35,840), one device free per node; 4 pending
+#: rack-required gangs of 32 one-device pods.  The free devices are
+#: scattered: gangs of 16 or more fit the cluster but no rack
+#: (frag_score 5/9 > 0.5), so the trigger fires on cycle 3 and the plan
+#: moves 24 pods out of rack 0; the gang places there on cycle 4.  The
+#: victim actions refuse required topology, so the cell is allocate only.
+REPACK_RACKS = dict(num_nodes=5_120, rack_size=8, node_accel=8,
+                    running_per_node=7, gangs=4, gang_size=32)
+REPACK_CYCLES = 4
+REPACK_FIRES = 3
+#: kernel calls kept in its profiled run: the firing cycle's analytics
+#: pass, first fit and claim check
+REPACK_KEEP = {"cluster_analytics": (2,), "repack_fill": (0,),
+               "sparse_accept:repack": (0,)}
 #: the cells with a profiled run (each kernel's in-cycle device time)
 PROFILED_CELLS = ("sharing", "topology", "topology_subgroups", "saturated",
                   "saturated_sequential", "preempt_many_queues",
-                  "fragmented", *AFFINITY_CELLS)
+                  "fragmented", *AFFINITY_CELLS, "repack_racks")
+
+
+def analytics_fields(res) -> dict:
+    """The cycle's analytics numbers for its record; every cycle of every
+    cell runs the analytics pass (the default ``analytics_every=1``)."""
+    if not res.analytics:
+        raise AssertionError("a cycle ran without the analytics pass")
+    return dict(analytics_seconds=res.analytics_seconds,
+                frag_score=res.analytics["fragmentation"]["score"],
+                goodput=res.analytics["goodput"])
+
+
+def log_analytics(rec: dict) -> None:
+    log(f"  analytics (last run): {rec['analytics_seconds']:.4f} s host "
+        f"dispatch, frag_score {rec['frag_score']}, goodput "
+        f"{rec['goodput']}; the bundle rode the packed commit (== oracle)")
+
+
+# ---------------------------------------------------------------------------
+# the repack_racks cell: analytics every cycle, repack on the firing cycle
+# ---------------------------------------------------------------------------
+
+def run_repack_cycles(device: str):
+    """``REPACK_CYCLES`` cycles of one Scheduler (allocate only, default
+    analytics and repack knobs) on a fresh repack_racks cluster, each
+    followed by a binder pass and a tick.  Returns per cycle ``(result,
+    seconds, source racks of the moved pods, target racks of the moves,
+    racks of the binds)``, and the launch counts of the whole run (reset
+    just before the first cycle, read just after the last)."""
+    from kai_scheduler_tpu_torch import kernels
+    from kai_scheduler_tpu_torch.apis import types as apis
+    from kai_scheduler_tpu_torch.binder import Binder
+    from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
+                                                             SchedulerConfig)
+    from kai_scheduler_tpu_torch.runtime.cluster import Cluster
+    from kai_scheduler_tpu_torch.state.fleets import repack_objects
+    cluster = Cluster.from_objects(*repack_objects(apis, **REPACK_RACKS))
+    sched = Scheduler(SchedulerConfig(actions=("allocate",)), device=device)
+    binder = Binder()
+
+    def rack(node):
+        return cluster.nodes[node].labels["topo/rack"]
+    out = []
+    kernels.reset_launch_counts()
+    for _ in range(REPACK_CYCLES):
+        t0 = time.perf_counter()
+        res = sched.run_once(cluster)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        moves = [ev for ev in res.evictions if ev.move_to is not None]
+        out.append((res, secs,
+                    {rack(cluster.pods[ev.pod_name].node) for ev in moves},
+                    {rack(ev.move_to) for ev in moves},
+                    {rack(b.selected_node) for b in res.bind_requests}))
+        binder.reconcile(cluster)
+        cluster.tick()
+    return out, kernels.launch_counts()
+
+
+def _repack_doc(res) -> dict:
+    return {k: v for k, v in res.repack.items() if k != "solve_seconds"}
+
+
+def check_repack_cycles(gpu, cpu, counts: dict) -> dict:
+    """Every GPU cycle equals its CPU oracle cycle (packed commit with the
+    analytics and plan tails, binds, evictions with their move targets,
+    move rebinds, the analytics and repack documents); the trigger fires
+    on cycle ``REPACK_FIRES`` alone, with 24 moves, none into the target
+    rack; the next cycle binds the 32 pods of the target gang in one rack,
+    at a fragmentation score below the stranded one; K14 launched every
+    cycle, K15 and K4's repack mode once."""
+    for i, (g, c) in enumerate(zip(gpu, cpu), 1):
+        res, cres = g[0], c[0]
+        if res.packed.tobytes() != cres.packed.tobytes():
+            diff = int((res.packed != cres.packed).sum())
+            raise AssertionError(f"repack_racks cycle {i}: packed commit "
+                                 f"differs from the CPU oracle in {diff} "
+                                 f"of {res.packed.size} i16")
+        if _binds(res.bind_requests) != _binds(cres.bind_requests) or \
+                _evictions(res) != _evictions(cres) or \
+                _binds(res.move_bind_requests) != \
+                _binds(cres.move_bind_requests):
+            raise AssertionError(f"repack_racks cycle {i}: decisions "
+                                 f"differ from the oracle")
+        if res.analytics != cres.analytics or \
+                _repack_doc(res) != _repack_doc(cres):
+            raise AssertionError(f"repack_racks cycle {i}: documents "
+                                 f"differ from the oracle")
+    fired = [i for i, g in enumerate(gpu, 1) if g[0].repack]
+    if fired != [REPACK_FIRES]:
+        raise AssertionError(f"repack_racks: fired on cycles {fired}")
+    res, _, src, dst, _ = gpu[REPACK_FIRES - 1]
+    doc = res.repack
+    if not doc["feasible"] or doc["migrations_executed"] != 24 or \
+            len(res.move_bind_requests) != 24:
+        raise AssertionError(f"repack_racks: firing moved "
+                             f"{doc['migrations_executed']} pods")
+    if src & dst or len(src) != 1:
+        raise AssertionError(f"repack_racks: moves from {src} to {dst}")
+    nxt, _, _, _, racks = gpu[REPACK_FIRES]
+    big = [b for b in nxt.bind_requests
+           if b.pod_name.startswith(doc["target_gang"] + "-")]
+    if len(big) != 32 or racks != src:
+        raise AssertionError(f"repack_racks: cycle {REPACK_FIRES + 1} "
+                             f"bound {len(big)} pods of the target in "
+                             f"racks {racks} (freed {src})")
+    score = [g[0].analytics["fragmentation"]["score"] for g in gpu]
+    if not score[REPACK_FIRES] < score[0]:
+        raise AssertionError(f"repack_racks: frag scores {score}")
+    need = dict(cluster_analytics=REPACK_CYCLES, repack_fill=1)
+    need["sparse_accept:repack"] = 1
+    if any(counts[k] != v for k, v in need.items()):
+        raise AssertionError(f"repack_racks: launches {counts}")
+    return dict(
+        cycle_seconds_all=[g[1] for g in gpu],
+        cpu_cycle_seconds_all=[c[1] for c in cpu],
+        analytics_seconds_all=[g[0].analytics_seconds for g in gpu],
+        repack_seconds=res.repack_seconds, frag_scores=score,
+        target_gang=doc["target_gang"], target_rack=doc["target_rack"],
+        migrations=doc["migrations_executed"], moved_from=sorted(src),
+        moved_to=sorted(dst), gang_binds=len(big),
+        phase_seconds=[g[0].phase_seconds for g in gpu],
+        launches=counts, shape=REPACK_RACKS)
+
+
+def _bundle_outputs(b):
+    from kai_scheduler_tpu_torch.ops import analytics as AN
+    return [getattr(b, f) for f in AN.F32_FIELDS + AN.I32_FIELDS]
+
+
+def analytics_kernel_checks(caps: dict) -> dict:
+    """K14 on the analytics inputs captured from the headline, sharing,
+    affinity and repack_racks cycles vs its plain version (tolerance 0);
+    timed on the headline's.  Bound: bytes — what the kernel reads of the
+    node, running-pod, task and queue tables, once, and the bundle written
+    once."""
+    from kai_scheduler_tpu_torch.ops import analytics as AN
+    errs, shapes, rec = [], [], None
+    for cell, cap in caps.items():
+        for args, kw in cap.calls.get("cluster_analytics", []):
+            k_out = cap._orig["cluster_analytics"](*args, **kw)
+            p_out = AN.cluster_analytics_plain(*args, **kw)
+            errs.append(_max_abs_err(_bundle_outputs(k_out),
+                                     _bundle_outputs(p_out)))
+            st = args[0]
+            shapes.append(f"{cell}: N={st.nodes.n} M={st.running.m} "
+                          f"G={st.gangs.g} T={st.gangs.t} Q={st.queues.q}")
+            if rec is None:
+                rec = (args, kw, cap)
+    args, kw, cap = rec
+    st, res, ages = args
+    n, r, g, q = st.nodes, st.running, st.gangs, st.queues
+    ms = _time_ms(lambda: cap._orig["cluster_analytics"](*args, **kw))
+    plain_ms = _time_ms(lambda: AN.cluster_analytics_plain(*args, **kw), 5)
+    cfg = kw["config"]
+    # the kernel reads one topology column (rack_level) of the nodes that
+    # host a unit, and column 0 of the requests of the running pods and
+    # placed tasks that count towards goodput; the rest in full
+    unit = torch.tensor(cfg.unit_req, dtype=torch.float32, device=n.free.device)
+    racked = int((AN.unit_pods_per_node(torch.clamp(n.free, min=0.0),
+                                        n.valid, unit) > 0).sum())
+    running = int((r.valid & ~r.releasing & ~res.victim).sum())
+    placed = int(((res.placements >= 0) & g.task_valid
+                  & res.allocated[:, None] & ~res.pipelined).sum())
+    nb = (_nbytes(n.free, n.allocatable, n.valid, n.releasing,
+                  res.free, res.releasing_extra, res.victim, res.placements,
+                  res.allocated, res.pipelined, res.queue_allocated,
+                  r.valid, r.releasing, g.valid, g.task_valid,
+                  ages, q.valid, q.fair_share)
+          + 4 * (racked + running + placed + len(cfg.gang_ladder))
+          + 4 * (AN.f32_len(cfg, q=q.q, r=3, g=g.g) + min(cfg.top_k, g.g)))
+    b, by = bound(nb, 40 * n.n + 4 * r.m + 6 * g.g * g.t + 4 * q.q * q.q)
+    return {"cluster_analytics": dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, shape="; ".join(shapes), checked=len(errs))}
+
+
+def repack_kernel_checks(cap: Capture) -> dict:
+    """K15 and K4's repack mode on the repack_racks firing inputs vs their
+    plain versions (tolerance 0), timed.  K15's bound: bytes — the pool,
+    the destination and filter rows and the slots' pods read once (the
+    walk's P dependent steps are its latency, not its work)."""
+    from kai_scheduler_tpu_torch.ops import allocate as A
+    from kai_scheduler_tpu_torch.ops import repack as RP
+    out = {}
+    (args, kw), = cap.calls["repack_fill"]
+    k_out = cap._orig["repack_fill"](*args, **kw)
+    p_out = RP.repack_fill_plain(*args, **kw)
+    err = _max_abs_err(k_out, p_out)
+    slot_pod, req, fclass, dest_ok, fmasks, free0 = args
+    P, N = slot_pod.shape[0], free0.shape[0]
+    ms = _time_ms(lambda: cap._orig["repack_fill"](*args, **kw))
+    plain_ms = _time_ms(lambda: RP.repack_fill_plain(*args, **kw), 5)
+    b, by = bound(_nbytes(slot_pod, dest_ok, fmasks, free0) + P * (12 + 4)
+                  + P * 4, P * N * 8)
+    out["repack_fill"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        shape=f"P={P} N={N} X={fmasks.shape[0]} "
+              f"({int((k_out >= 0).sum())} placed)")
+    (args, kw), = cap.calls["sparse_accept:repack"]
+    plain_kw = {k: v for k, v in kw.items() if k != "mode"}
+    k_out = cap._orig["sparse_accept:repack"](*args, **kw)
+    p_out = A.sparse_accept_plain(*args, **plain_kw)
+    err = _max_abs_err(k_out, p_out)
+    if int(k_out[0]) < P:
+        raise AssertionError("repack: K4 truncated a sound plan")
+    K = args[0].numel()
+    ms = _time_ms(lambda: cap._orig["sparse_accept:repack"](*args, **kw))
+    plain_ms = _time_ms(lambda: A.sparse_accept_plain(*args, **plain_kw))
+    lg = max(1, (K - 1).bit_length())
+    nb = _nbytes(*args[:4]) + K * 2 * 12 + 4 + K * 8
+    b, by = bound(nb, K * lg * lg // 2 + K * 18)
+    out["sparse_accept:repack"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        shape=f"K={K} (B={K}, T=1) N={args[6]}")
+    return out
 
 
 def fresh_cluster(shape: dict):
@@ -647,7 +920,7 @@ def check_cycle(name: str, shape: dict, gpu, cpu, cluster) -> dict:
     if not bool(torch.isfinite(t.queue_allocated).all()):
         raise AssertionError(f"{name}: non-finite queue allocation")
     return dict(
-        cycle_seconds=secs, binds=len(res.bind_requests),
+        **analytics_fields(res), cycle_seconds=secs, binds=len(res.bind_requests),
         pods_bound_per_s=len(res.bind_requests) / secs,
         gangs_allocated=int(t.allocated.sum()),
         gangs_attempted=int(t.attempted.sum()),
@@ -716,7 +989,7 @@ def check_sharing_cycle(gpu, cpu, cluster, counts: dict) -> dict:
     if not bool(torch.isfinite(t.queue_allocated).all()):
         raise AssertionError("sharing: non-finite queue allocation")
     return dict(
-        cycle_seconds=secs, binds=len(res.bind_requests),
+        **analytics_fields(res), cycle_seconds=secs, binds=len(res.bind_requests),
         fractional_binds=frac, pods_bound_per_s=len(res.bind_requests) / secs,
         gangs_allocated=int(t.allocated.sum()),
         gangs_attempted=int(t.attempted.sum()),
@@ -861,7 +1134,7 @@ def check_topology_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
     if not bool(torch.isfinite(t.queue_allocated).all()):
         raise AssertionError(f"{cell}: non-finite queue allocation")
     return dict(
-        cycle_seconds=secs, binds=len(res.bind_requests),
+        **analytics_fields(res), cycle_seconds=secs, binds=len(res.bind_requests),
         pods_bound_per_s=len(res.bind_requests) / secs,
         gangs_allocated=int(t.allocated.sum()),
         gangs_attempted=int(t.attempted.sum()),
@@ -1214,7 +1487,7 @@ def check_affinity_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
     if not bool(torch.isfinite(t.queue_allocated).all()):
         raise AssertionError(f"{cell}: non-finite queue allocation")
     return dict(
-        cycle_seconds=secs, binds=len(res.bind_requests),
+        **analytics_fields(res), cycle_seconds=secs, binds=len(res.bind_requests),
         evictions=len(res.evictions), pipelined_tasks=int(t.pipelined.sum()),
         gangs_allocated=int(t.allocated.sum()),
         gangs_attempted=int(t.attempted.sum()),
@@ -1468,7 +1741,7 @@ def check_victim_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
     if missing:
         raise AssertionError(f"{cell}: kernels never launched: {missing}")
     return dict(
-        cycle_seconds=secs, evictions=len(res.evictions),
+        **analytics_fields(res), cycle_seconds=secs, evictions=len(res.evictions),
         consolidation_moves=len(moved), stale_evictions=len(stale_ev),
         pipelined_tasks=pipelined, binds=len(res.bind_requests),
         move_rebinds=len(res.move_bind_requests),
@@ -1710,14 +1983,44 @@ def lane_kernel_checks(caps: dict) -> dict:
     return out
 
 
+def _oracle_process_init() -> None:
+    # half the cores: the card's host-bound cycles run beside it
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import concurrent.futures
+    import multiprocessing
+    # one child process (spawned: it never touches CUDA) computes the
+    # slowest CPU oracles beside the card's work; it is stopped on any exit
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_oracle_process_init)
+    try:
+        oracles = {"sharing": pool.submit(run_sharing_cycle, "cpu")}
+        oracles.update({cell: pool.submit(run_affinity_cycle, cell, "cpu")
+                        for cell in AFFINITY_CELLS})
+        return run(oracles)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in list((getattr(pool, "_processes", None) or {}).values()):
+            proc.terminate()
+
+
+def run(oracles: dict) -> int:
+    """The phases above; ``oracles`` holds the oracle process's futures of
+    the sharing and affinity cells' CPU oracle runs (each ``(result,
+    cluster, seconds)``)."""
     from kai_scheduler_tpu_torch import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report: dict = {}
+
+    def oracle_busy() -> bool:
+        return not all(f.done() for f in oracles.values())
 
     # -- 1. build -----------------------------------------------------------
     t_start = time.perf_counter()
@@ -1741,15 +2044,19 @@ def main() -> int:
     log(f"warm-up headline cycle: {warm_s:.3f} s, "
         f"{len(warm.bind_requests)} binds")
     checks = kernel_checks(cap)
+    #: the captures holding K14's inputs (headline, sharing, affinity,
+    #: repack_racks), checked together at the end
+    an_caps = {"headline": cap}
     report["launch_floor_ms"] = launch_floor_ms()
 
     # -- 3./4. timed cycles vs the CPU oracle --------------------------------
     # every run: counts reset just before, read just after, all > 0; every
     # run's commit equals the oracle's (the cycle is deterministic)
-    launches = {}
+    launches, oracle_of = {}, {}
     for name, shape, reps in (("headline", HEADLINE, HEADLINE_RUNS),
                               ("contended", CONTENDED, CONTENDED_RUNS)):
         runs = []
+        busy = oracle_busy()
         for _ in range(reps):
             kernels.reset_launch_counts()
             res, cluster, secs = run_cycle(shape, "cuda")
@@ -1759,7 +2066,9 @@ def main() -> int:
                 raise AssertionError(
                     f"{name}: kernels never launched: {missing}")
             runs.append((res, cluster, secs, counts))
+        busy = busy and oracle_busy()
         cpu, _, cpu_s = run_cycle(shape, "cpu")
+        oracle_of[name] = cpu
         recs = [check_cycle(name, shape, (res, secs), cpu, cluster)
                 for res, cluster, secs, _ in runs]
         secs_all = sorted(r["cycle_seconds"] for r in recs)
@@ -1768,7 +2077,8 @@ def main() -> int:
                    cycle_seconds_median=statistics.median(secs_all),
                    pods_bound_per_s_median=rec["binds"]
                    / statistics.median(secs_all),
-                   launches=runs[-1][3], cpu_oracle_seconds=cpu_s)
+                   launches=runs[-1][3], cpu_oracle_seconds=cpu_s,
+                   oracle_process_busy=busy)
         report[name] = rec
         if name == "headline":
             launches = runs[-1][3]
@@ -1783,48 +2093,29 @@ def main() -> int:
             f"({cpu_s:.1f} s)")
         log("  phases (last run): " + ", ".join(
             f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+        log_analytics(rec)
 
     # -- 5. the GPU-sharing cell (the per-task path): a warm-up run under
     # the profiler's CUDA activity with K9's and K10's inputs captured, then
     # timed runs (counts reset just before, read just after), one CPU
     # oracle run ------------------------------------------------------------
+    # (its CPU oracle runs in the oracle process beside the cells below,
+    # and is compared after the last cell)
     from torch.profiler import ProfilerActivity, profile
     with Capture(SHARING_KEEP) as scap, \
             profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, warm_s = run_sharing_cycle("cuda")
+        _, _, sharing_warm_s = run_sharing_cycle("cuda")
     sharing_in_cycle = in_cycle_device_ms(prof)
     del prof
-    runs = []
+    sharing_runs = []
     for _ in range(SHARING_RUNS):
         kernels.reset_launch_counts()
         res, cluster, secs = run_sharing_cycle("cuda")
-        runs.append((res, cluster, secs, kernels.launch_counts()))
-    cpu, _, cpu_s = run_sharing_cycle("cpu")
-    recs = [check_sharing_cycle((res, secs), cpu, cluster, counts)
-            for res, cluster, secs, counts in runs]
-    secs_all = sorted(r["cycle_seconds"] for r in recs)
-    rec = dict(recs[-1])
-    rec.update(runs=len(recs), cycle_seconds_all=secs_all,
-               cycle_seconds_median=statistics.median(secs_all),
-               pods_bound_per_s_median=rec["binds"]
-               / statistics.median(secs_all),
-               warm_up_seconds=warm_s, cpu_oracle_seconds=cpu_s,
-               in_cycle_ms=sharing_in_cycle)
-    report["sharing"] = rec
-    log(f"sharing: {len(recs)} cycles, median "
-        f"{rec['cycle_seconds_median']:.4f} s (min {secs_all[0]:.4f}, max "
-        f"{secs_all[-1]:.4f}; profiled warm-up {warm_s:.3f}), "
-        f"{rec['binds']} binds ({rec['fractional_binds']} fractional, "
-        f"{rec['pods_bound_per_s_median']:.0f} pods/s), "
-        f"{rec['gangs_allocated']} gangs allocated of "
-        f"{rec['gangs_attempted']} attempted, {rec['chunks']} chunks, fit "
-        f"reasons {rec['fit_reason_counts']}, launches {rec['launches']}; "
-        f"every commit, BindRequest and device index == CPU oracle "
-        f"({cpu_s:.1f} s)")
-    log("  phases (last run): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
-    log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+        sharing_runs.append((res, cluster, secs, kernels.launch_counts()))
+    log(f"sharing: {SHARING_RUNS} timed cycles run; elapsed "
+        f"{time.perf_counter() - t_start:.0f} s")
     checks.update(sharing_kernel_checks(scap))
+    an_caps["sharing"] = scap
     del scap
 
     # -- 6. the topology cells: a warm-up run under the profiler's CUDA
@@ -1871,6 +2162,7 @@ def main() -> int:
             f"({cpu_s:.1f} s), every gang and subgroup in one rack")
         log("  phases (last run): " + ", ".join(
             f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+        log_analytics(rec)
         log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
     topo_checks = topology_kernel_checks(tcaps["topology"],
                                          tcaps["topology_subgroups"])
@@ -1920,6 +2212,7 @@ def main() -> int:
             log(f"  {cell} action {act}: {extra}{sec:.4f} s")
         log("  phases: " + ", ".join(
             f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+        log_analytics(rec)
         log("  in-cycle kernel device ms / launches (profiled run): "
             + ", ".join(f"{k} {v['ms']:.3f} / {v['launches']}"
                         for k, v in in_cycle.items() if v["launches"]))
@@ -1940,11 +2233,13 @@ def main() -> int:
         in_cycle = in_cycle_device_ms(prof)
         del prof
         runs = []
+        busy = oracle_busy()
         for _ in range(reps):
             kernels.reset_launch_counts()
             res, cluster, secs = run_affinity_cycle(cell, "cuda")
             runs.append((res, cluster, secs, kernels.launch_counts()))
-        cpu, _, cpu_s = run_affinity_cycle(cell, "cpu")
+        busy = busy and oracle_busy()
+        cpu, _, cpu_s = oracles[cell].result()
         recs = [check_affinity_cycle(cell, (res, secs), cpu, cluster, counts)
                 for res, cluster, secs, counts in runs]
         del runs
@@ -1953,7 +2248,7 @@ def main() -> int:
         rec.update(runs=len(recs), cycle_seconds_all=secs_all,
                    cycle_seconds_median=statistics.median(secs_all),
                    warm_up_seconds=warm_s, cpu_oracle_seconds=cpu_s,
-                   in_cycle_ms=in_cycle)
+                   in_cycle_ms=in_cycle, oracle_process_busy=busy)
         report[cell] = rec
         acaps[cell] = acap
         log(f"{cell}: {len(recs)} cycles, median "
@@ -1974,14 +2269,119 @@ def main() -> int:
             f"anti term, every depender beside its anchor")
         log("  phases (last run): " + ", ".join(
             f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+        log_analytics(rec)
         log("  in-cycle kernel device ms / launches (profiled run): "
             + ", ".join(f"{k} {v['ms']:.3f} / {v['launches']}"
                         for k, v in in_cycle.items() if v["launches"]))
         log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
     aff_checks = affinity_kernel_checks(acaps)
+    an_caps["affinity"] = acaps["affinity"]
     for k in ("affinity_mask", "anti_mark"):
         checks[k] = aff_checks.pop(k)
     del acaps
+
+    # -- 9. the repack_racks cell: four cycles under the profiler's CUDA
+    # activity with K14's, K15's and K4's repack inputs captured, then the
+    # timed run (counts reset just before its first cycle, read just after
+    # its last), one CPU oracle run; every cycle against the oracle's ----
+    with Capture(REPACK_KEEP) as rcap, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm, _ = run_repack_cycles("cuda")
+    in_cycle = in_cycle_device_ms(prof)
+    del prof
+    gpu, counts = run_repack_cycles("cuda")
+    t0 = time.perf_counter()
+    cpu, _ = run_repack_cycles("cpu")
+    cpu_s = time.perf_counter() - t0
+    rec = check_repack_cycles(gpu, cpu, counts)
+    rec.update(cpu_oracle_seconds=cpu_s, in_cycle_ms=in_cycle,
+               warm_up_seconds_all=[w[1] for w in warm])
+    report["repack_racks"] = rec
+    del warm, gpu, cpu
+    log(f"repack_racks: cycle seconds "
+        f"{[round(x, 4) for x in rec['cycle_seconds_all']]} (profiled "
+        f"run {[round(x, 4) for x in rec['warm_up_seconds_all']]}; CPU "
+        f"oracle {[round(x, 4) for x in rec['cpu_cycle_seconds_all']]}, "
+        f"{cpu_s:.1f} s), analytics seconds "
+        f"{[round(x, 4) for x in rec['analytics_seconds_all']]}, frag_score "
+        f"{rec['frag_scores']}; fired on cycle {REPACK_FIRES} for "
+        f"{rec['target_gang']} (rack domain {rec['target_rack']}): "
+        f"{rec['migrations']} moves from {rec['moved_from']} to "
+        f"{rec['moved_to']}, solve {rec['repack_seconds']:.4f} s; cycle "
+        f"{REPACK_FIRES + 1} bound its {rec['gang_binds']} pods in "
+        f"{rec['moved_from']}; launches {counts}; every cycle's commit, "
+        f"decision and document == CPU oracle")
+    log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+    # the sharing cell against its CPU oracle (run in the oracle process)
+    cpu, _, cpu_s = oracles["sharing"].result()
+    recs = [check_sharing_cycle((res, secs), cpu, cluster, counts)
+            for res, cluster, secs, counts in sharing_runs]
+    del sharing_runs, cpu
+    secs_all = sorted(r["cycle_seconds"] for r in recs)
+    rec = dict(recs[-1])
+    rec.update(runs=len(recs), cycle_seconds_all=secs_all,
+               cycle_seconds_median=statistics.median(secs_all),
+               pods_bound_per_s_median=rec["binds"]
+               / statistics.median(secs_all),
+               warm_up_seconds=sharing_warm_s, cpu_oracle_seconds=cpu_s,
+               in_cycle_ms=sharing_in_cycle)
+    report["sharing"] = rec
+    log(f"sharing: {len(recs)} cycles, median "
+        f"{rec['cycle_seconds_median']:.4f} s (min {secs_all[0]:.4f}, max "
+        f"{secs_all[-1]:.4f}; profiled warm-up {sharing_warm_s:.3f}), "
+        f"{rec['binds']} binds ({rec['fractional_binds']} fractional, "
+        f"{rec['pods_bound_per_s_median']:.0f} pods/s), "
+        f"{rec['gangs_allocated']} gangs allocated of "
+        f"{rec['gangs_attempted']} attempted, {rec['chunks']} chunks, fit "
+        f"reasons {rec['fit_reason_counts']}, launches {rec['launches']}; "
+        f"every commit, BindRequest and device index == CPU oracle "
+        f"({cpu_s:.1f} s, in the oracle process)")
+    log("  phases (last run): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+    log_analytics(rec)
+    log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+
+    # -- 10. what the oracle process costs the host-bound cycles: the
+    # headline's and affinity's timed runs again, each checked against its
+    # oracle, now that every oracle has returned and the process is idle
+    if oracle_busy():
+        raise AssertionError("the oracle process still has work")
+    again = {"headline": (HEADLINE_RUNS, lambda: run_cycle(HEADLINE, "cuda"),
+                          lambda res, cl, secs, counts: check_cycle(
+                              "headline", HEADLINE, (res, secs),
+                              oracle_of["headline"], cl)),
+             "affinity": (IDLE_AFFINITY_RUNS,
+                          lambda: run_affinity_cycle("affinity", "cuda"),
+                          lambda res, cl, secs, counts: check_affinity_cycle(
+                              "affinity", (res, secs),
+                              oracles["affinity"].result()[0], cl, counts))}
+    contention = {}
+    for cell, (reps, cycle, check) in again.items():
+        idle = []
+        for _ in range(reps):
+            kernels.reset_launch_counts()
+            res, cluster, secs = cycle()
+            check(res, cluster, secs, kernels.launch_counts())
+            idle.append(secs)
+            del res, cluster
+        busy_all = report[cell]["cycle_seconds_all"]
+        contention[cell] = dict(
+            busy_during_timed_runs=report[cell]["oracle_process_busy"],
+            seconds_all=busy_all, median=statistics.median(busy_all),
+            idle_seconds_all=sorted(idle), idle_median=statistics.median(idle))
+        c = contention[cell]
+        log(f"oracle process cost, {cell}: median {c['median']:.4f} s over "
+            f"{len(busy_all)} runs with the oracle process "
+            f"{'busy' if c['busy_during_timed_runs'] else 'partly idle'}, "
+            f"{c['idle_median']:.4f} s over {reps} runs with it idle "
+            f"({[round(x, 4) for x in c['idle_seconds_all']]}); commits == "
+            f"CPU oracle")
+    report["oracle_contention"] = contention
+    log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+    checks.update(analytics_kernel_checks({**an_caps, "repack_racks": rcap}))
+    rep_checks = repack_kernel_checks(rcap)
+    checks["repack_fill"] = rep_checks.pop("repack_fill")
+    del an_caps, rcap
     #: the main path each kernel's launches are read from
     path_of = {k: ("headline", launches) for k in ALLOCATE_KERNELS}
     for k, cell in (("cumsum_ds", "saturated_sequential"),
@@ -1993,7 +2393,8 @@ def main() -> int:
                     ("topo_tables_build", "topology"),
                     ("topo_tables_update", "topology"),
                     ("affinity_mask", "affinity"),
-                    ("anti_mark", "affinity")):
+                    ("anti_mark", "affinity"),
+                    ("repack_fill", "repack_racks")):
         path_of[k] = (cell, report[cell]["launches"])
     #: each kernel mode and the cell whose run its row's launches read
     mode_path = {"type_tables:lanes": "saturated",
@@ -2005,7 +2406,8 @@ def main() -> int:
                  "pertask_fill:topology": "topology_subgroups",
                  "pertask_fill:banned": "topology_subgroups",
                  "uniform_fill:mask": "affinity",
-                 "pertask_fill:mask": "affinity_sharing"}
+                 "pertask_fill:mask": "affinity_sharing",
+                 "sparse_accept:repack": "repack_racks"}
 
     #: each mode's launches, counted by its wrapper at the launch in the
     #: last timed run of its cell (config 4 prefers no level: K3's
@@ -2014,7 +2416,7 @@ def main() -> int:
     mode_launches = {m: report[c]["launches"][m]
                      for m, c in mode_path.items()}
 
-    mode_checks = {**topo_checks, **aff_checks}
+    mode_checks = {**topo_checks, **aff_checks, **rep_checks}
     for name, c in (list(checks.items()) + list(lane_checks.items())
                     + list(mode_checks.items())):
         cell, counts = (path_of[name] if name in path_of else

@@ -10,8 +10,10 @@ an i16 vector (indices < 32k; bools 8 per lane; the f32 queue tables as
 i16 pairs) — the parity surface the port and the reference compare byte
 for byte.  The victim actions' part of the commit — evictions and the
 pipelined rebinds of consolidation-moved pods — decodes from the same
-transfer.  The analytics and repack parts of the reference's commit wait
-for the slices that port those features.
+transfer, and so do an analytics cycle's cluster-health bundle
+(``ops/analytics.py``) and a repack firing's migration plan
+(``ops/repack.py``), whose moves commit through the same pipelined rebind
+as consolidation moves.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from ..apis import types as apis
 from ..device import resolve_device
+from ..ops import analytics as pulse
 from ..ops import drf
 from ..ops.allocate import AllocateConfig, AllocationResult
 from ..ops.victims import VictimConfig
@@ -63,8 +66,12 @@ def _as_i16_pairs(x: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_commit(result: AllocationResult, state: ClusterState, *,
-                 track_devices: bool) -> torch.Tensor:
-    """The cycle's results as one i16 vector on the result's device."""
+                 track_devices: bool,
+                 analytics: "pulse.AnalyticsBundle | None" = None,
+                 repack_plan=None) -> torch.Tensor:
+    """The cycle's results as one i16 vector on the result's device; an
+    analytics bundle and a repack plan, when given, ride at its end (their
+    f32/i32 fields as i16 pairs: pod indices can exceed i16)."""
     parts = [
         (result.placements + 1).reshape(-1).to(torch.int16),
         _bitpack(result.pipelined.reshape(-1)),
@@ -80,6 +87,17 @@ def _pack_commit(result: AllocationResult, state: ClusterState, *,
     if track_devices:
         parts.append(
             (result.placement_device + 1).reshape(-1).to(torch.int16))
+    if analytics is not None:
+        a32, ai = pulse.flatten(analytics)
+        parts += [_as_i16_pairs(a32), _as_i16_pairs(ai)]
+    if repack_plan is not None:
+        p = repack_plan
+        ints = torch.stack([p.num_moves, p.target_gang, p.target_rack,
+                            p.feasible.to(torch.int32)])
+        fls = torch.stack([p.needed, p.rack_units_before,
+                           p.rack_units_after, p.total_units])
+        parts += [_as_i16_pairs(p.move_pod), _as_i16_pairs(p.move_node),
+                  _as_i16_pairs(ints), _as_i16_pairs(fls)]
     return torch.cat(parts)
 
 
@@ -99,6 +117,10 @@ class SessionConfig:
     victims: VictimConfig = dataclasses.field(default_factory=VictimConfig)
     #: stalegangeviction grace period (ref options.go:34, default 60s)
     stale_grace_s: float = 60.0
+    #: cluster-health pass knobs (ops/analytics.py); the cadence is the
+    #: Scheduler's ``analytics_every``
+    analytics: pulse.AnalyticsConfig = dataclasses.field(
+        default_factory=pulse.AnalyticsConfig)
 
 
 def _pow4_ceil(x: int) -> int:
@@ -210,10 +232,19 @@ class Session:
 
     # -- commit path ------------------------------------------------------
 
-    def gather_host(self, result: AllocationResult) -> dict:
+    def _gangs_queue_host(self) -> "np.ndarray":
+        """The gang→queue column as host numpy (one small device read,
+        after the cycle's commit has synced)."""
+        return self.state.gangs.queue.cpu().numpy()
+
+    def gather_host(self, result: AllocationResult,
+                    analytics: "pulse.AnalyticsBundle | None" = None,
+                    repack_plan=None) -> dict:
         """ONE compact device→host transfer of the cycle's results, merged
         with the snapshot-side numpy tables the host kept.  The packed i16
-        array itself rides along as ``host["packed"]``."""
+        array itself rides along as ``host["packed"]``; an analytics bundle
+        decodes into ``host["analytics"]`` and a repack plan into
+        ``host["repack_plan"]``."""
         g, q, r = self.state.gangs, self.state.queues, self.state.running
         G, T, M, Q = g.g, g.t, r.m, q.q
         R_ = self.state.nodes.free.shape[1]
@@ -222,8 +253,9 @@ class Session:
             # wrong nodes
             raise ValueError("i16 commit packing needs < 32k nodes")
         devices = self.index.needs_device_table
-        flat = _pack_commit(result, self.state,
-                            track_devices=devices).cpu().numpy()
+        flat = _pack_commit(result, self.state, track_devices=devices,
+                            analytics=analytics,
+                            repack_plan=repack_plan).cpu().numpy()
 
         def take(n):
             nonlocal off
@@ -257,6 +289,26 @@ class Session:
                                        ).reshape(G, T)
         else:
             out["placement_device"] = np.full((G, T), -1, np.int32)
+        if analytics is not None:
+            acfg = self.config.analytics
+            nf = pulse.f32_len(acfg, q=Q, r=R_, g=G)
+            ni = pulse.i32_len(acfg, q=Q, r=R_, g=G)
+            a32 = np.frombuffer(take(nf * 2).tobytes(), np.float32)
+            ai = np.frombuffer(take(ni * 2).tobytes(), np.int32)
+            out["analytics"] = pulse.host_unpack(
+                a32, ai, config=acfg, q=Q, r=R_, g=G)
+        if repack_plan is not None:
+            P = repack_plan.move_pod.shape[0]
+            mp = np.frombuffer(take(2 * P).tobytes(), np.int32)
+            mn = np.frombuffer(take(2 * P).tobytes(), np.int32)
+            ints = np.frombuffer(take(8).tobytes(), np.int32)
+            fls = np.frombuffer(take(8).tobytes(), np.float32)
+            out["repack_plan"] = {
+                "move_pod": mp, "move_node": mn,
+                "num_moves": ints[0], "target_gang": ints[1],
+                "target_rack": ints[2], "feasible": bool(ints[3]),
+                "needed": fls[0], "rack_units_before": fls[1],
+                "rack_units_after": fls[2], "total_units": fls[3]}
         return out
 
     def bind_requests_from(self, result: AllocationResult,
@@ -355,6 +407,111 @@ class Session:
                 0 if is_frac else int(round(pod.resources.accel))),
             backoff_limit=DEFAULT_BIND_BACKOFF_LIMIT,
         )
+
+    #: Eviction.reason of a repack migration (the bind and commit path is
+    #: the consolidation move's)
+    REPACK_REASON = "repack"
+
+    def repack_evictions(self, plan: dict, host: dict,
+                         target_gang: str) -> list[apis.Eviction]:
+        """A feasible repack plan (host copies of ``RepackPlan`` fields) →
+        evictions with move targets.  Pods the cycle's own victim actions
+        already evicted are dropped, and a plan whose target gang placed
+        this cycle is discarded whole."""
+        gi = int(plan["target_gang"])
+        if (not bool(plan["feasible"]) or int(plan["num_moves"]) <= 0
+                or not 0 <= gi < len(self.index.gang_names)
+                or self.index.gang_names[gi] != target_gang):
+            return []
+        if host["allocated"][gi]:
+            return []
+        victim = host["victim"]
+        out: list[apis.Eviction] = []
+        names = self.index.running_pod_names_arr
+        gang_all = host["running_gang"]
+        ng = len(self.index.gang_names)
+        for pi, ni in zip(plan["move_pod"].tolist(),
+                          plan["move_node"].tolist()):
+            if pi < 0 or ni < 0 or pi >= len(names) or victim[pi]:
+                continue
+            name = names[pi]
+            if not name:
+                continue
+            gidx = int(gang_all[pi])
+            out.append(apis.Eviction(
+                pod_name=name,
+                group=(self.index.gang_names[gidx]
+                       if 0 <= gidx < ng else ""),
+                reason=self.REPACK_REASON,
+                move_to=self.index.node_names[ni]))
+        return out
+
+    def analytics_doc(self, host: dict, *, alarm_cycles: int = 0) -> dict:
+        """The analytics bundle of this cycle's packed commit as a JSON-able
+        cluster-health document (``CycleResult.analytics``)."""
+        a = host.get("analytics")
+        if a is None:
+            return {}
+        acfg = self.config.analytics
+        qnames = self.index.queue_names
+        gnames = self.index.gang_names
+        reasons = host["fit_reason"]
+        queues_of = self._gangs_queue_host()
+        drift = a["queue_drift"][:len(qnames)]
+        top_q = np.argsort(-drift)[:5]
+        oldest = []
+        for age, gi in zip(a["starv_age"].tolist(),
+                           a["starv_gang"].tolist()):
+            if age <= 0 or not 0 <= gi < len(gnames):
+                continue
+            qi = int(queues_of[gi])
+            code = int(reasons[gi])
+            oldest.append({
+                "gang": gnames[gi],
+                "queue": qnames[qi] if 0 <= qi < len(qnames) else "",
+                "age_cycles": int(age),
+                "blocker": FIT_REASONS.get(code, f"code {code}")
+                if code else "",
+            })
+        names = apis.RESOURCE_NAMES
+        return {
+            "fragmentation": {
+                "score": round(float(a["frag_score"]), 4),
+                "total_unit_pods": float(a["total_units"]),
+                "largest_rack_unit_pods": float(a["max_rack_units"]),
+                "unit_req": list(acfg.unit_req),
+                "stranded_free_frac": {
+                    names[r]: round(float(v), 4)
+                    for r, v in enumerate(a["stranded_frac"].tolist())},
+                "free_hist": {
+                    names[r]: [int(c) for c in row]
+                    for r, row in enumerate(a["free_hist"].tolist())},
+                "gang_ladder": [
+                    {"pods": int(p), "cluster_feasible": bool(c > 0),
+                     "rack_placeable": bool(k > 0)}
+                    for p, c, k in zip(acfg.gang_ladder,
+                                       a["ladder_cluster_ok"].tolist(),
+                                       a["ladder_rack_ok"].tolist())],
+            },
+            "utilization": {
+                names[r]: round(float(v), 4)
+                for r, v in enumerate(a["util"].tolist())},
+            "goodput": round(float(a["goodput"]), 4),
+            "fairness": {
+                "drift_max": round(float(a["drift_max"]), 4),
+                "drift_mean": round(float(a["drift_mean"]), 4),
+                "drift_gini": round(float(a["drift_gini"]), 4),
+                "top_drift": [
+                    {"queue": qnames[int(qi)],
+                     "drift": round(float(drift[int(qi)]), 4)}
+                    for qi in top_q if drift[int(qi)] > 0],
+            },
+            "starvation": {
+                "pending_gangs": int(a["pending_gangs"]),
+                "alarm_cycles": int(alarm_cycles),
+                "oldest": oldest,
+            },
+        }
 
     def unschedulable_explanations(self, host: dict) -> dict[str, str]:
         """Per-gang fit-failure messages for gangs that ended the cycle

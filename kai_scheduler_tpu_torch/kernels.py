@@ -70,7 +70,7 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("sparse_accept",
                    "kai_scheduler_tpu_torch/csrc/sparse_accept.cu",
                    "kai_scheduler_tpu/ops/allocate.py:283",
-                   modes=("credit",)),
+                   modes=("credit", "repack")),
         KernelInfo("cumsum_ds",
                    "kai_scheduler_tpu_torch/csrc/cumsum_ds.cu",
                    "kai_scheduler_tpu/utils/numerics.py:30"),
@@ -103,6 +103,12 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("anti_mark",
                    "kai_scheduler_tpu_torch/csrc/affinity.cu",
                    "kai_scheduler_tpu/ops/allocate.py:189"),
+        KernelInfo("cluster_analytics",
+                   "kai_scheduler_tpu_torch/csrc/analytics.cu",
+                   "kai_scheduler_tpu/ops/analytics.py:263"),
+        KernelInfo("repack_fill",
+                   "kai_scheduler_tpu_torch/csrc/repack.cu",
+                   "kai_scheduler_tpu/ops/repack.py:106"),
     )
 }
 
@@ -161,6 +167,9 @@ _SIGNATURES = {
     "kai_topo_tables_update": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_P],
     "kai_affinity_mask": [_P] * 8 + [_I] * 8 + [_P] + [_P],
     "kai_anti_mark": [_P] * 6 + [_I] * 7 + [_P] + [_P],
+    "kai_analytics": [_P] * 22 + [_I] * 4 + [_F] * 3 + [_I] * 6 + [_P] * 4
+    + [_P],
+    "kai_repack_fill": [_P] * 6 + [_I] * 4 + [_P] * 2 + [_P],
 }
 
 _LIB = None

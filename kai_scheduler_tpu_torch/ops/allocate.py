@@ -1206,10 +1206,11 @@ SMEM_ENTRIES = 4096
 
 def sparse_accept(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
                   req_b: Tensor, free: Tensor, pipe_pool: Tensor, N: int,
-                  credit: Tensor | None = None):
+                  credit: Tensor | None = None, *, mode: str | None = None):
     """K4 — the first lane whose claims over-subscribe a node (see
     :func:`sparse_accept_plain`).  CPU tensors run the plain version;
-    CUDA tensors launch one block or raise."""
+    CUDA tensors launch one block or raise.  ``mode`` names a counted mode
+    of the launch beyond the credit mode (``sparse_accept:<mode>``)."""
     if not kernels.on_card(nodes_b):
         return sparse_accept_plain(nodes_b, ent_ok, pipe_b, req_b, free,
                                    pipe_pool, N, credit)
@@ -1243,7 +1244,8 @@ def sparse_accept(nodes_b: Tensor, ent_ok: Tensor, pipe_b: Tensor,
         kernels.ptr(first_bad), kernels.ptr(node_e), kernels.ptr(lane_e),
         kernels.stream_of(nodes_b))
     kernels.check(rc, "sparse_accept")
-    kernels.count_launch("sparse_accept", credit=credit is not None)
+    kernels.count_launch("sparse_accept", credit=credit is not None,
+                         **({mode: True} if mode else {}))
     return first_bad, node_e, lane_e
 
 

@@ -5,8 +5,9 @@ uses): intake writes objects into it, the scheduler snapshots it, the
 binder commits bindings back, and the victim actions' evictions mark pods
 releasing until the next ``tick`` reaps them (or, for consolidation
 moves, returns them to PENDING for their pipelined rebind).  The
-reference's mutation journal (for the incremental snapshotter), the
-shared-device reservation registry (which ``tick`` releases there) and
+shared-device reservation registry (``runtime/reservation.py``) is the
+binder's gpusharing plugin's; ``tick`` releases a deleted pod's entries.
+The reference's mutation journal (for the incremental snapshotter) and
 the intake surfaces wait for the slices that port them.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 from ..apis import types as apis
+from .reservation import ReservationRegistry
 
 
 @dataclasses.dataclass
@@ -42,6 +44,9 @@ class Cluster:
     #: consolidation-move path) — on the next tick they return to PENDING
     #: instead of vanishing
     restarting: set[str] = dataclasses.field(default_factory=set)
+    #: shared-device reservations (the binder's gpusharing plugin)
+    reservations: ReservationRegistry = dataclasses.field(
+        default_factory=ReservationRegistry)
 
     @classmethod
     def from_objects(cls, nodes, queues, pod_groups, pods,
@@ -164,8 +169,8 @@ class Cluster:
 
     def tick(self, seconds: float = 1.0) -> None:
         """Advance time: bound pods start running, releasing pods vanish
-        (their DRA claims deallocate with them) or, when restarting,
-        return to PENDING."""
+        (their DRA claims deallocate and their device reservations drop
+        them) or, when restarting, return to PENDING."""
         self.now += seconds
         for name in list(self.pods):
             pod = self.pods[name]
@@ -175,6 +180,8 @@ class Cluster:
                         claim.node = None
                         claim.devices = []
                         claim.owner_pod = None
+                # ... and its device reservations drop this sharer
+                self.reservations.release(name)
                 if name in self.restarting:
                     self.restarting.discard(name)
                     pod.status = apis.PodStatus.PENDING

@@ -303,3 +303,57 @@ def affinity_sharing_objects(apis, *, num_nodes: int, shared_nodes: int,
         pods.append(apis.Pod(f"{name}-0", name, creation_timestamp=float(g),
                              **spec))
     return nodes, queues, groups, pods
+
+
+def repack_objects(apis, *, num_nodes: int = 5_120, rack_size: int = 8,
+                   node_accel: int = 8, running_per_node: int = 7,
+                   gangs: int = 4, gang_size: int = 32,
+                   rack_label: str = "topo/rack"):
+    """A near-full GPU cluster whose free devices are scattered one per
+    node, built with the object API (after the reference's repack
+    acceptance scenario, ``tests/test_repack.py``, at a cluster's size):
+    ``num_nodes`` nodes of ``node_accel`` devices (64 CPU, 256 GiB) in
+    racks of ``rack_size`` nodes (topology levels ``[rack_label,
+    kubernetes.io/hostname]``); every node runs ``running_per_node``
+    one-device preemptible one-pod gangs in queue ``serve`` (quota equal
+    to its usage, started at t=0), created node by node; ``gangs`` pending
+    gangs of ``gang_size`` one-device pods in queue ``train`` (quota
+    ``gangs * gang_size``), each required to fit one rack.  With the
+    defaults every rack holds 8 free devices: gangs of 16 or more are
+    cluster-feasible but rack-stranded.  Returns ``(nodes, queues, groups,
+    pods, topology)``."""
+    topo = apis.Topology(name="default",
+                         levels=[rack_label, "kubernetes.io/hostname"])
+    nodes, groups, pods = [], [], []
+    for i in range(num_nodes):
+        name = f"node-{i}"
+        nodes.append(apis.Node(
+            name, apis.ResourceVec(float(node_accel), 64.0, 256.0),
+            labels={rack_label: f"rack-{i // rack_size}",
+                    "kubernetes.io/hostname": name}))
+    used = float(num_nodes * running_per_node)
+    queues = [apis.Queue("serve", accel=apis.QueueResource(quota=used)),
+              apis.Queue("train", accel=apis.QueueResource(
+                  quota=float(gangs * gang_size)))]
+    for i in range(num_nodes):
+        for j in range(running_per_node):
+            g = apis.PodGroup(f"serve-{i}-{j}", queue="serve", min_member=1,
+                              preemptibility=apis.Preemptibility.PREEMPTIBLE,
+                              last_start_timestamp=0.0)
+            groups.append(g)
+            pods.append(apis.Pod(f"{g.name}-0", g.name,
+                                 apis.ResourceVec(1.0, 1.0, 4.0),
+                                 status=apis.PodStatus.RUNNING,
+                                 node=f"node-{i}"))
+    for k in range(gangs):
+        g = apis.PodGroup(
+            f"big-{k}", queue="train", min_member=gang_size,
+            creation_timestamp=float(k),
+            topology_constraint=apis.TopologyConstraint(
+                topology="default", required_level=rack_label))
+        groups.append(g)
+        for t in range(gang_size):
+            pods.append(apis.Pod(f"big-{k}-{t}", g.name,
+                                 apis.ResourceVec(1.0, 1.0, 4.0),
+                                 creation_timestamp=float(k)))
+    return nodes, queues, groups, pods, topo

@@ -4,7 +4,8 @@ GPU.
     python3 scripts/profile_torch_cycle.py [--shape headline|contended|
         sharing|topology|topology_subgroups|saturated|
         saturated_sequential|preempt_many_queues|fragmented|affinity|
-        affinity_reclaim|affinity_reclaim_sequential|affinity_sharing]
+        affinity_reclaim|affinity_reclaim_sequential|affinity_sharing|
+        repack_racks]
 
 Runs the cycle of ``chip_smoke.py``'s shape once to warm up, then once
 under ``torch.profiler`` (CPU and CUDA activities), and prints:
@@ -19,14 +20,20 @@ under ``torch.profiler`` (CPU and CUDA activities), and prints:
 - the device's busy time — the union of every kernel (ours and
   PyTorch's), copy and memset interval in the trace — and its idle share
   of the cycle, 1 - busy / wall;
-- the 20 device activities with the most summed time, with call counts.
+- the 20 device activities with the most summed time, with call counts;
+- the analytics pass's and the repack solve's host seconds.
+
+For ``repack_racks`` the profiled cycle is the firing one (cycle 3 of
+``chip_smoke.py``'s four, after two unprofiled cycles with a binder pass
+and a tick after each); its warm-up is the firing cycle of one whole
+unprofiled four-cycle run.
 
 The numbers go to ``chiprun_out/profile_<shape>_summary.json``; the trace
 (Chrome trace format) to ``chiprun_out/profile_<shape>.json`` for the
 headline and contended cells and to ``build/profile_<shape>.json`` for the
 sharing cell (the per-task path, ``chip_smoke.py``'s GPU-sharing fleet),
-the two topology cells, the victim cells and the four affinity cells,
-whose traces hold hundreds of thousands of events.
+the two topology cells, the victim cells, the four affinity cells and
+repack_racks, whose traces hold hundreds of thousands of events.
 Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -81,7 +88,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", default="headline", choices=(
         "headline", "contended", "sharing", *TOPOLOGY_CELLS,
-        *chip_smoke.VICTIM_CELLS, *chip_smoke.AFFINITY_CELLS))
+        *chip_smoke.VICTIM_CELLS, *chip_smoke.AFFINITY_CELLS,
+        "repack_racks"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_cycle: no CUDA device", file=sys.stderr)
@@ -92,7 +100,23 @@ def main() -> int:
     card = chip_smoke.card_line()
     from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
                                                              SchedulerConfig)
-    if args.shape == "sharing":
+    if args.shape == "repack_racks":
+        from kai_scheduler_tpu_torch.apis import types as apis
+        from kai_scheduler_tpu_torch.binder import Binder
+        from kai_scheduler_tpu_torch.runtime.cluster import Cluster
+        from kai_scheduler_tpu_torch.state.fleets import repack_objects
+        shape = chip_smoke.REPACK_RACKS
+        cycles, _ = chip_smoke.run_repack_cycles("cuda")   # build + warm
+        warm = cycles[chip_smoke.REPACK_FIRES - 1][1]
+        cluster = Cluster.from_objects(*repack_objects(apis, **shape))
+        sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+                          device="cuda")
+        binder = Binder()
+        for _ in range(chip_smoke.REPACK_FIRES - 1):
+            sched.run_once(cluster)
+            binder.reconcile(cluster)
+            cluster.tick()
+    elif args.shape == "sharing":
         shape = chip_smoke.SHARING
         _, _, warm = chip_smoke.run_sharing_cycle("cuda")  # build + warm
         cluster = chip_smoke.sharing_cluster()
@@ -141,7 +165,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     trace_dir = (os.path.join(ROOT, "build")
                  if victim or args.shape in ("sharing", *TOPOLOGY_CELLS,
-                                             *chip_smoke.AFFINITY_CELLS)
+                                             *chip_smoke.AFFINITY_CELLS,
+                                             "repack_racks")
                  else out_dir)
     os.makedirs(trace_dir, exist_ok=True)
     trace_path = os.path.join(trace_dir, f"profile_{args.shape}.json")
@@ -155,6 +180,9 @@ def main() -> int:
         evictions=len(res.evictions), chunks=res.chunks,
         retries=res.retries,
         binds=len(res.bind_requests), device_seconds=busy,
+        analytics_seconds=res.analytics_seconds,
+        repack_seconds=res.repack_seconds,
+        repack_moves=res.repack.get("migrations_executed", 0),
         device_idle_share=1.0 - busy / wall,
         top_device=[dict(name=n, calls=c, device_ms=ms)
                     for n, c, ms in top])
@@ -168,6 +196,8 @@ def main() -> int:
           f"binds, {len(res.evictions)} evictions; device busy {busy:.4f} "
           f"s, idle share {summary['device_idle_share']:.4f} of the "
           f"profiled wall, {1.0 - busy / warm:.4f} of the warm-up wall")
+    print(f"analytics {res.analytics_seconds:.4f} s, repack "
+          f"{res.repack_seconds:.4f} s ({summary['repack_moves']} moves)")
     print("phases: " + ", ".join(f"{k} {v:.4f}"
                                  for k, v in res.phase_seconds.items()))
     print("actions: " + ", ".join(

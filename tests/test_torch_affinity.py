@@ -650,14 +650,16 @@ def _configs(mode: str, allocate_batch: int | None = None,
         return (RefSchedulerConfig(actions=("allocate",), incremental=False,
                                    analytics_every=0, repack_enable=False,
                                    session=ref_s),
-                SchedulerConfig(actions=("allocate",), session=port_s))
+                SchedulerConfig(actions=("allocate",), analytics_every=0,
+                                repack_enable=False, session=port_s))
     ref_s = dataclasses.replace(ref_s, victims=RefVictimConfig(
         batch_size=width))
     port_s = dataclasses.replace(port_s, victims=VictimConfig(
         batch_size=width))
     return (RefSchedulerConfig(incremental=False, analytics_every=0,
                                repack_enable=False, session=ref_s),
-            SchedulerConfig(actions=DEFAULT_ACTIONS, session=port_s))
+            SchedulerConfig(actions=DEFAULT_ACTIONS, analytics_every=0,
+                            repack_enable=False, session=port_s))
 
 
 def run_cycle_pair(objs, mode: str, seen: dict, monkeypatch, **widths):

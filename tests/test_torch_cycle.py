@@ -133,7 +133,9 @@ def test_cycle_matches_reference(name, pad32):
     ref_sched = RefScheduler(RefSchedulerConfig(
         actions=("allocate",), incremental=False, analytics_every=0,
         repack_enable=False))
-    sched = Scheduler(SchedulerConfig(actions=("allocate",)), device="cpu")
+    sched = Scheduler(SchedulerConfig(
+        actions=("allocate",), analytics_every=0, repack_enable=False),
+        device="cpu")
     for cycle in range(2):
         want = ref_sched.run_once(ref_cluster)
         got = sched.run_once(cluster)
@@ -186,7 +188,7 @@ def test_victim_cycle_matches_reference(name, batch_size, pad32):
         session=RefSessionConfig(victims=RefVictimConfig(
             batch_size=batch_size))))
     sched = Scheduler(SchedulerConfig(
-        actions=DEFAULT_ACTIONS,
+        actions=DEFAULT_ACTIONS, analytics_every=0, repack_enable=False,
         session=SessionConfig(victims=VictimConfig(batch_size=batch_size))),
         device="cpu")
     evicted = 0
@@ -218,9 +220,11 @@ def test_cycle_seed_matches_reference():
 
 
 def test_unported_actions_raise(pad32):
-    """An unknown action name raises; the default ``Scheduler()`` runs the
+    """An unknown action name raises; the default action list runs the
     reference's five actions at the reference's default ``VictimConfig``
-    (reclaim through the chunked wavefront) and matches the reference."""
+    (reclaim through the chunked wavefront) and matches the reference
+    (analytics and repack off on both sides: ``test_torch_repack.py``
+    holds the default knobs)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Scheduler(SchedulerConfig(actions=("allocate", "repack")),
                   device="cpu")
@@ -233,7 +237,8 @@ def test_unported_actions_raise(pad32):
     want = RefScheduler(RefSchedulerConfig(
         incremental=False, analytics_every=0,
         repack_enable=False)).run_once(ref_cluster)
-    got = Scheduler(device="cpu").run_once(cluster)
+    got = Scheduler(SchedulerConfig(analytics_every=0, repack_enable=False),
+                    device="cpu").run_once(cluster)
     assert got.victim_stats["reclaim"].steps >= 1
     assert got.evictions
     assert got.packed.tobytes() == pad32["packed"].tobytes()

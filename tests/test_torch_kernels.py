@@ -1014,3 +1014,144 @@ def test_cuda_affinity_reclaim_cycle_equals_cpu_cycle(cuda, batch_size):
     assert [dataclasses.astuple(e) for e in gpu.evictions] == \
         [dataclasses.astuple(e) for e in cpu.evictions]
     assert torch.equal(gpu.tensors.anti_used.cpu(), cpu.tensors.anti_used)
+
+
+# ---------------------------------------------------------------------------
+# the analytics pass (K14) and the repack plan's first fit (K15)
+# ---------------------------------------------------------------------------
+
+def _analytics_inputs(cuda, name: str, seed: int):
+    """A snapshot on the card, its free pool lowered, and a commit set
+    drawn from the seed: uniform (whole units), sharing (fractional and
+    memory-based shares) and rack topology with one node unlabelled."""
+    from kai_scheduler_tpu_torch.framework.session import Session
+    from kai_scheduler_tpu_torch.ops.allocate import init_result
+    if name == "sharing":
+        objs = fleets.sharing_objects(apis, num_nodes=200, shared_nodes=100,
+                                      training=20, fractions=80, memory=40,
+                                      launchers=8, seed=seed)
+    else:
+        objs = make_cluster(num_nodes=300, num_gangs=200, tasks_per_gang=4,
+                            running_fraction=0.5, seed=seed,
+                            num_departments=3, queues_per_department=4,
+                            topology_levels=(4, 5) if name == "topology"
+                            else ())
+    if name == "topology":
+        objs[0][0].labels.clear()
+    st = Session.open(*objs, device=cuda).state
+    rng = np.random.default_rng(seed)
+    G, T, M = st.gangs.g, st.gangs.t, st.running.m
+    n = st.nodes
+
+    def dev(a):
+        return torch.from_numpy(a).to(cuda)
+    drop = rng.choice([0.0, 1.0, 0.3, 2.0], n.free.shape).astype(np.float32)
+    st = dataclasses.replace(st, nodes=dataclasses.replace(
+        n, free=torch.clamp(n.free - dev(drop), min=0.0)))
+    res = init_result(st)
+    res = dataclasses.replace(
+        res, allocated=dev(rng.random(G) < 0.3),
+        placements=dev(np.where(rng.random((G, T)) < 0.5,
+                                rng.integers(0, n.n, (G, T)), -1)
+                       .astype(np.int32)),
+        pipelined=dev(rng.random((G, T)) < 0.2),
+        victim=dev(rng.random(M) < 0.2),
+        free=torch.clamp(st.nodes.free - dev(rng.choice(
+            [0.0, 1.0, 0.5], n.free.shape).astype(np.float32)), min=0.0),
+        releasing_extra=dev(rng.choice([0.0, 0.0, 0.25], n.free.shape)
+                            .astype(np.float32)),
+        queue_allocated=st.queues.allocated + dev(rng.uniform(
+            0, 5, st.queues.allocated.shape).astype(np.float32)))
+    ages = dev(np.where(rng.random(G) < 0.5, rng.integers(0, 9, G), 0)
+               .astype(np.float32))
+    return st, res, ages
+
+
+@pytest.mark.parametrize("name", ["uniform", "sharing", "topology"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cluster_analytics_matches_plain(cuda, name, seed):
+    """K14 against its plain version on the same card tensors, every field
+    byte-equal: fractional summands (the pairwise tree order on both
+    sides), a node without the rack label, all-tie ages (every age 0) and
+    each rack level."""
+    from kai_scheduler_tpu_torch.ops import analytics as AN
+    st, res, ages = _analytics_inputs(cuda, name, seed)
+    for rl, a in ((0, ages), (1, torch.zeros_like(ages)), (4, ages)):
+        cfg = AN.AnalyticsConfig(rack_level=rl, top_k=8 + 8 * rl)
+        before = kernels.KERNELS["cluster_analytics"].launches
+        got = AN.cluster_analytics(st, res, a, config=cfg)
+        assert kernels.KERNELS["cluster_analytics"].launches == before + 1
+        want = AN.cluster_analytics_plain(st, res, a, config=cfg)
+        for f in AN.F32_FIELDS + AN.I32_FIELDS:
+            x, y = getattr(got, f), getattr(want, f).to(getattr(got, f).dtype)
+            assert x.shape == y.shape, f
+            assert x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes(), f
+
+
+@pytest.mark.parametrize("slots", ["empty", "full", "mixed"])
+def test_repack_fill_matches_plain(cuda, slots):
+    """K15 against its plain version: an empty plan (every slot -1), a full
+    plan of 64 pods (some fit nowhere), and a mixed one; filter classes
+    and a destination mask."""
+    from kai_scheduler_tpu_torch.ops import repack as RP
+    rng = np.random.default_rng(len(slots))
+    N, M, X, P = 700, 2000, 3, 64
+    pods = rng.choice(M, P, replace=False).astype(np.int32)
+    if slots == "empty":
+        pods[:] = -1
+    elif slots == "mixed":
+        pods[rng.random(P) < 0.4] = -1
+    req = rng.choice([1.0, 2.0, 0.5], (M, 3)).astype(np.float32)
+    req[:, 2] *= 4
+    t = dict(
+        slot_pod=pods, req=req,
+        filter_class=rng.integers(-1, X + 1, M).astype(np.int32),
+        dest_ok=rng.random(N) < 0.8,
+        filter_masks=rng.random((X, N)) < 0.7,
+        free0=rng.choice([0.0, 1.0, 2.0, 8.0], (N, 3)).astype(np.float32))
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in t.items()}
+    before = kernels.KERNELS["repack_fill"].launches
+    got = RP.repack_fill(**t)
+    assert kernels.KERNELS["repack_fill"].launches == before + 1
+    want = RP.repack_fill_plain(**t)
+    assert torch.equal(got, want)
+    if slots == "empty":
+        assert bool((got == -1).all())
+    else:
+        assert bool((got >= 0).any())
+
+
+def test_cuda_repack_cycles_equal_cpu_cycles(cuda):
+    """The repack_racks fleet at 256 nodes (32 racks) through four default
+    allocate-only cycles on the card and on the CPU, each with its own
+    binder: every packed commit (analytics and plan tails included) and
+    document equal; the trigger fires on cycle 3 (K15 and K4's repack
+    mode launched) and the gang places on cycle 4 in one rack."""
+    from kai_scheduler_tpu_torch.binder import Binder
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cluster = Cluster.from_objects(*fleets.repack_objects(
+            apis, num_nodes=256, gangs=2))
+        sched = Scheduler(SchedulerConfig(actions=("allocate",),
+                                          repack_frag_threshold=0.4),
+                          device=device)
+        binder, cycles = Binder(), []
+        for _ in range(4):
+            kernels.reset_launch_counts()
+            res = sched.run_once(cluster)
+            cycles.append((res, kernels.launch_counts()))
+            binder.reconcile(cluster)
+            cluster.tick()
+        runs[device] = cycles
+    for (g, counts), (c, _) in zip(runs["cuda"], runs["cpu"]):
+        assert g.packed.tobytes() == c.packed.tobytes()
+        assert g.analytics == c.analytics
+        assert {k: v for k, v in g.repack.items() if k != "solve_seconds"} \
+            == {k: v for k, v in c.repack.items() if k != "solve_seconds"}
+        assert counts["cluster_analytics"] == 1
+    fired = runs["cuda"][2]
+    assert fired[0].repack["migrations_executed"] == 24
+    assert fired[1]["repack_fill"] == 1 and \
+        fired[1]["sparse_accept:repack"] == 1
+    assert len(runs["cuda"][3][0].bind_requests) == 32
