@@ -6,9 +6,13 @@ Drives ``kai_scheduler_tpu_torch`` end to end on the card and fails
 (non-zero exit, no result line) on any build error, launch error or
 mismatch:
 
-1. builds the hand-written CUDA kernels K1-K15 from ``csrc/`` (one
-   ``nvcc`` per source, all started together; sixteen entry points: K11
+1. builds the hand-written CUDA kernels K1-K16 from ``csrc/`` (one
+   ``nvcc`` per source, all started together; seventeen entry points: K11
    is a build and an update) and prints the card's name and power limit;
+   every cell of steps 2-9 runs the classic snapshot
+   (``incremental=False``, as in earlier slices) so its records stay
+   comparable, and step 9b runs the journaled incremental and resident
+   snapshot;
    every cycle below runs the cluster-health pass (K14) at the default
    ``analytics_every=1``, and its bundle rides the packed commit that
    must equal the oracle's;
@@ -95,7 +99,7 @@ mismatch:
    the claimed-domain table ``anti_used`` equal to the oracle's, no host
    holding two placed pods of one anti term, every placed depender beside
    its anchor; each cell's kernels and modes launched in every timed run:
-   - *affinity* (allocate only, the uniform path, uncut, five timed runs):
+   - *affinity* (allocate only, the uniform path, uncut, three timed runs):
      the headline backlog as 64 services (one replica per host across a
      service's gangs), 256 anchors, 256 four-pod dependers, 512 gangs on
      host port 8443 — K12, K13, K3's mask mode, K1, K2, K4;
@@ -124,7 +128,30 @@ mismatch:
    none into it, and cycle 4 binds the 32 pods there; then K14 (on the
    headline, sharing, affinity and repack_racks inputs), K15 and K4's
    repack mode are held against their plain versions and timed;
-10. runs the headline's five and three of affinity's timed cycles again,
+9b. runs the *resident_churn* cell (``bench.py``'s resident
+   configuration): the headline fleet (10,000 nodes x 8, 6,250 gangs of 8,
+   half running, each running pod on its own device), the five default
+   actions, analytics every cycle, default repack knobs, and a churn of
+   1% a cycle (250 running pods evicted, 250 pending pods bound to random
+   nodes, a tick); ``SchedulerConfig(resident=True)`` runs the cold cycle,
+   then two twins join from deep copies of its cluster and the three take
+   the stream cycle by cycle — the patched twin (``incremental=True``) and
+   the full twin (``incremental=False``, built at the resident run's
+   padded sizes: the snapshotter's slack padding decides near-ties of the
+   placement scores otherwise) — warm-up cycles until the mode
+   is resident (at most 4), one resident cycle under the profiler's CUDA
+   activity, then 8 timed ones; the resident run's launch counts reset
+   just before each of its cycles and read just after, its device state
+   read back against the host mirror after every cycle; every cycle's
+   BindRequests, evictions and analytics document equal to both twins'
+   and to the CPU oracle's (the same stream with ``resident=True`` on the
+   CPU, in the oracle process), its packed commit byte-equal to all
+   three, one ``delta-apply`` upload of the
+   packed delta's bytes with 0 redundant bytes and one K16 launch a
+   resident cycle; then K16 is held against its plain version on every
+   captured delta (each checked for unique indices first) and timed
+   beside the nearest ``index_put_`` loop;
+10. runs the headline's five and two of affinity's timed cycles again,
    each against its oracle, once the oracle process (below) is idle, and
    prints both medians beside those of the runs it was busy for;
 11. prints one JSON line of per-kernel numbers (a row per kernel and per
@@ -132,9 +159,11 @@ mismatch:
    true, "device": {...}}``.
 
 The CPU oracles of the sharing and affinity cells (the slowest) run in
-one spawned child process beside the card's work, on half the cores,
-submitted when the script starts; each cell is compared with its oracle
-when the result arrives (sharing after the last cell).  Longer output
+one spawned child process beside the card's work, on half the cores, and
+resident_churn's in a second one on a quarter of them, all submitted
+when the script starts; each cell is compared with its oracle when the result
+arrives (sharing after the last cell).  The log also goes, line by line,
+to ``chiprun_out/chip_smoke.log``.  Longer output
 (the compiler's register/spill report, per-phase numbers) goes to
 ``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
 """
@@ -160,8 +189,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
+#: the script's log, also written line by line to
+#: ``chiprun_out/chip_smoke.log``, so that the whole log survives where only
+#: the end of standard output is kept
+_LOG_FILE = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _LOG_FILE is not None:
+        _LOG_FILE.write(msg + "\n")
+        _LOG_FILE.flush()
 
 
 def card_line() -> str:
@@ -580,7 +618,9 @@ TOPO_SUB_KERNELS = ("drf_water_fill", "pertask_fill",
 AFFINITY = dict(num_nodes=10_000, node_accel=8.0, num_gangs=6250,
                 tasks_per_gang=8, services=64, anchors=256, dependers=256,
                 port_gangs=512)
-AFFINITY_RUNS = 5
+#: timed affinity cycles (~10 s each on the host); cut from 5 to 3 when
+#: the resident_churn cell joined the script, for the time budget
+AFFINITY_RUNS = 3
 #: the affinity_reclaim cell: the saturated shape at the default config,
 #: its 1,250 pending gangs in 64 services with a required hostname anti
 #: term against their own ``app`` (the running pods carry none); reclaim's
@@ -598,8 +638,9 @@ AFFINITY_SHARING = dict(num_nodes=10_000, shared_nodes=5_000, services=16,
                         **{k: v // AFFINITY_SHARING_CUT
                            for k, v in AFFINITY_SHARING_FULL.items()})
 AFFINITY_SHARING_RUNS = 3
-#: affinity runs repeated at the end with the oracle process idle
-IDLE_AFFINITY_RUNS = 3
+#: affinity runs repeated at the end with the oracle processes idle (cut
+#: from 3 to 2 with AFFINITY_RUNS)
+IDLE_AFFINITY_RUNS = 2
 #: per cell: (timed runs, kernel calls kept in its warm-up, the kernels
 #: and modes every timed run must launch)
 AFFINITY_CELLS = {
@@ -658,7 +699,8 @@ REPACK_KEEP = {"cluster_analytics": (2,), "repack_fill": (0,),
 #: the cells with a profiled run (each kernel's in-cycle device time)
 PROFILED_CELLS = ("sharing", "topology", "topology_subgroups", "saturated",
                   "saturated_sequential", "preempt_many_queues",
-                  "fragmented", *AFFINITY_CELLS, "repack_racks")
+                  "fragmented", *AFFINITY_CELLS, "repack_racks",
+                  "resident_churn")
 
 
 def analytics_fields(res) -> dict:
@@ -696,7 +738,8 @@ def run_repack_cycles(device: str):
     from kai_scheduler_tpu_torch.runtime.cluster import Cluster
     from kai_scheduler_tpu_torch.state.fleets import repack_objects
     cluster = Cluster.from_objects(*repack_objects(apis, **REPACK_RACKS))
-    sched = Scheduler(SchedulerConfig(actions=("allocate",)), device=device)
+    sched = Scheduler(SchedulerConfig(actions=("allocate",),
+                                      incremental=False), device=device)
     binder = Binder()
 
     def rack(node):
@@ -878,6 +921,386 @@ def repack_kernel_checks(cap: Capture) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the resident_churn cell: the journaled incremental snapshot, resident
+# ---------------------------------------------------------------------------
+
+#: bench.py's ``bench_resident`` configuration: the headline fleet, half
+#: of the gangs running, each running pod on its own device
+RESIDENT_CHURN = dict(num_nodes=10_000, node_accel=8.0, num_gangs=6_250,
+                      tasks_per_gang=8, running_fraction=0.5)
+#: churn a cycle: 1% of the pods (250 evicted, 250 bound), then a tick
+RESIDENT_FRAC = 0.01
+#: untimed cycles after the cold one until the mode is resident, at most
+RESIDENT_WARM = 4
+#: timed cycles (after one more untimed cycle under the profiler)
+RESIDENT_TIMED = 8
+#: the three runs of the stream: the resident path, the patched twin
+#: (incremental, changed leaves shipped) and the full twin (the whole
+#: snapshot built and uploaded every cycle)
+RESIDENT_KINDS = ("resident", "patched", "full")
+
+
+def resident_config(kind: str):
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    return {"resident": SchedulerConfig(resident=True),
+            "patched": SchedulerConfig(incremental=True, resident=False),
+            "full": SchedulerConfig(incremental=False)}[kind]
+
+
+def resident_cluster():
+    from kai_scheduler_tpu_torch.apis import types as apis
+    from kai_scheduler_tpu_torch.runtime.cluster import Cluster
+    from kai_scheduler_tpu_torch.state import fleets, make_cluster
+    return Cluster.from_objects(*fleets.steady_objects(
+        apis, make_cluster, **RESIDENT_CHURN))
+
+
+class ResidentRun:
+    """One run of the churn stream: its own cluster, churn generator
+    (``default_rng(0)``) and Scheduler.  The first cycle is cold; every
+    later one is preceded by one cycle of churn."""
+
+    def __init__(self, kind: str, device: str, cluster=None):
+        from kai_scheduler_tpu_torch.framework.scheduler import Scheduler
+        import numpy as np
+        self.kind, self.device = kind, device
+        self.cluster = cluster if cluster is not None else resident_cluster()
+        self.sched = Scheduler(resident_config(kind), device=device)
+        self.rng = np.random.default_rng(0)
+        self.cycles = 0
+
+    def step(self, before=None, capacity=None):
+        """One cycle; ``before`` runs just before ``run_once`` (the launch
+        counts' reset); ``capacity`` (the full twin) pins the full build's
+        padded sizes.  Returns ``(result, seconds)``."""
+        import functools
+        from kai_scheduler_tpu_torch.apis import types as apis
+        from kai_scheduler_tpu_torch.framework import session
+        from kai_scheduler_tpu_torch.state import fleets
+        if self.cycles:
+            fleets.churn_cluster(apis, self.cluster, self.rng, RESIDENT_FRAC,
+                                 RESIDENT_CHURN["num_nodes"])
+        if before is not None:
+            before()
+        orig = session.build_snapshot
+        if capacity is not None:
+            session.build_snapshot = functools.partial(orig,
+                                                       capacity=capacity)
+        try:
+            t0 = time.perf_counter()
+            res = self.sched.run_once(self.cluster)
+            if self.device == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            session.build_snapshot = orig
+        self.cycles += 1
+        return res, secs
+
+    @property
+    def last(self) -> dict:
+        snap = self.sched._snapshotter
+        return dict(snap.stats.last) if snap is not None else {"mode": "open"}
+
+
+def resident_record(res, last: dict) -> dict:
+    """What a cycle decided, in plain data (the oracle process returns
+    these)."""
+    return dict(packed=res.packed,
+                binds=[dataclasses.asdict(b) for b in res.bind_requests],
+                evictions=[dataclasses.asdict(e) for e in res.evictions],
+                analytics=res.analytics, mode=last["mode"],
+                fallback_reason=last.get("fallback_reason", ""),
+                bytes_shipped=last.get("bytes_shipped", 0))
+
+
+def resident_schedule(run: ResidentRun, step):
+    """Drive the cell's schedule on ``run`` (the resident one): the cold
+    cycle, warm-up cycles until the mode is resident (at most
+    ``RESIDENT_WARM``), one more untimed cycle ("profiled"), then
+    ``RESIDENT_TIMED`` timed ones.  ``step(phase)`` runs one cycle of every
+    run of the stream and returns the resident run's last stats."""
+    step("cold")
+    for _ in range(RESIDENT_WARM):
+        if step("warm")["mode"] == "resident":
+            break
+    step("profiled")
+    for _ in range(RESIDENT_TIMED):
+        step("timed")
+
+
+def run_resident_oracle():
+    """The CPU oracle of the resident_churn cell: the port on the CPU with
+    ``resident=True`` over the same stream, on its own cluster built from
+    the same seed.  Returns ``(records, seconds)``."""
+    t0 = time.perf_counter()
+    run = ResidentRun("resident", "cpu")
+    records = []
+
+    def step(phase):
+        res, _ = run.step()
+        records.append(dict(resident_record(res, run.last), phase=phase))
+        return run.last
+    resident_schedule(run, step)
+    return records, time.perf_counter() - t0
+
+
+def _same_decisions(a: dict, b: dict) -> bool:
+    return (a["binds"] == b["binds"] and a["evictions"] == b["evictions"]
+            and a["analytics"] == b["analytics"])
+
+
+def run_resident_cell(device: str = "cuda"):
+    """The resident_churn cell on the card: the resident run's cold cycle
+    (25,000 pods placed in ~2,400 allocate chunks), then the twins from
+    deep copies of its cluster, and every later cycle of the three runs in
+    turn; the resident run's launch counts reset just before its cycle
+    and read just after, its device state read back and held against the
+    host mirror after every cycle (outside the timing), K16's inputs
+    captured on every resident cycle (the delta; after the cycle, outside
+    its timing, one copy of a state of each layout), the "profiled" cycle
+    under the profiler's CUDA activity.  Returns ``(per-cycle records, captured K16
+    calls, profiler in-cycle table, fallbacks, set-up seconds)``."""
+    import copy
+    import weakref
+    from torch.profiler import ProfilerActivity, profile
+    from kai_scheduler_tpu_torch import kernels
+    from kai_scheduler_tpu_torch.ops import resident as RS
+    from kai_scheduler_tpu_torch.state.cluster_state import (
+        state_from_leaves, state_leaves)
+    t0 = time.perf_counter()
+    runs = {"resident": ResidentRun("resident", device)}
+    build_s = time.perf_counter() - t0
+    # (layout, delta) of every resident cycle, and for each layout one
+    # copy of a resident state, cloned after the cycle (outside its timing)
+    captured, bases, pending = [], {}, []
+    orig_apply = RS.apply_delta
+
+    def capture(state, delta):
+        pending.append((state, delta))
+        return orig_apply(state, delta)
+
+    def take_captured():
+        for state, delta in pending:
+            leaves = state_leaves(state)
+            key = tuple((k, tuple(t.shape)) for k, t in leaves.items())
+            if key not in bases:
+                bases[key] = state_from_leaves(
+                    {k: t.clone() for k, t in leaves.items()})
+            captured.append((bases[key], delta))
+        pending.clear()
+    records, in_cycle = [], None
+
+    def join_twins():
+        # the twins take the stream from here: the cold cycle is not a
+        # resident cycle, and running it three times on the card cost
+        # ~150 s of the script's budget.  Each twin starts from a deep
+        # copy of the cluster the cold cycle left and from the resident
+        # run's host-side history (the pending ages behind the
+        # starvation table); its own first snapshot is a full build, as
+        # the resident run's next one is (the cold cycle's BindRequests
+        # dirty half the pods)
+        src = runs["resident"]
+        for kind in RESIDENT_KINDS[1:]:
+            twin = ResidentRun(kind, device, copy.deepcopy(src.cluster))
+            twin.cycles = src.cycles
+            twin.sched._cycle_index = src.sched._cycle_index
+            twin.sched._pending_age = dict(src.sched._pending_age)
+            twin.sched._age_cluster = weakref.ref(twin.cluster)
+            runs[kind] = twin
+
+    def step(phase):
+        nonlocal in_cycle
+        rec = {"phase": phase}
+        res_run = runs["resident"]
+        RS.apply_delta = capture
+        try:
+            if phase == "profiled":
+                acts = [ProfilerActivity.CUDA if device == "cuda"
+                        else ProfilerActivity.CPU]
+                with profile(activities=acts) as prof:
+                    res, secs = res_run.step(kernels.reset_launch_counts)
+                    counts = kernels.launch_counts()
+                in_cycle = in_cycle_device_ms(prof)
+                del prof
+            else:
+                res, secs = res_run.step(kernels.reset_launch_counts)
+                counts = kernels.launch_counts()
+        finally:
+            RS.apply_delta = orig_apply
+        take_captured()
+        res_run.sched._snapshotter.verify_device_residency()
+        rec["resident"] = dict(resident_record(res, res_run.last),
+                               seconds=secs, launches=counts,
+                               phases=res.phase_seconds, wire=res.wire,
+                               action_seconds=res.action_seconds)
+        if phase == "cold":
+            join_twins()
+            records.append(rec)
+            return res_run.last
+        # the full twin builds at the resident run's padded sizes: the
+        # snapshotter pads with slack (11,250 nodes for 10,000), and the
+        # padded shapes decide near-ties of the placement scores, in the
+        # reference too; at the same sizes the full build equals the
+        # snapshotter's mirror (what its verify mode asserts)
+        cap = res_run.sched._snapshotter._capacity
+        for kind in RESIDENT_KINDS[1:]:
+            r, secs = runs[kind].step(
+                capacity=cap if kind == "full" else None)
+            rec[kind] = dict(resident_record(r, runs[kind].last),
+                             seconds=secs, phases=r.phase_seconds)
+        records.append(rec)
+        return res_run.last
+    resident_schedule(runs["resident"], step)
+    fallbacks = {k: dict(r.sched._snapshotter.stats.fallbacks)
+                 for k, r in runs.items() if r.sched._snapshotter}
+    return records, captured, in_cycle, fallbacks, build_s
+
+
+def check_resident_cell(records: list, oracle: list) -> dict:
+    """Every cycle of the resident run equals both twins (BindRequests
+    with their device indices, evictions, the analytics document) and its
+    packed commit equals theirs and the CPU oracle's (the same padded
+    sizes); every resident cycle made ONE ``delta-apply`` upload of
+    the packed delta's bytes with 0 redundant bytes and launched K16 once;
+    the warm-up reached resident mode and every timed cycle is
+    resident."""
+    if len(records) != len(oracle):
+        raise AssertionError(f"resident_churn: {len(records)} cycles, the "
+                             f"oracle {len(oracle)}")
+    for i, (rec, orc) in enumerate(zip(records, oracle)):
+        r = rec["resident"]
+        # the twins join after the cold cycle
+        others = [(rec[k], f"{k} twin") for k in RESIDENT_KINDS[1:]
+                  if k in rec] + [(orc, "CPU oracle")]
+        for other, name in others:
+            if not _same_decisions(r, other):
+                raise AssertionError(f"resident_churn cycle {i}: decisions "
+                                     f"differ from the {name}")
+            if r["packed"].tobytes() != other["packed"].tobytes():
+                raise AssertionError(f"resident_churn cycle {i}: packed "
+                                     f"commit differs from the {name}")
+        if r["mode"] != orc["mode"]:
+            raise AssertionError(f"resident_churn cycle {i}: mode "
+                                 f"{r['mode']}, the oracle {orc['mode']}")
+        if r["mode"] == "resident":
+            w = r["wire"]
+            da = w["by_reason"].get("delta-apply", {})
+            if (sorted(w["by_reason"]) != ["delta-apply"]
+                    or da.get("dispatches") != 1
+                    or da.get("bytes") != r["bytes_shipped"]
+                    or w["redundant_bytes"] != 0):
+                raise AssertionError(f"resident_churn cycle {i}: uploads "
+                                     f"{w['by_reason']}")
+            if r["launches"]["resident_apply"] != 1:
+                raise AssertionError(f"resident_churn cycle {i}: K16 "
+                                     f"launched {r['launches']}")
+    timed = [rec for rec in records if rec["phase"] == "timed"]
+    if len(timed) != RESIDENT_TIMED or any(
+            rec["resident"]["mode"] != "resident"
+            for rec in records if rec["phase"] in ("profiled", "timed")):
+        raise AssertionError("resident_churn: modes "
+                             f"{[rec['resident']['mode'] for rec in records]}")
+    modes: dict[str, int] = {}
+    for rec in records:
+        modes[rec["resident"]["mode"]] = \
+            modes.get(rec["resident"]["mode"], 0) + 1
+    secs = {k: [rec[k]["seconds"] for rec in timed] for k in RESIDENT_KINDS}
+    last = timed[-1]["resident"]
+    return dict(
+        cycles=len(records), modes=modes,
+        fallback_reasons=[rec["resident"]["fallback_reason"]
+                          for rec in records],
+        cycle_seconds_all=secs,
+        cycle_seconds_median={k: statistics.median(v)
+                              for k, v in secs.items()},
+        phase_seconds_median={
+            k: {ph: statistics.median(rec[k]["phases"][ph] for rec in timed)
+                for ph in timed[0][k]["phases"]} for k in RESIDENT_KINDS},
+        delta_bytes_all=[rec["resident"]["bytes_shipped"] for rec in timed],
+        resident_reused_bytes=last["wire"]["resident_reused_bytes"],
+        resident_uploaded_bytes=last["wire"]["resident_uploaded_bytes"],
+        binds_all=[len(rec["resident"]["binds"]) for rec in timed],
+        evictions_all=[len(rec["resident"]["evictions"]) for rec in timed],
+        launches=last["launches"], action_seconds=last["action_seconds"],
+        shape=RESIDENT_CHURN)
+
+
+def resident_kernel_checks(captured: list) -> dict:
+    """K16 on every captured delta vs its plain version, each on its own
+    copy of a resident state of the delta's layout: the states must come
+    out byte-equal.  Every captured delta is first checked for the kernel's
+    precondition (no element addressed twice).  Timed on the last one:
+    the kernel (median of 50), the plain version, and the nearest library
+    equivalent — one ``index_put_`` per leaf that has entries, with its
+    local indices and values already sliced out (the port never runs
+    it).  Bound: bytes — the padded idx segments read once, the values of
+    the live entries (``idx >= 0``; the kernel returns on a padding entry
+    before it loads the value) read once, the changed elements written
+    once."""
+    from kai_scheduler_tpu_torch.ops import resident as RS
+    from kai_scheduler_tpu_torch.state.cluster_state import (
+        state_from_leaves, state_leaves)
+
+    def clone(st):
+        return state_from_leaves({k: t.clone()
+                                  for k, t in state_leaves(st).items()})
+    if not captured:
+        raise AssertionError("resident_churn: no delta captured")
+    for base, delta in captured:
+        for key, idx in delta["idx"].items():
+            live = idx[idx >= 0]
+            if int(torch.unique(live).numel()) != int(live.numel()):
+                raise AssertionError(f"K16: group {key} addresses an "
+                                     f"element twice")
+        k_st, p_st = clone(base), clone(base)
+        RS.apply_delta(k_st, delta)
+        RS.apply_delta_plain(p_st, delta)
+        torch.cuda.synchronize()
+        for (name, a), b in zip(state_leaves(k_st).items(),
+                                state_leaves(p_st).values()):
+            # bit for bit: NaN payloads and -0.0 included
+            if not torch.equal(a.reshape(-1).view(torch.uint8),
+                               b.reshape(-1).view(torch.uint8)):
+                raise AssertionError(f"K16: leaf {name} differs from the "
+                                     f"plain version")
+    base, delta = captured[-1]
+    st = clone(base)
+    ms = _time_ms(lambda: RS.apply_delta(st, delta))
+    plain_ms = _time_ms(lambda: RS.apply_delta_plain(st, delta), 5)
+    # the nearest library equivalent: index_put_ per changed leaf
+    pl = list(state_leaves(st).items())
+    puts, written = [], 0
+    for (path, leaf), (cls, off) in zip(pl, RS.leaf_layout(pl)):
+        idx, val = delta["idx"][cls], delta["val"][cls]
+        if idx.numel() == 0:
+            continue
+        local = idx - off
+        ok = (local >= 0) & (local < leaf.numel())
+        if bool(ok.any()):
+            puts.append((leaf.view(-1), local[ok].long(), val[ok]))
+            written += int(ok.sum()) * leaf.element_size()
+
+    def library():
+        for flat, li, v in puts:
+            flat.index_put_((li,), v)
+    lib_ms = _time_ms(library)
+    read = sum(idx.numel() * idx.element_size()
+               + int((idx >= 0).sum()) * delta["val"][key].element_size()
+               for key, idx in delta["idx"].items())
+    entries = sum(t.numel() for t in delta["idx"].values())
+    b, by = bound(read + written, entries * 16)
+    return {"resident_apply": dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, nearest_library="index_put_ per changed leaf",
+        nearest_library_ms=lib_ms, checked=len(captured),
+        shape=f"{entries} padded entries in "
+              f"{sum(1 for t in delta['idx'].values() if t.numel())} "
+              f"groups, {len(puts)} changed leaves, {written} bytes "
+              f"written")}
+
+
 def fresh_cluster(shape: dict):
     from kai_scheduler_tpu_torch.runtime.cluster import Cluster
     from kai_scheduler_tpu_torch.state import make_cluster
@@ -889,7 +1312,8 @@ def run_cycle(shape: dict, device: str):
                                                              SchedulerConfig)
     cluster = fresh_cluster(shape)
     t0 = time.perf_counter()
-    res = Scheduler(SchedulerConfig(actions=("allocate",)),
+    res = Scheduler(SchedulerConfig(actions=("allocate",),
+                                    incremental=False),
                     device=device).run_once(cluster)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -947,7 +1371,8 @@ def run_sharing_cycle(device: str):
                                                              SchedulerConfig)
     cluster = sharing_cluster()
     t0 = time.perf_counter()
-    res = Scheduler(SchedulerConfig(actions=("allocate",)),
+    res = Scheduler(SchedulerConfig(actions=("allocate",),
+                                    incremental=False),
                     device=device).run_once(cluster)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1084,7 +1509,8 @@ def run_topology_cycle(cell: str, device: str):
                                                              SchedulerConfig)
     cluster = topology_cluster(cell)
     t0 = time.perf_counter()
-    res = Scheduler(SchedulerConfig(actions=("allocate",)),
+    res = Scheduler(SchedulerConfig(actions=("allocate",),
+                                    incremental=False),
                     device=device).run_once(cluster)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1367,11 +1793,12 @@ def affinity_config(cell: str):
     from kai_scheduler_tpu_torch.framework.session import SessionConfig
     from kai_scheduler_tpu_torch.ops.victims import VictimConfig
     if cell == "affinity_reclaim":
-        return SchedulerConfig()
+        return SchedulerConfig(incremental=False)
     if cell == "affinity_reclaim_sequential":
-        return SchedulerConfig(session=SessionConfig(victims=VictimConfig(
-            batch_size=1, queue_depth=SEQUENTIAL_QUEUE_DEPTH)))
-    return SchedulerConfig(actions=("allocate",))
+        return SchedulerConfig(incremental=False, session=SessionConfig(
+            victims=VictimConfig(batch_size=1,
+                                 queue_depth=SEQUENTIAL_QUEUE_DEPTH)))
+    return SchedulerConfig(actions=("allocate",), incremental=False)
 
 
 def run_affinity_cycle(cell: str, device: str):
@@ -1658,10 +2085,11 @@ def victim_config(cell: str):
     width = VICTIM_CELLS[cell][1]
     actions = CELL_ACTIONS.get(cell, SchedulerConfig().actions)
     if width is None:
-        return SchedulerConfig(actions=actions)
-    return SchedulerConfig(actions=actions, session=SessionConfig(
-        victims=VictimConfig(batch_size=width,
-                             queue_depth=SEQUENTIAL_QUEUE_DEPTH)))
+        return SchedulerConfig(actions=actions, incremental=False)
+    return SchedulerConfig(actions=actions, incremental=False,
+                           session=SessionConfig(victims=VictimConfig(
+                               batch_size=width,
+                               queue_depth=SEQUENTIAL_QUEUE_DEPTH)))
 
 
 def victim_cluster(cell: str):
@@ -1988,26 +2416,43 @@ def _oracle_process_init() -> None:
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
 
 
+def _resident_oracle_init() -> None:
+    # a quarter of the cores: its result is needed last
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+
+
 def main() -> int:
+    global _LOG_FILE
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import concurrent.futures
     import multiprocessing
-    # one child process (spawned: it never touches CUDA) computes the
-    # slowest CPU oracles beside the card's work; it is stopped on any exit
-    pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
-        initializer=_oracle_process_init)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    _LOG_FILE = open(os.path.join(OUT_DIR, "chip_smoke.log"), "w")
+    # two child processes (spawned: they never touch CUDA) compute the
+    # slowest CPU oracles beside the card's work: one the affinity and
+    # sharing cells', in the order the card needs them, the other
+    # resident_churn's, whose cold cycle alone (25,000 pods placed in
+    # ~2,400 allocate chunks) takes some 400 s on the CPU; both are
+    # stopped on any exit
+    spawn = multiprocessing.get_context("spawn")
+    pools = [concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=spawn, initializer=init)
+        for init in (_oracle_process_init, _resident_oracle_init)]
     try:
-        oracles = {"sharing": pool.submit(run_sharing_cycle, "cpu")}
-        oracles.update({cell: pool.submit(run_affinity_cycle, cell, "cpu")
+        oracles = {"resident_churn": pools[1].submit(run_resident_oracle)}
+        oracles.update({cell: pools[0].submit(run_affinity_cycle, cell, "cpu")
                         for cell in AFFINITY_CELLS})
+        oracles["sharing"] = pools[0].submit(run_sharing_cycle, "cpu")
         return run(oracles)
     finally:
-        pool.shutdown(wait=False, cancel_futures=True)
-        for proc in list((getattr(pool, "_processes", None) or {}).values()):
-            proc.terminate()
+        for pool in pools:
+            pool.shutdown(wait=False, cancel_futures=True)
+            for proc in list((getattr(pool, "_processes", None)
+                              or {}).values()):
+                proc.terminate()
+        _LOG_FILE.close()
 
 
 def run(oracles: dict) -> int:
@@ -2312,6 +2757,38 @@ def run(oracles: dict) -> int:
         f"{rec['moved_from']}; launches {counts}; every cycle's commit, "
         f"decision and document == CPU oracle")
     log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+
+    # -- 9b. the resident_churn cell: the resident run and its two twins
+    # over one churn stream, then the CPU oracle (the oracle process), then
+    # K16 vs its plain version on every captured delta -------------------
+    records, captured, in_cycle, fallbacks, build_s = run_resident_cell()
+    oracle, oracle_s = oracles["resident_churn"].result()
+    rec = check_resident_cell(records, oracle)
+    rec.update(in_cycle_ms=in_cycle, fallbacks=fallbacks,
+               cluster_build_seconds=build_s, cpu_oracle_seconds=oracle_s)
+    report["resident_churn"] = rec
+    del records, oracle
+    checks.update(resident_kernel_checks(captured))
+    del captured
+    med = rec["cycle_seconds_median"]
+    log(f"resident_churn: {rec['cycles']} cycles (modes {rec['modes']}, "
+        f"fallbacks {rec['fallback_reasons']}), {RESIDENT_TIMED} timed: "
+        f"median resident {med['resident']:.4f} s, patched twin "
+        f"{med['patched']:.4f} s, full twin {med['full']:.4f} s (all: "
+        f"{rec['cycle_seconds_all']}); "
+        f"delta bytes {rec['delta_bytes_all']}, resident reused "
+        f"{rec['resident_reused_bytes']} B vs uploaded "
+        f"{rec['resident_uploaded_bytes']} B; binds {rec['binds_all']}, "
+        f"evictions {rec['evictions_all']}; launches {rec['launches']}; "
+        f"every cycle's decisions == both twins and the CPU oracle "
+        f"({oracle_s:.1f} s), packed == both twins and oracle, residency "
+        f"verified after every cycle, one delta-apply upload and one K16 "
+        f"launch a resident cycle")
+    for k in RESIDENT_KINDS:
+        log(f"  {k} phases (median of the timed): " + ", ".join(
+            f"{ph} {v:.4f}" for ph, v in rec["phase_seconds_median"][k]
+            .items()))
+    log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
     # the sharing cell against its CPU oracle (run in the oracle process)
     cpu, _, cpu_s = oracles["sharing"].result()
     recs = [check_sharing_cycle((res, secs), cpu, cluster, counts)
@@ -2394,7 +2871,8 @@ def run(oracles: dict) -> int:
                     ("topo_tables_update", "topology"),
                     ("affinity_mask", "affinity"),
                     ("anti_mark", "affinity"),
-                    ("repack_fill", "repack_racks")):
+                    ("repack_fill", "repack_racks"),
+                    ("resident_apply", "resident_churn")):
         path_of[k] = (cell, report[cell]["launches"])
     #: each kernel mode and the cell whose run its row's launches read
     mode_path = {"type_tables:lanes": "saturated",

@@ -1,6 +1,7 @@
 """Binder — consumes BindRequests and commits pod→node bindings.
 
-Port of ``kai_scheduler_tpu/binder/binder.py``.  Reference: a separate controller process (``pkg/binder``) watching
+Port of ``kai_scheduler_tpu/binder/binder.py``.  Reference: a separate
+controller process (``pkg/binder``) watching
 BindRequest CRs; per request it runs a PreBind plugin chain (volume
 binding, DRA claims, GPU-sharing env injection), calls the
 ``pods/binding`` subresource, and on failure rolls back and retries up
@@ -10,9 +11,10 @@ to ``BackoffLimit`` (``binder/controllers/bindrequest_controller.go:55``,
 Here the binder is an in-process reconciler over ``Cluster``: the plugin
 chain is the same Name/PreBind/PostBind/Rollback protocol
 (``binder/plugins/interface.go:16-24``), and async-ness is modeled by
-processing whatever requests exist when ``reconcile`` runs.  The
-reference's intake-journal touches wait for the incremental snapshotter's
-slice: this package's ``Cluster`` keeps no journal.
+processing whatever requests exist when ``reconcile`` runs.  Every phase
+change of a BindRequest marks its pod in the cluster's mutation journal
+(through ``intake/gate.py``): a Pending request presents its pod as bound
+in the snapshot, so the incremental snapshotter must re-encode it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import dataclasses
 from typing import Protocol
 
 from ..apis import types as apis
+from ..intake import gate as _gate
 from ..runtime.cluster import Cluster
 
 
@@ -254,6 +257,7 @@ class Binder:
             if pod is None or pod.status in (apis.PodStatus.SUCCEEDED,
                                              apis.PodStatus.FAILED):
                 br.phase = "Failed"
+                _gate.pod_touched(cluster.journal, br.pod_name)
                 result.failed.append(br.pod_name)
                 continue
             if pod.status == apis.PodStatus.RELEASING:
@@ -263,6 +267,7 @@ class Binder:
                 continue
             if pod.status != apis.PodStatus.PENDING:
                 br.phase = "Failed"
+                _gate.pod_touched(cluster.journal, br.pod_name)
                 result.failed.append(br.pod_name)
                 continue
             done: list[BinderPlugin] = []
@@ -278,6 +283,7 @@ class Binder:
                 br.failures += 1
                 if br.failures > br.backoff_limit:
                     br.phase = "Failed"
+                    _gate.pod_touched(cluster.journal, br.pod_name)
                     result.failed.append(br.pod_name)
                 else:
                     result.retrying.append(br.pod_name)
@@ -285,5 +291,6 @@ class Binder:
             for plugin in self.plugins:
                 plugin.post_bind(cluster, pod, br)
             br.phase = "Succeeded"
+            _gate.pod_touched(cluster.journal, br.pod_name)
             result.bound.append(br.pod_name)
         return result

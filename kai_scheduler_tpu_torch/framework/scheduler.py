@@ -1,15 +1,30 @@
 """Cycle driver — ``scheduler.go`` ``Scheduler.Run``/``runOnce`` rebuilt.
 
-Port of ``kai_scheduler_tpu/framework/scheduler.py``, classic path: every
-cycle opens a session (snapshot + fair-share division), runs the
-configured actions over one commit set, gathers the packed commit with
-one device→host copy, and writes BindRequests and evictions back to the
-``Cluster`` (a consolidation-moved victim also gets its pipelined
-rebind).  Actions register by name (ref ``actions/factory.go:31-37``):
-``allocate``, ``consolidation``, ``reclaim``, ``preempt`` and
-``stalegangeviction``.  The reference runs its built-in actions as one
-fused program; here each action is its own host-driven loop over the same
-commit set, in the configured order.
+Port of ``kai_scheduler_tpu/framework/scheduler.py``: every cycle takes
+a snapshot, divides fair shares, runs the configured actions over one
+commit set, gathers the packed commit with one device→host copy, and
+writes BindRequests and evictions back to the ``Cluster`` (a
+consolidation-moved victim also gets its pipelined rebind).  Actions
+register by name (ref ``actions/factory.go:31-37``): ``allocate``,
+``consolidation``, ``reclaim``, ``preempt`` and ``stalegangeviction``.
+
+The snapshot, as in the reference's default configuration
+(``incremental=True``), comes from the journaled incremental snapshotter
+(``state/incremental.py``): it patches the previous cycle's host mirror
+from the cluster's mutation journal and uploads only the changed leaves,
+falling back to the full build whenever a patch cannot be proven
+identical.  With ``resident=True`` a patched cycle uploads only a packed
+journal delta and runs :func:`resident_cycle`: the delta written into the
+device-resident snapshot in place (kernel K16), the fair-share division
+(K1), the actions, the analytics pass (K14) and the commit pack, one host
+composition over the resident state.  ``incremental=False`` builds the
+whole snapshot every cycle (``Session.open``).
+
+The actions run as one composition (:func:`run_actions`): the reference
+fuses its built-in ones into one XLA program; here each action is its own
+host-driven loop of kernel launches over the same commit set, in the
+configured order.  A built-in action runs its body; an action registered
+by a caller in place of a built-in one runs over the session instead.
 
 After the actions, an analytics cycle (every ``analytics_every`` cycles,
 every cycle by default) runs the cluster-health pass over the snapshot
@@ -20,13 +35,16 @@ consecutive cycles whose fragmentation score exceeded
 capacity, and then solves a min-migration plan (``ops/repack.py``, K15
 and K4) whose moves join the cycle's evictions and commit through the
 pipelined rebind of consolidation moves.  The bundle and the plan ride
-the one packed commit.  The incremental, resident, tracing, metrics,
-decision-event (``starved`` events included), leader-election and
-usage-DB branches of the reference wait for later slices.
+the one packed commit (a resident cycle reads the plan back on its own).
+Every upload goes through the transfer ledger, whose window closes into
+``CycleResult.wire`` at the end of the cycle.  The tracing, metrics,
+decision-event (``starved`` events included), leader-election, sharding
+and usage-DB branches of the reference wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import weakref
 from typing import Callable, Protocol
@@ -36,13 +54,146 @@ import torch
 
 from ..apis import types as apis
 from ..device import resolve_device
+from ..ops import drf
+from ..ops import resident as resident_ops
 from ..ops.allocate import AllocationResult, allocate_counted, init_result
 from ..ops.analytics import cluster_analytics
 from ..ops.repack import RepackConfig, plan_repack
 from ..ops.stale import stale_gang_eviction
 from ..ops.victims import VictimStats, run_victim_action_counted
+from ..runtime import compile_watch
+from ..runtime import wire_ledger as _wire
 from ..runtime.cluster import Cluster
-from .session import Session, SessionConfig
+from ..state.incremental import IncrementalSnapshotter
+from .session import Session, SessionConfig, _pack_commit
+
+
+@dataclasses.dataclass
+class PipelineCounts:
+    """What the action pipeline did besides its commit set."""
+
+    #: allocate wavefront chunks, per-task lanes retried in the next
+    #: domain, and the chunks whose retry launch had such a lane
+    chunks: int = 0
+    retries: int = 0
+    retry_chunks: int = 0
+    #: victim action name -> its steps, attempts and host syncs
+    victim_stats: dict[str, VictimStats] = dataclasses.field(
+        default_factory=dict)
+    #: action name -> host seconds
+    action_seconds: dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+
+def _pure_allocate(st, fs, res, nl, acfg, vcfg, grace, counts):
+    res, c = allocate_counted(st, fs, num_levels=nl, config=acfg, init=res)
+    counts.chunks += c.chunks
+    counts.retries += c.retries
+    counts.retry_chunks += c.retry_chunks
+    return res
+
+
+def _pure_victims(mode: str):
+    name = "consolidation" if mode == "consolidate" else mode
+
+    def run(st, fs, res, nl, acfg, vcfg, grace, counts):
+        res, stats = run_victim_action_counted(
+            st, fs, res, num_levels=nl, mode=mode, config=vcfg)
+        counts.victim_stats[name] = stats
+        return res
+    return run
+
+
+def _pure_stale(st, fs, res, nl, acfg, vcfg, grace, counts):
+    return stale_gang_eviction(st, res, grace_s=grace, num_levels=nl)
+
+
+#: the built-in action bodies, composed by :func:`run_actions`
+_PURE_ACTIONS = {
+    "allocate": _pure_allocate,
+    "consolidation": _pure_victims("consolidate"),
+    "reclaim": _pure_victims("reclaim"),
+    "preempt": _pure_victims("preempt"),
+    "stalegangeviction": _pure_stale,
+}
+
+
+def run_actions(state, fair_share, steps, *, num_levels, acfg, vcfg,
+                grace_s) -> tuple[AllocationResult, PipelineCounts]:
+    """The action pipeline over a fresh commit set: each ``(name, step)``
+    in order, timed; returns the commit set and the counts.  A step takes
+    the arguments of the :data:`_PURE_ACTIONS` bodies."""
+    res = init_result(state)
+    counts = PipelineCounts()
+    for name, step in steps:
+        ta = time.perf_counter()
+        res = step(state, fair_share, res, num_levels, acfg, vcfg, grace_s,
+                   counts)
+        counts.action_seconds[name] = time.perf_counter() - ta
+    return res, counts
+
+
+def _builtin_steps(actions) -> tuple:
+    return tuple((name, _PURE_ACTIONS[name]) for name in actions)
+
+
+#: the classic cycle's watched pipeline entry (``runtime/compile_watch``),
+#: called over built-in steps only, whose signature stays the same
+_fused_pipeline = compile_watch.watch("fused_pipeline", run_actions)
+
+
+def resident_cycle(state, delta, ages, k_value, *, actions, num_levels,
+                   acfg, vcfg, grace_s, track_devices, analytics_cfg):
+    """One steady resident cycle over the device-resident snapshot.
+
+    ``state`` is the resident ``ClusterState``; ``delta`` the packed
+    journal delta on its device (``ops/resident.py``).  The delta is
+    written into ``state`` IN PLACE (K16); then the fair-share division
+    (K1), the actions over the solved copy, the analytics pass (K14) when
+    ``analytics_cfg`` is given, and the commit pack — the reference's one
+    fused program, composed here on the host from the same kernels.
+
+    Returns ``(state, result, packed, counts)``: the post-delta state for
+    the next cycle WITHOUT the fair-share replacement (fair share is
+    derived every cycle, and the resident state must stay leaf-identical
+    to the snapshotter's host mirror), the commit set, the i16 commit and
+    the pipeline's counts.  Tensors of an earlier cycle's commit set may
+    alias the resident leaves and change under the next apply.
+    """
+    state = resident_ops.apply_delta(state, delta)
+    fair_share = drf.set_fair_share(state, num_levels=num_levels,
+                                    k_value=k_value)
+    solved = dataclasses.replace(state, queues=dataclasses.replace(
+        state.queues, fair_share=fair_share))
+    res, counts = run_actions(solved, fair_share, _builtin_steps(actions),
+                              num_levels=num_levels, acfg=acfg, vcfg=vcfg,
+                              grace_s=grace_s)
+    bundle = None
+    if analytics_cfg is not None:
+        ta = time.perf_counter()
+        bundle = cluster_analytics(solved, res, ages, config=analytics_cfg)
+        counts.action_seconds["analytics"] = time.perf_counter() - ta
+    packed = _pack_commit(res, solved, track_devices=track_devices,
+                          analytics=bundle)
+    return state, res, packed, counts
+
+
+#: the resident cycle's one watched entry: it calls the unwatched bodies,
+#: so a steady resident cycle counts exactly one watched call
+_resident_cycle = compile_watch.watch("resident_cycle", resident_cycle)
+
+
+def _analytics_body(*args, **kwargs):
+    return cluster_analytics(*args, **kwargs)
+
+
+def _repack_body(*args, **kwargs):
+    return plan_repack(*args, **kwargs)
+
+
+#: the classic cycle's analytics entry and every cycle's repack entry
+_analytics = compile_watch.watch("analytics", _analytics_body)
+_repack = compile_watch.watch("repack", _repack_body)
 
 
 @dataclasses.dataclass
@@ -62,15 +213,17 @@ class CycleResult:
     action_seconds: dict[str, float] = dataclasses.field(
         default_factory=dict)
     session_seconds: float = 0.0
-    #: Session.open wall seconds (snapshot build, upload, DRF division)
+    #: snapshot wall seconds (refresh or build, upload, and the DRF
+    #: division outside resident cycles)
     open_seconds: float = 0.0
     #: packed-commit gather + BindRequest decode + API writes
     commit_seconds: float = 0.0
     #: contiguous checkpoints partitioning the cycle: snapshot / upload /
     #: solve_dispatch / device_wait / host_decode / commit (the
     #: reference's keys; here ``upload`` is the snapshot's one
-    #: host-to-device copy and ``solve_dispatch`` includes the device
-    #: time of the actions, whose wavefront syncs once per chunk)
+    #: host-to-device copy — the changed leaves, the packed delta or the
+    #: full build — and ``solve_dispatch`` includes the device time of
+    #: the actions, whose wavefront syncs once per chunk)
     phase_seconds: dict[str, float] = dataclasses.field(default_factory=dict)
     cycle_index: int = 0
     cycle_seed: int = 0
@@ -97,6 +250,18 @@ class CycleResult:
     repack: dict = dataclasses.field(default_factory=dict)
     #: host seconds of the repack solve (0.0 when not fired)
     repack_seconds: float = 0.0
+    #: the cycle's transfer summary (runtime/wire_ledger.py): bytes,
+    #: leaves and dispatches by reason, redundant bytes, and the
+    #: residency gauge — the ledger window rolled at the cycle's end
+    wire: dict = dataclasses.field(default_factory=dict)
+
+
+def _take_counts(result: CycleResult, counts: PipelineCounts) -> None:
+    result.chunks += counts.chunks
+    result.retries += counts.retries
+    result.retry_chunks += counts.retry_chunks
+    result.victim_stats.update(counts.victim_stats)
+    result.action_seconds.update(counts.action_seconds)
 
 
 def cycle_seed_for(seed: int, cycle_index: int) -> int:
@@ -133,61 +298,50 @@ def action_names() -> list[str]:
     return list(_ACTION_REGISTRY)
 
 
-@register_action("allocate")
-def _allocate_action() -> Action:
-    def run(session: Session, result: CycleResult) -> None:
-        result.tensors, counts = allocate_counted(
-            session.state, session.state.queues.fair_share,
-            num_levels=session.config.num_levels,
-            config=session.config.allocate, init=result.tensors)
-        result.chunks += counts.chunks
-        result.retries += counts.retries
-        result.retry_chunks += counts.retry_chunks
-    return run
+class _BuiltinAction:
+    """A built-in action's registry entry.  The cycle runs its
+    :data:`_PURE_ACTIONS` body as a pipeline step; called as an action (by
+    one registered in its place that wraps it) it runs the body watched as
+    the reference's per-action entry."""
 
+    def __init__(self, name: str):
+        self.name = name
 
-def _victim_action(mode: str) -> Action:
-    def run(session: Session, result: CycleResult) -> None:
-        name = "consolidation" if mode == "consolidate" else mode
-        result.tensors, stats = run_victim_action_counted(
+    def __call__(self, session: Session, result: CycleResult) -> None:
+        cfg = session.config
+        counts = PipelineCounts()
+        result.tensors = _WATCHED_ACTIONS[self.name](
             session.state, session.state.queues.fair_share, result.tensors,
-            num_levels=session.config.num_levels, mode=mode,
-            config=session.config.victims)
-        result.victim_stats[name] = stats
-    return run
+            cfg.num_levels, cfg.allocate, cfg.victims, cfg.stale_grace_s,
+            counts)
+        _take_counts(result, counts)
 
 
-@register_action("reclaim")
-def _reclaim_action() -> Action:
-    """Cross-queue fairness enforcement — ref ``actions/reclaim``."""
-    return _victim_action("reclaim")
+def _registry_step(action: Action, session: Session, result: CycleResult):
+    """An action registered in place of a built-in one, as a pipeline
+    step: it runs over the session and the cycle's result."""
+    def step(st, fs, res, nl, acfg, vcfg, grace, counts):
+        result.tensors = res
+        action(session, result)
+        return result.tensors
+    return step
 
 
-@register_action("preempt")
-def _preempt_action() -> Action:
-    """Intra-queue priority preemption — ref ``actions/preempt``."""
-    return _victim_action("preempt")
-
-
-@register_action("consolidation")
-def _consolidation_action() -> Action:
-    """Evict-and-reallocate defragmentation — ref
-    ``actions/consolidation`` (every victim must be re-placed; see
-    ``victim_move``)."""
-    return _victim_action("consolidate")
-
-
-@register_action("stalegangeviction")
-def _stale_action() -> Action:
-    """Evict gangs below minMember past grace — ref
-    ``actions/stalegangeviction``."""
-    def run(session: Session, result: CycleResult) -> None:
-        result.tensors = stale_gang_eviction(
-            session.state, result.tensors,
-            grace_s=session.config.stale_grace_s,
-            num_levels=session.config.num_levels)
-    return run
-
+# the reference's actions (``actions/allocate``, ``actions/consolidation``
+# — evict-and-reallocate, every victim re-placed —, ``actions/reclaim`` —
+# cross-queue fairness —, ``actions/preempt`` — intra-queue priority —,
+# ``actions/stalegangeviction`` — gangs below minMember past grace), each
+# body watched under the reference's entry name
+_WATCHED_ACTIONS = {
+    name: compile_watch.watch(entry, _PURE_ACTIONS[name])
+    for name, entry in (("allocate", "allocate"),
+                        ("consolidation", "run_victim_action"),
+                        ("reclaim", "run_victim_action"),
+                        ("preempt", "run_victim_action"),
+                        ("stalegangeviction", "stale_gang_eviction"))}
+for _name in _WATCHED_ACTIONS:
+    register_action(_name)(functools.partial(_BuiltinAction, _name))
+del _name
 
 #: the reference's default action pipeline (``conf_util/
 #: scheduler_conf_util.go:37``)
@@ -231,6 +385,22 @@ class SchedulerConfig:
     #: ``min(repack_max_migrations, VictimConfig.max_victim_pods)``; 0
     #: disables
     repack_max_migrations: int = 64
+    #: journaled incremental snapshot refresh (state/incremental.py):
+    #: re-derive only dirty rows each cycle instead of the full host
+    #: rebuild, falling back to the full builder on structural change,
+    #: feature pods, or churn above the threshold
+    incremental: bool = True
+    #: keep the snapshot resident on the device across cycles: patched
+    #: cycles upload only a packed journal delta and run
+    #: :func:`resident_cycle`; requires ``incremental``; structural
+    #: changes fall back to the full build automatically
+    resident: bool = False
+    #: after every patched refresh, rebuild from scratch and assert the
+    #: patched mirror is element-wise identical; on the resident path,
+    #: also read the resident state back and compare it with the mirror
+    verify_incremental: bool = False
+    #: dirty fraction above which patching falls back to a full rebuild
+    incremental_dirty_threshold: float = 0.35
 
 
 class Scheduler:
@@ -249,6 +419,10 @@ class Scheduler:
                 f"{action_names()}")
         self._actions = [(name, _ACTION_REGISTRY[name]())
                          for name in self.config.actions]
+        #: every action is a built-in one: the watched classic pipeline
+        #: and the resident path's precondition
+        self._builtin_only = all(isinstance(a, _BuiltinAction)
+                                 for _, a in self._actions)
         self._cycle_index = 0
         #: cycle-side view of fit-failure counts (see _record_fit_status),
         #: scoped to one cluster document
@@ -263,18 +437,67 @@ class Scheduler:
         self._repack_watch: dict[str, int] = {}
         self._last_analytics: dict = {}
         self._last_repack: dict = {}
+        #: the incremental snapshotter, scoped to one cluster document (it
+        #: understands one journal)
+        self._snapshotter: IncrementalSnapshotter | None = None
+        self._snapshotter_cluster = None
+
+    def _steps(self, session: Session, result: CycleResult) -> tuple:
+        """The configured actions as pipeline steps: a built-in one's
+        :data:`_PURE_ACTIONS` body, an overriding one over the session."""
+        return tuple(
+            (name, _PURE_ACTIONS[name] if isinstance(a, _BuiltinAction)
+             else _registry_step(a, session, result))
+            for name, a in self._actions)
+
+    def _snapshot(self, cluster: Cluster):
+        """This cycle's Session: ``(session, resident delta or None,
+        upload seconds)``."""
+        cfg = self.config
+        if not cfg.incremental:
+            session = Session.open(
+                *cluster.snapshot_lists(), config=cfg.session,
+                device=self.device, now=cluster.now,
+                resource_claims=cluster.resource_claims,
+                device_classes=cluster.device_classes,
+                volume_claims=cluster.volume_claims,
+                storage_classes=cluster.storage_classes)
+            return session, None, session.index.upload_seconds
+        if (self._snapshotter_cluster is None
+                or self._snapshotter_cluster() is not cluster):
+            self._snapshotter = IncrementalSnapshotter(
+                verify=cfg.verify_incremental,
+                dirty_threshold=cfg.incremental_dirty_threshold,
+                device=self.device)
+            self._snapshotter_cluster = weakref.ref(cluster)
+        snap = self._snapshotter
+        delta = None
+        # the resident path engages only over built-in actions (an
+        # overriding action runs over a session's state)
+        if cfg.resident and self._builtin_only:
+            rr = snap.refresh_resident(cluster, now=cluster.now)
+            if rr.mode == "resident":
+                delta = rr.delta
+                session = Session.resident(rr.index, config=cfg.session,
+                                           host_state=rr.host)
+            else:
+                session = Session.from_state(rr.state, rr.index,
+                                             config=cfg.session)
+                session.host_state = rr.host
+            index = rr.index
+        else:
+            state, index = snap.refresh(cluster, now=cluster.now)
+            session = Session.from_state(state, index, config=cfg.session)
+        # a full rebuild's upload is timed inside build_snapshot
+        upload_s = (index.upload_seconds if snap.stats.last["mode"] == "full"
+                    else float(snap.stats.last["ship_seconds"]))
+        return session, delta, upload_s
 
     def run_once(self, cluster: Cluster) -> CycleResult:
         """One scheduling cycle: snapshot → actions → commit set."""
         t0 = time.perf_counter()
-        session = Session.open(
-            *cluster.snapshot_lists(), config=self.config.session,
-            device=self.device, now=cluster.now,
-            resource_claims=cluster.resource_claims,
-            device_classes=cluster.device_classes,
-            volume_claims=cluster.volume_claims,
-            storage_classes=cluster.storage_classes)
-        upload_s = session.index.upload_seconds
+        session, delta, upload_s = self._snapshot(cluster)
+        resident_mode = delta is not None
         t_open = time.perf_counter()
         open_s = t_open - t0
         result = CycleResult()
@@ -284,19 +507,58 @@ class Scheduler:
         every = self.config.analytics_every
         run_analytics = every > 0 and self._cycle_index % every == 0
         self._cycle_index += 1
-        result.tensors = init_result(session.state)
         result.open_seconds = open_s
-        for name, action in self._actions:
-            ta = time.perf_counter()
-            action(session, result)
-            result.action_seconds[name] = time.perf_counter() - ta
+        cfg = session.config
         bundle = None
         ages = None
-        if run_analytics:
+        packed = None
+        if resident_mode:
+            ta = time.perf_counter()
+            if run_analytics:
+                ages = self._pending_age_vector(cluster, session)
+                ages_arg = ages
+            else:
+                # a cadence-skipped cycle: the resident cycle never reads
+                # the ages; `ages` stays None so a repack firing below
+                # still computes the real ones
+                ages_arg = torch.zeros(
+                    (session.host_state["gangs.valid"].shape[0],),
+                    dtype=torch.float32, device=self.device)
+            snap = self._snapshotter
+            new_state, tensors, packed, counts = _resident_cycle(
+                snap.device_state, delta, ages_arg, cfg.k_value,
+                actions=tuple(self.config.actions),
+                num_levels=cfg.num_levels, acfg=cfg.allocate,
+                vcfg=cfg.victims, grace_s=cfg.stale_grace_s,
+                track_devices=session.index.needs_device_table,
+                analytics_cfg=cfg.analytics if run_analytics else None)
+            # the post-delta state is both the session's state and the
+            # next cycle's resident base
+            snap.adopt_device_state(new_state)
+            session.state = new_state
+            result.tensors = tensors
+            _take_counts(result, counts)
+            result.analytics_seconds = counts.action_seconds.pop(
+                "analytics", 0.0)
+            result.action_seconds["resident_cycle"] = \
+                time.perf_counter() - ta
+            if self.config.verify_incremental:
+                snap.verify_device_residency()
+        else:
+            ta = time.perf_counter()
+            pipeline = _fused_pipeline if self._builtin_only else run_actions
+            result.tensors, counts = pipeline(
+                session.state, session.state.queues.fair_share,
+                self._steps(session, result), num_levels=cfg.num_levels,
+                acfg=cfg.allocate, vcfg=cfg.victims,
+                grace_s=cfg.stale_grace_s)
+            _take_counts(result, counts)
+            result.action_seconds["pipeline"] = time.perf_counter() - ta
+        if run_analytics and not resident_mode:
             ta = time.perf_counter()
             ages = self._pending_age_vector(cluster, session)
-            bundle = cluster_analytics(session.state, result.tensors, ages,
-                                       config=session.config.analytics)
+            bundle = _analytics(session.state, result.tensors, ages,
+                                config=cfg.analytics)
             result.analytics_seconds = time.perf_counter() - ta
         repack_plan = None
         if self._repack_trigger(cluster, session):
@@ -305,17 +567,22 @@ class Scheduler:
                 ages = self._pending_age_vector(cluster, session)
             # destinations draw on the post-decision idle pool, so a move
             # never lands on capacity this cycle's placements took
-            repack_plan = plan_repack(
+            repack_plan = _repack(
                 session.state, ages, result.tensors.free,
                 config=RepackConfig(
-                    analytics=session.config.analytics,
+                    analytics=cfg.analytics,
                     max_migrations=min(
                         self.config.repack_max_migrations,
-                        session.config.victims.max_victim_pods)))
+                        cfg.victims.max_victim_pods)))
             result.repack_seconds = time.perf_counter() - ta
         t_solve = time.perf_counter()
-        host = session.gather_host(result.tensors, analytics=bundle,
-                                   repack_plan=repack_plan)
+        if resident_mode:
+            host = session.gather_host(
+                result.tensors, packed=packed,
+                packed_analytics=run_analytics, repack_plan=repack_plan)
+        else:
+            host = session.gather_host(result.tensors, analytics=bundle,
+                                       repack_plan=repack_plan)
         result.packed = host["packed"]
         t_gather = time.perf_counter()
         result.bind_requests = session.bind_requests_from(
@@ -358,6 +625,7 @@ class Scheduler:
                 if score > self.config.repack_frag_threshold else 0)
         if self._repack_watch:
             self._watch_repack_unblocks(session, host)
+        result.wire = _wire.LEDGER.roll_cycle(result.cycle_index)
         t_end = time.perf_counter()
         result.phase_seconds = {
             "snapshot": max(0.0, open_s - upload_s),
@@ -524,11 +792,15 @@ class Scheduler:
 
     def _pending_age_vector(self, cluster: Cluster,
                             session: Session) -> torch.Tensor:
-        """f32 [G] on the snapshot's device — each gang slot's pending age
-        BEFORE this cycle, from the name-keyed counters the host keeps
-        (``_advance_starvation`` advances them after decode)."""
+        """f32 [G] on the scheduler's device — each gang slot's pending
+        age BEFORE this cycle, from the name-keyed counters the host keeps
+        (``_advance_starvation`` advances them after decode).  The shape
+        comes from the host mirror when the session has one (a resident
+        cycle has no device state before its resident cycle runs)."""
         self._scope_ages(cluster)
-        ages = np.zeros((session.state.gangs.g,), np.float32)
+        G = (session.host_state["gangs.valid"].shape[0]
+             if session.host_state is not None else session.state.gangs.g)
+        ages = np.zeros((G,), np.float32)
         if self._pending_age:
             names = session.index.gang_names
             valid = session.index.host_tables["gang_valid"]
@@ -536,7 +808,7 @@ class Scheduler:
                 a = self._pending_age.get(names[gi])
                 if a:
                     ages[gi] = a
-        return torch.from_numpy(ages).to(session.state.device)
+        return torch.from_numpy(ages).to(self.device)
 
     def _advance_starvation(self, cluster: Cluster, session: Session,
                             host: dict) -> None:

@@ -13,7 +13,10 @@ pipelined rebinds of consolidation-moved pods — decodes from the same
 transfer, and so do an analytics cycle's cluster-health bundle
 (``ops/analytics.py``) and a repack firing's migration plan
 (``ops/repack.py``), whose moves commit through the same pipelined rebind
-as consolidation moves.
+as consolidation moves.  A resident cycle (``framework/scheduler.py``
+``resident_cycle``) packs the commit itself; its Session
+(:meth:`Session.resident`) reads shapes and the gang table from the
+snapshotter's host mirror and syncs that one packed array.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from ..ops import analytics as pulse
 from ..ops import drf
 from ..ops.allocate import AllocateConfig, AllocationResult
 from ..ops.victims import VictimConfig
+from ..runtime import compile_watch
+from ..runtime import wire_ledger as _wire
 from ..state.cluster_state import (ClusterState, SnapshotIndex, _pow2_ceil,
                                    build_snapshot)
 
@@ -99,6 +104,14 @@ def _pack_commit(result: AllocationResult, state: ClusterState, *,
         parts += [_as_i16_pairs(p.move_pod), _as_i16_pairs(p.move_node),
                   _as_i16_pairs(ints), _as_i16_pairs(fls)]
     return torch.cat(parts)
+
+
+#: the watched entries of the classic cycle (``runtime/compile_watch.py``);
+#: the resident cycle calls the unwatched bodies
+_pack_commit_watched = compile_watch.watch("pack_commit", _pack_commit)
+_set_fair_share = compile_watch.watch(
+    "set_fair_share",
+    lambda state, **kw: drf.set_fair_share(state, **kw))
 
 
 @dataclasses.dataclass
@@ -195,9 +208,13 @@ def _auto_tune(config: SessionConfig, index: SnapshotIndex,
 class Session:
     """One cycle's snapshot + derived tensors."""
 
-    state: ClusterState
+    state: ClusterState | None
     index: SnapshotIndex
     config: SessionConfig
+    #: the incremental snapshotter's host mirror (numpy leaves keyed by
+    #: dotted path) when the cycle has one; resident cycles read shapes
+    #: and host tables from it, never from the device state
+    host_state: dict | None = None
 
     @classmethod
     def open(cls, nodes: list[apis.Node], queues: list[apis.Queue],
@@ -223,28 +240,58 @@ class Session:
         if config.auto_tune:
             config = _auto_tune(config, index, state.nodes.n,
                                 state.running.m)
-        fair_share = drf.set_fair_share(state, num_levels=config.num_levels,
-                                        k_value=config.k_value)
+        fair_share = _set_fair_share(state, num_levels=config.num_levels,
+                                     k_value=config.k_value)
         state = dataclasses.replace(
             state, queues=dataclasses.replace(state.queues,
                                               fair_share=fair_share))
         return cls(state=state, index=index, config=config)
 
+    @classmethod
+    def resident(cls, index: SnapshotIndex,
+                 config: SessionConfig | None = None,
+                 host_state: dict | None = None) -> "Session":
+        """Open a session for a resident cycle: the snapshot is already on
+        the device and the whole chain — fair-share division included —
+        runs inside ``resident_cycle``, so this constructor launches
+        nothing.  Auto-tuning reads the host mirror's padded shapes
+        (identical to the device state's); ``state`` is assigned by the
+        scheduler after the resident cycle returns the post-delta
+        state."""
+        config = config or SessionConfig()
+        if config.auto_tune and host_state is not None:
+            config = _auto_tune(config, index,
+                                host_state["nodes.valid"].shape[0],
+                                host_state["running.valid"].shape[0])
+        return cls(state=None, index=index, config=config,
+                   host_state=host_state)
+
     # -- commit path ------------------------------------------------------
 
     def _gangs_queue_host(self) -> "np.ndarray":
-        """The gang→queue column as host numpy (one small device read,
-        after the cycle's commit has synced)."""
+        """The gang→queue column as host numpy — from the host mirror when
+        there is one, else one small device read after the commit
+        synced."""
+        if self.host_state is not None:
+            return self.host_state["gangs.queue"]
         return self.state.gangs.queue.cpu().numpy()
 
     def gather_host(self, result: AllocationResult,
-                    analytics: "pulse.AnalyticsBundle | None" = None,
+                    analytics: "pulse.AnalyticsBundle | None" = None, *,
+                    packed: torch.Tensor | None = None,
+                    packed_analytics: bool = False,
                     repack_plan=None) -> dict:
         """ONE compact device→host transfer of the cycle's results, merged
         with the snapshot-side numpy tables the host kept.  The packed i16
         array itself rides along as ``host["packed"]``; an analytics bundle
         decodes into ``host["analytics"]`` and a repack plan into
-        ``host["repack_plan"]``."""
+        ``host["repack_plan"]``.
+
+        A resident cycle passes ``packed=``, the i16 commit its
+        ``resident_cycle`` already produced (``packed_analytics`` says
+        whether the analytics bundle rides it), and this method only syncs
+        that array.  A repack plan on a resident cycle was solved after
+        the pack, so it is read back as one accounted ledger readback."""
         g, q, r = self.state.gangs, self.state.queues, self.state.running
         G, T, M, Q = g.g, g.t, r.m, q.q
         R_ = self.state.nodes.free.shape[1]
@@ -253,9 +300,16 @@ class Session:
             # wrong nodes
             raise ValueError("i16 commit packing needs < 32k nodes")
         devices = self.index.needs_device_table
-        flat = _pack_commit(result, self.state, track_devices=devices,
-                            analytics=analytics,
-                            repack_plan=repack_plan).cpu().numpy()
+        plan_from_pack = repack_plan is not None and packed is None
+        if packed is None:
+            has_analytics = analytics is not None
+            flat = _pack_commit_watched(
+                result, self.state, track_devices=devices,
+                analytics=analytics,
+                repack_plan=repack_plan).cpu().numpy()
+        else:
+            has_analytics = packed_analytics
+            flat = packed.cpu().numpy()
 
         def take(n):
             nonlocal off
@@ -289,7 +343,7 @@ class Session:
                                        ).reshape(G, T)
         else:
             out["placement_device"] = np.full((G, T), -1, np.int32)
-        if analytics is not None:
+        if has_analytics:
             acfg = self.config.analytics
             nf = pulse.f32_len(acfg, q=Q, r=R_, g=G)
             ni = pulse.i32_len(acfg, q=Q, r=R_, g=G)
@@ -297,7 +351,7 @@ class Session:
             ai = np.frombuffer(take(ni * 2).tobytes(), np.int32)
             out["analytics"] = pulse.host_unpack(
                 a32, ai, config=acfg, q=Q, r=R_, g=G)
-        if repack_plan is not None:
+        if plan_from_pack:
             P = repack_plan.move_pod.shape[0]
             mp = np.frombuffer(take(2 * P).tobytes(), np.int32)
             mn = np.frombuffer(take(2 * P).tobytes(), np.int32)
@@ -309,6 +363,17 @@ class Session:
                 "target_rack": ints[2], "feasible": bool(ints[3]),
                 "needed": fls[0], "rack_units_before": fls[1],
                 "rack_units_after": fls[2], "total_units": fls[3]}
+        elif repack_plan is not None:
+            # resident cycle with a fired trigger: the plan is small and
+            # rare — one accounted readback through the ledger
+            p = _wire.LEDGER.device_get(
+                {f: getattr(repack_plan, f)
+                 for f in ("move_pod", "move_node", "num_moves",
+                           "target_gang", "target_rack", "feasible",
+                           "needed", "rack_units_before",
+                           "rack_units_after", "total_units")},
+                reason="repack-plan")
+            out["repack_plan"] = dict(p, feasible=bool(p["feasible"]))
         return out
 
     def bind_requests_from(self, result: AllocationResult,

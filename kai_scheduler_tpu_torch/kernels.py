@@ -109,6 +109,9 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("repack_fill",
                    "kai_scheduler_tpu_torch/csrc/repack.cu",
                    "kai_scheduler_tpu/ops/repack.py:106"),
+        KernelInfo("resident_apply",
+                   "kai_scheduler_tpu_torch/csrc/resident_apply.cu",
+                   "kai_scheduler_tpu/ops/resident.py:213"),
     )
 }
 
@@ -170,6 +173,7 @@ _SIGNATURES = {
     "kai_analytics": [_P] * 22 + [_I] * 4 + [_F] * 3 + [_I] * 6 + [_P] * 4
     + [_P],
     "kai_repack_fill": [_P] * 6 + [_I] * 4 + [_P] * 2 + [_P],
+    "kai_resident_apply": [_P, _P],
 }
 
 _LIB = None

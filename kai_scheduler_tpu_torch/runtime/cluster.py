@@ -7,14 +7,19 @@ releasing until the next ``tick`` reaps them (or, for consolidation
 moves, returns them to PENDING for their pipelined rebind).  The
 shared-device reservation registry (``runtime/reservation.py``) is the
 binder's gpusharing plugin's; ``tick`` releases a deleted pod's entries.
-The reference's mutation journal (for the incremental snapshotter) and
-the intake surfaces wait for the slices that port them.
+Every mutation records the keys it dirtied in the cluster's mutation
+journal (``state/incremental.MutationJournal``, through the
+``intake/gate.py`` helpers): ``submit``, ``create_bind_request``,
+``bind_pod``, ``evict_pod`` and ``tick`` (pods started, restarted and
+reaped), so the incremental snapshotter refreshes in proportion to the
+churn.  The intake surfaces (delta documents) wait for the intake slice.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from ..apis import types as apis
+from ..intake import gate as _gate
 from .reservation import ReservationRegistry
 
 
@@ -47,6 +52,15 @@ class Cluster:
     #: shared-device reservations (the binder's gpusharing plugin)
     reservations: ReservationRegistry = dataclasses.field(
         default_factory=ReservationRegistry)
+    #: mutation journal: every state change records the keys it dirtied
+    #: so the incremental snapshotter (state/incremental.py) refreshes in
+    #: proportion to the churn; a deep copy starts a journal of its own
+    journal: "object" = None
+
+    def __post_init__(self):
+        if self.journal is None:
+            from ..state.incremental import MutationJournal
+            self.journal = MutationJournal()
 
     @classmethod
     def from_objects(cls, nodes, queues, pod_groups, pods,
@@ -61,6 +75,22 @@ class Cluster:
         for p in pods:
             c.pods[p.name] = p
         return c
+
+    def submit(self, group: apis.PodGroup, pods: list[apis.Pod]) -> None:
+        """Add a workload (PodGroup + its pods) — podgrouper output."""
+        group.creation_timestamp = group.creation_timestamp or self.now
+        if group.name in self.pod_groups:
+            _gate.gang_touched(self.journal, group.name)
+        else:
+            _gate.gang_added(self.journal, group.name)
+        self.pod_groups[group.name] = group
+        for p in pods:
+            p.creation_timestamp = p.creation_timestamp or self.now
+            if p.name in self.pods:
+                _gate.pod_touched(self.journal, p.name)
+            else:
+                _gate.pod_added(self.journal, p.name)
+            self.pods[p.name] = p
 
     def snapshot_lists(self):
         """Stable-ordered object lists for ``build_snapshot``.  Pods with an
@@ -88,6 +118,8 @@ class Cluster:
 
     def create_bind_request(self, br: apis.BindRequest) -> None:
         self.bind_requests[br.pod_name] = br
+        # a Pending BindRequest changes the pod's snapshot presentation
+        _gate.pod_touched(self.journal, br.pod_name)
 
     def node_device_free(self, node_name: str) -> list[float]:
         """Free share per accel device on a node, from pods' recorded
@@ -151,9 +183,11 @@ class Cluster:
                 pod.accel_devices = fully[:k]
         pod.node = node_name
         pod.status = apis.PodStatus.BOUND
+        _gate.pod_touched(self.journal, pod_name)
         group = self.pod_groups.get(pod.group)
         if group is not None and group.last_start_timestamp is None:
             group.last_start_timestamp = self.now
+            _gate.gang_touched(self.journal, group.name)
 
     def evict_pod(self, pod_name: str, restart: bool = False) -> None:
         """Eviction = delete pod; its resources become releasing until the
@@ -164,6 +198,7 @@ class Cluster:
         pod = self.pods.get(pod_name)
         if pod is not None:
             pod.status = apis.PodStatus.RELEASING
+            _gate.pod_touched(self.journal, pod_name)
             if restart:
                 self.restarting.add(pod_name)
 
@@ -172,6 +207,7 @@ class Cluster:
         (their DRA claims deallocate and their device reservations drop
         them) or, when restarting, return to PENDING."""
         self.now += seconds
+        _gate.time_advanced(self.journal)
         for name in list(self.pods):
             pod = self.pods[name]
             if pod.status == apis.PodStatus.RELEASING:
@@ -187,7 +223,10 @@ class Cluster:
                     pod.status = apis.PodStatus.PENDING
                     pod.node = None
                     pod.accel_devices = []
+                    _gate.pod_touched(self.journal, name)
                 else:
                     del self.pods[name]
+                    _gate.pod_removed(self.journal, name)
             elif pod.status == apis.PodStatus.BOUND:
                 pod.status = apis.PodStatus.RUNNING
+                _gate.pod_touched(self.journal, name)

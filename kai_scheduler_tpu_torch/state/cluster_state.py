@@ -19,8 +19,8 @@ The host assembly (:func:`build_snapshot_host`) is the reference's numpy
 code copied whole, so both packages derive identical leaves from the
 same API objects; :func:`state_from_numpy` then uploads every leaf to the
 device in ONE host-to-device copy (the leaves are views into one device
-buffer).  The reference's kai-wire transfer accounting waits for a later
-slice.
+buffer) through the transfer ledger (``runtime/wire_ledger.py``, reason
+``full-build`` unless the caller overrides it).
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ import torch
 
 from ..apis import types as apis
 from ..device import resolve_device
+from ..runtime import wire_ledger as _wire
 from . import node_filters
 
 UNLIMITED = apis.UNLIMITED
@@ -232,8 +233,12 @@ def state_from_numpy(leaves: dict[str, "np.ndarray"],
     port's ``ClusterState`` on ``device``.
 
     Every leaf is packed into one host buffer (16-byte aligned slots) and
-    copied to the device in ONE transfer; the leaves are typed views into
-    that buffer.  The port never writes into state leaves in place.
+    copied to the device in ONE transfer through the transfer ledger
+    (reason ``full-build``, or the one its ``override_reason`` sets); the
+    leaves are typed views into that buffer.  Solver code never writes
+    into state leaves; the resident path's delta apply
+    (``ops/resident.apply_delta``) does, in place, into the snapshot the
+    incremental snapshotter keeps on the device between cycles.
     """
     dev = resolve_device(device)
     arrs = {}
@@ -243,32 +248,32 @@ def state_from_numpy(leaves: dict[str, "np.ndarray"],
         a = np.asarray(leaves[path])
         if a.dtype not in _NP_TO_TORCH:
             raise TypeError(f"leaf {path} has dtype {a.dtype}")
-        arrs[path] = np.ascontiguousarray(a)
-    offs, off = {}, 0
-    for path, a in arrs.items():
-        offs[path] = off
-        off += -(-a.nbytes // 16) * 16
-    host = np.zeros((max(off, 16),), np.uint8)
-    for path, a in arrs.items():
-        host[offs[path]:offs[path] + a.nbytes] = a.reshape(-1).view(np.uint8)
-    buf = torch.from_numpy(host)
-    buf = buf.to(dev) if dev.type == "cuda" else buf
-    views = {}
-    for path, a in arrs.items():
-        o = offs[path]
-        views[path] = buf[o:o + a.nbytes].view(
-            _NP_TO_TORCH[a.dtype]).view(a.shape)
+        arrs[path] = a
+    views = _wire.LEDGER.device_put(
+        arrs, device=dev, reason=_wire.REASON_FULL_BUILD, site="snapshot",
+        replace_site=True)
+    return state_from_leaves(views)
+
+
+def state_from_leaves(views: dict[str, Tensor]) -> ClusterState:
+    """A ``ClusterState`` over tensors keyed by dotted field path."""
     return ClusterState(**{
         sec: cls(**{f.name: views[f"{sec}.{f.name}"]
                     for f in dataclasses.fields(cls)})
         for sec, cls in _SECTIONS})
 
 
+def state_leaves(state: ClusterState) -> dict[str, Tensor]:
+    """The state's tensors keyed by dotted field path, in
+    :func:`leaf_paths` order."""
+    return {f"{sec}.{f.name}": getattr(getattr(state, sec), f.name)
+            for sec, cls in _SECTIONS for f in dataclasses.fields(cls)}
+
+
 def state_to_numpy(state: ClusterState) -> dict[str, "np.ndarray"]:
     """The inverse of :func:`state_from_numpy` (host copies)."""
-    return {f"{sec}.{f.name}": getattr(getattr(state, sec), f.name)
-            .detach().cpu().numpy()
-            for sec, cls in _SECTIONS for f in dataclasses.fields(cls)}
+    return {k: t.detach().cpu().numpy()
+            for k, t in state_leaves(state).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1733,12 +1738,17 @@ def build_snapshot(
     topology: apis.Topology | None = None,
     *,
     device: "str | torch.device" = "cuda",
+    return_host: bool = False,
     **kwargs,
-) -> tuple[ClusterState, SnapshotIndex]:
+):
     """Flatten API objects into a ClusterState on ``device`` (+ index for
     the commit path): the numpy assembly of :func:`build_snapshot_host`,
-    then ONE host-to-device copy.  ``index.upload_seconds`` records the
-    copy's wall time (the snapshot phase minus the host assembly)."""
+    then ONE host-to-device copy through the transfer ledger.
+    ``index.upload_seconds`` records the copy's wall time (the snapshot
+    phase minus the host assembly).  ``return_host=True`` also returns
+    the host mirror — the numpy leaves keyed by dotted path, in
+    :func:`leaf_paths` order — that the incremental snapshotter keeps to
+    patch later cycles."""
     dev = resolve_device(device)
     host, index = build_snapshot_host(nodes, queues, pod_groups, pods,
                                       topology, **kwargs)
@@ -1747,4 +1757,6 @@ def build_snapshot(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     index.upload_seconds = time.perf_counter() - t0
+    if return_host:
+        return state, index, {k: host[k] for k in leaf_paths()}
     return state, index

@@ -357,3 +357,47 @@ def repack_objects(apis, *, num_nodes: int = 5_120, rack_size: int = 8,
                                  apis.ResourceVec(1.0, 1.0, 4.0),
                                  creation_timestamp=float(k)))
     return nodes, queues, groups, pods, topo
+
+
+def steady_objects(apis, make_cluster, *, num_nodes: int,
+                   num_gangs: int, tasks_per_gang: int,
+                   node_accel: float = 8.0, running_fraction: float = 0.5,
+                   seed: int = 0):
+    """A steadily busy cluster: ``make_cluster``'s fleet with a share of
+    the gangs running, each running pod holding its own accelerator on its
+    node (as the binder would have recorded it), so churned rebinds stay
+    on the incremental snapshotter's patch path.  Returns ``(nodes,
+    queues, groups, pods, topology)``."""
+    nodes, queues, groups, pods, topo = make_cluster(
+        num_nodes=num_nodes, node_accel=node_accel, num_gangs=num_gangs,
+        tasks_per_gang=tasks_per_gang, running_fraction=running_fraction,
+        seed=seed)
+    cursor: dict = {}
+    for p in pods:
+        if p.status == apis.PodStatus.RUNNING:
+            c = cursor.get(p.node, 0)
+            p.accel_devices = [c]
+            cursor[p.node] = c + 1
+    return nodes, queues, groups, pods, topo
+
+
+def churn_cluster(apis, cluster, rng, frac: float, num_nodes: int = 10_000,
+                  restart: bool = False) -> None:
+    """One cycle of steady churn through the mutation paths the cluster
+    hub journals: evict ``frac / 2`` of the pods from the running ones
+    (``restart=True``: their controller recreates them pending), bind as
+    many pending pods to uniformly random nodes (``rng``; a pod that fits
+    none of the node's devices stays pending), and tick."""
+    k = max(1, int(len(cluster.pods) * frac / 2))
+    running = [p.name for p in cluster.pods.values()
+               if p.status == apis.PodStatus.RUNNING][:k]
+    for nm in running:
+        cluster.evict_pod(nm, restart=restart)
+    pending = [p for p in cluster.pods.values()
+               if p.status == apis.PodStatus.PENDING][:k]
+    for p in pending:
+        try:
+            cluster.bind_pod(p.name, f"node-{rng.integers(0, num_nodes)}")
+        except RuntimeError:
+            pass  # the node's devices are taken: the pod stays pending
+    cluster.tick()

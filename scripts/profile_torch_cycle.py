@@ -5,7 +5,7 @@ GPU.
         sharing|topology|topology_subgroups|saturated|
         saturated_sequential|preempt_many_queues|fragmented|affinity|
         affinity_reclaim|affinity_reclaim_sequential|affinity_sharing|
-        repack_racks]
+        repack_racks|resident_churn]
 
 Runs the cycle of ``chip_smoke.py``'s shape once to warm up, then once
 under ``torch.profiler`` (CPU and CUDA activities), and prints:
@@ -23,6 +23,11 @@ under ``torch.profiler`` (CPU and CUDA activities), and prints:
 - the 20 device activities with the most summed time, with call counts;
 - the analytics pass's and the repack solve's host seconds.
 
+For ``resident_churn`` the profiled cycle is one steady resident cycle
+of ``chip_smoke.py``'s stream (``SchedulerConfig(resident=True)``, 1%
+churn a cycle): after the cold cycle, the warm-up cycles until the mode is
+resident and one more resident cycle (the warm-up wall).
+
 For ``repack_racks`` the profiled cycle is the firing one (cycle 3 of
 ``chip_smoke.py``'s four, after two unprofiled cycles with a binder pass
 and a tick after each); its warm-up is the firing cycle of one whole
@@ -33,7 +38,8 @@ The numbers go to ``chiprun_out/profile_<shape>_summary.json``; the trace
 headline and contended cells and to ``build/profile_<shape>.json`` for the
 sharing cell (the per-task path, ``chip_smoke.py``'s GPU-sharing fleet),
 the two topology cells, the victim cells, the four affinity cells and
-repack_racks, whose traces hold hundreds of thousands of events.
+repack_racks and resident_churn, whose traces hold hundreds of thousands
+of events.
 Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -89,7 +95,7 @@ def main() -> int:
     ap.add_argument("--shape", default="headline", choices=(
         "headline", "contended", "sharing", *TOPOLOGY_CELLS,
         *chip_smoke.VICTIM_CELLS, *chip_smoke.AFFINITY_CELLS,
-        "repack_racks"))
+        "repack_racks", "resident_churn"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_cycle: no CUDA device", file=sys.stderr)
@@ -100,7 +106,24 @@ def main() -> int:
     card = chip_smoke.card_line()
     from kai_scheduler_tpu_torch.framework.scheduler import (Scheduler,
                                                              SchedulerConfig)
-    if args.shape == "repack_racks":
+    if args.shape == "resident_churn":
+        from kai_scheduler_tpu_torch.apis import types as apis
+        from kai_scheduler_tpu_torch.state import fleets
+        shape = chip_smoke.RESIDENT_CHURN
+        run = chip_smoke.ResidentRun("resident", "cuda")
+        run.step()
+        for _ in range(chip_smoke.RESIDENT_WARM):
+            run.step()
+            if run.last["mode"] == "resident":
+                break
+        _, warm = run.step()
+        if run.last["mode"] != "resident":
+            raise AssertionError(f"resident_churn: mode {run.last}")
+        cluster, sched = run.cluster, run.sched
+        fleets.churn_cluster(apis, cluster, run.rng,
+                             chip_smoke.RESIDENT_FRAC,
+                             shape["num_nodes"])
+    elif args.shape == "repack_racks":
         from kai_scheduler_tpu_torch.apis import types as apis
         from kai_scheduler_tpu_torch.binder import Binder
         from kai_scheduler_tpu_torch.runtime.cluster import Cluster
@@ -109,7 +132,8 @@ def main() -> int:
         cycles, _ = chip_smoke.run_repack_cycles("cuda")   # build + warm
         warm = cycles[chip_smoke.REPACK_FIRES - 1][1]
         cluster = Cluster.from_objects(*repack_objects(apis, **shape))
-        sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+        sched = Scheduler(SchedulerConfig(actions=("allocate",),
+                                          incremental=False),
                           device="cuda")
         binder = Binder()
         for _ in range(chip_smoke.REPACK_FIRES - 1):
@@ -120,14 +144,16 @@ def main() -> int:
         shape = chip_smoke.SHARING
         _, _, warm = chip_smoke.run_sharing_cycle("cuda")  # build + warm
         cluster = chip_smoke.sharing_cluster()
-        sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+        sched = Scheduler(SchedulerConfig(actions=("allocate",),
+                                          incremental=False),
                           device="cuda")
     elif args.shape in TOPOLOGY_CELLS:
         shape = (chip_smoke.TOPOLOGY if args.shape == "topology"
                  else chip_smoke.TOPO_SUB)
         _, _, warm = chip_smoke.run_topology_cycle(args.shape, "cuda")
         cluster = chip_smoke.topology_cluster(args.shape)
-        sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+        sched = Scheduler(SchedulerConfig(actions=("allocate",),
+                                          incremental=False),
                           device="cuda")
     elif args.shape in chip_smoke.AFFINITY_CELLS:
         shape = {"affinity": chip_smoke.AFFINITY,
@@ -152,7 +178,8 @@ def main() -> int:
                  else chip_smoke.CONTENDED)
         _, _, warm = chip_smoke.run_cycle(shape, "cuda")   # build + warm
         cluster = chip_smoke.fresh_cluster(shape)
-        sched = Scheduler(SchedulerConfig(actions=("allocate",)),
+        sched = Scheduler(SchedulerConfig(actions=("allocate",),
+                                          incremental=False),
                           device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -166,7 +193,8 @@ def main() -> int:
     trace_dir = (os.path.join(ROOT, "build")
                  if victim or args.shape in ("sharing", *TOPOLOGY_CELLS,
                                              *chip_smoke.AFFINITY_CELLS,
-                                             "repack_racks")
+                                             "repack_racks",
+                                             "resident_churn")
                  else out_dir)
     os.makedirs(trace_dir, exist_ok=True)
     trace_path = os.path.join(trace_dir, f"profile_{args.shape}.json")
@@ -183,6 +211,9 @@ def main() -> int:
         analytics_seconds=res.analytics_seconds,
         repack_seconds=res.repack_seconds,
         repack_moves=res.repack.get("migrations_executed", 0),
+        snapshot_mode=(sched._snapshotter.stats.last
+                       if sched._snapshotter is not None else {}),
+        wire={k: v for k, v in res.wire.items() if k != "events"},
         device_idle_share=1.0 - busy / wall,
         top_device=[dict(name=n, calls=c, device_ms=ms)
                     for n, c, ms in top])
@@ -196,6 +227,8 @@ def main() -> int:
           f"binds, {len(res.evictions)} evictions; device busy {busy:.4f} "
           f"s, idle share {summary['device_idle_share']:.4f} of the "
           f"profiled wall, {1.0 - busy / warm:.4f} of the warm-up wall")
+    if sched._snapshotter is not None:
+        print(f"snapshot: {sched._snapshotter.stats.last}")
     print(f"analytics {res.analytics_seconds:.4f} s, repack "
           f"{res.repack_seconds:.4f} s ({summary['repack_moves']} moves)")
     print("phases: " + ", ".join(f"{k} {v:.4f}"

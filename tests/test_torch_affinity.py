@@ -650,7 +650,8 @@ def _configs(mode: str, allocate_batch: int | None = None,
         return (RefSchedulerConfig(actions=("allocate",), incremental=False,
                                    analytics_every=0, repack_enable=False,
                                    session=ref_s),
-                SchedulerConfig(actions=("allocate",), analytics_every=0,
+                SchedulerConfig(actions=("allocate",), incremental=False,
+                                analytics_every=0,
                                 repack_enable=False, session=port_s))
     ref_s = dataclasses.replace(ref_s, victims=RefVictimConfig(
         batch_size=width))
@@ -658,7 +659,8 @@ def _configs(mode: str, allocate_batch: int | None = None,
         batch_size=width))
     return (RefSchedulerConfig(incremental=False, analytics_every=0,
                                repack_enable=False, session=ref_s),
-            SchedulerConfig(actions=DEFAULT_ACTIONS, analytics_every=0,
+            SchedulerConfig(actions=DEFAULT_ACTIONS, incremental=False,
+                            analytics_every=0,
                             repack_enable=False, session=port_s))
 
 

@@ -134,8 +134,8 @@ def test_cycle_matches_reference(name, pad32):
         actions=("allocate",), incremental=False, analytics_every=0,
         repack_enable=False))
     sched = Scheduler(SchedulerConfig(
-        actions=("allocate",), analytics_every=0, repack_enable=False),
-        device="cpu")
+        actions=("allocate",), incremental=False, analytics_every=0,
+        repack_enable=False), device="cpu")
     for cycle in range(2):
         want = ref_sched.run_once(ref_cluster)
         got = sched.run_once(cluster)
@@ -147,6 +147,37 @@ def test_cycle_matches_reference(name, pad32):
                                                      want.cycle_seed)
         assert set(got.phase_seconds) == set(want.phase_seconds)
         # the binder applies the binds; time moves on
+        for c, res in ((ref_cluster, want), (cluster, got)):
+            for br in res.bind_requests:
+                c.bind_pod(br.pod_name, br.selected_node)
+            c.tick()
+        assert cluster_state(cluster) == cluster_state(ref_cluster), cycle
+
+
+@pytest.mark.parametrize("shape", ["headline_small", "running"])
+def test_default_config_cycle_matches_reference(shape, pad32, monkeypatch):
+    """Both packages at their DEFAULT ``SchedulerConfig`` — the journaled
+    incremental snapshot, the five actions, analytics and repack — for
+    two cycles with the binds applied and a tick between them: the packed
+    commits byte-equal (the incremental snapshotters pad with the same
+    slack; the port's builds pad to 32 like the reference suite's)."""
+    monkeypatch.setattr(port_cs, "build_snapshot", functools.partial(
+        port_cs.build_snapshot, pad=32))
+    ref_cluster = RefCluster.from_objects(*objects(SHAPES[shape], ref_make,
+                                                   ref_apis))
+    cluster = Cluster.from_objects(*objects(SHAPES[shape], make_cluster,
+                                            port_apis))
+    ref_sched, sched = RefScheduler(), Scheduler(device="cpu")
+    for cycle in range(2):
+        want = ref_sched.run_once(ref_cluster)
+        got = sched.run_once(cluster)
+        assert sched._snapshotter.stats.last["mode"] == \
+            ref_sched._snapshotter.stats.last["mode"], cycle
+        assert got.packed.tobytes() == pad32["packed"].tobytes(), cycle
+        for field in ("bind_requests", "evictions", "move_bind_requests"):
+            assert [dataclasses.asdict(b) for b in getattr(got, field)] == \
+                [dataclasses.asdict(b) for b in getattr(want, field)], \
+                (cycle, field)
         for c, res in ((ref_cluster, want), (cluster, got)):
             for br in res.bind_requests:
                 c.bind_pod(br.pod_name, br.selected_node)
@@ -188,7 +219,8 @@ def test_victim_cycle_matches_reference(name, batch_size, pad32):
         session=RefSessionConfig(victims=RefVictimConfig(
             batch_size=batch_size))))
     sched = Scheduler(SchedulerConfig(
-        actions=DEFAULT_ACTIONS, analytics_every=0, repack_enable=False,
+        actions=DEFAULT_ACTIONS, incremental=False, analytics_every=0,
+        repack_enable=False,
         session=SessionConfig(victims=VictimConfig(batch_size=batch_size))),
         device="cpu")
     evicted = 0
@@ -237,7 +269,8 @@ def test_unported_actions_raise(pad32):
     want = RefScheduler(RefSchedulerConfig(
         incremental=False, analytics_every=0,
         repack_enable=False)).run_once(ref_cluster)
-    got = Scheduler(SchedulerConfig(analytics_every=0, repack_enable=False),
+    got = Scheduler(SchedulerConfig(incremental=False, analytics_every=0,
+                                    repack_enable=False),
                     device="cpu").run_once(cluster)
     assert got.victim_stats["reclaim"].steps >= 1
     assert got.evictions

@@ -1155,3 +1155,133 @@ def test_cuda_repack_cycles_equal_cpu_cycles(cuda):
     assert fired[1]["repack_fill"] == 1 and \
         fired[1]["sparse_accept:repack"] == 1
     assert len(runs["cuda"][3][0].bind_requests) == 32
+
+
+# ---------------------------------------------------------------------------
+# K16: the packed-delta apply of the resident path
+# ---------------------------------------------------------------------------
+
+def _mirror_and_delta(seed: int, nan_bits: bool = False):
+    """A host mirror of a small snapshot, a same-shape mutation of it (a
+    few elements of a random subset of leaves), and the packed delta."""
+    from kai_scheduler_tpu_torch.ops import resident as RS
+    from kai_scheduler_tpu_torch.state.cluster_state import (
+        build_snapshot, leaf_paths)
+    rng = np.random.default_rng(seed)
+    _s, _i, old = build_snapshot(*make_cluster(
+        num_nodes=24, num_gangs=16, tasks_per_gang=4,
+        running_fraction=0.5), device="cpu", return_host=True)
+    new = {}
+    for p in leaf_paths():
+        leaf = old[p]
+        if rng.random() > 0.6 or leaf.size == 0:
+            new[p] = leaf
+            continue
+        a = leaf.copy().reshape(-1)
+        idx = rng.choice(leaf.size, size=max(1, leaf.size // 10),
+                         replace=False)
+        if a.dtype.kind == "f":
+            a[idx] += 1.5
+            if nan_bits:
+                a.view(np.uint32)[idx[:1]] = 0x7FC01234
+                a.view(np.uint32)[idx[1:2]] = 0x80000000
+        elif a.dtype.kind == "b":
+            a[idx] = ~a[idx]
+        else:
+            a[idx] += 1
+        new[p] = a.reshape(leaf.shape)
+    delta, _m, stats = RS.pack_delta(old, new,
+                                     min_buckets={"gangs.bool": 1024})
+    return old, new, delta, stats
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_resident_apply_matches_plain(cuda, seed):
+    """K16 on a state uploaded as one buffer and on one whose leaves were
+    swapped for separate tensors: the state comes out bit-equal to the
+    plain version's (NaN payloads and -0.0 included) and equal to the new
+    mirror; one launch; an empty delta launches nothing."""
+    from kai_scheduler_tpu_torch.ops import resident as RS
+    from kai_scheduler_tpu_torch.state.cluster_state import (
+        state_from_leaves, state_from_numpy, state_leaves)
+    old, new, delta, stats = _mirror_and_delta(seed, nan_bits=seed == 2)
+    ddev = {part: {k: torch.from_numpy(v).to(cuda) for k, v in d.items()}
+            for part, d in delta.items()}
+    for swapped in (False, True):
+        k_st = state_from_numpy(old, cuda)
+        if swapped:
+            k_st = state_from_leaves({k: t.clone() for k, t in
+                                      state_leaves(k_st).items()})
+        p_st = state_from_numpy(old, cuda)
+        kernels.reset_launch_counts()
+        RS.apply_delta(k_st, ddev)
+        assert kernels.launch_counts()["resident_apply"] == 1
+        RS.apply_delta_plain(p_st, ddev)
+        torch.cuda.synchronize()
+        for (p, a), b in zip(state_leaves(k_st).items(),
+                             state_leaves(p_st).values()):
+            got = a.cpu().numpy()
+            # bit for bit against the plain version; by value against the
+            # new mirror (the packer, as the reference's, sees -0.0 ==
+            # +0.0 as unchanged)
+            assert got.tobytes() == b.cpu().numpy().tobytes(), p
+            assert np.array_equal(got, new[p],
+                                  equal_nan=got.dtype.kind == "f"), p
+    empty = {part: {k: v[:0] for k, v in d.items()}
+             for part, d in ddev.items()}
+    kernels.reset_launch_counts()
+    RS.apply_delta(k_st, empty)
+    assert kernels.launch_counts()["resident_apply"] == 0
+
+
+def test_resident_apply_refuses_what_it_cannot_take(cuda):
+    """On a CUDA state K16 launches or raises: a delta on the CPU, or a
+    value segment of the wrong dtype, raises; nothing falls back to the
+    plain version."""
+    from kai_scheduler_tpu_torch.ops import resident as RS
+    from kai_scheduler_tpu_torch.state.cluster_state import state_from_numpy
+    old, _new, delta, _stats = _mirror_and_delta(0)
+    st = state_from_numpy(old, cuda)
+    on_cpu = {part: {k: torch.from_numpy(v) for k, v in d.items()}
+              for part, d in delta.items()}
+    with pytest.raises(ValueError):
+        RS.apply_delta(st, on_cpu)
+    bad = {part: {k: torch.from_numpy(v).to(cuda) for k, v in d.items()}
+           for part, d in delta.items()}
+    key = next(k for k, v in bad["val"].items()
+               if v.numel() and v.dtype == torch.float32)
+    bad["val"][key] = bad["val"][key].to(torch.float64)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError):
+        RS.apply_delta(st, bad)
+    assert kernels.launch_counts()["resident_apply"] == 0
+
+
+def test_cuda_resident_cycles_equal_cpu_cycles(cuda):
+    """``SchedulerConfig(resident=True)`` on the card and on the CPU over
+    the same churn stream: every packed commit equal, the device state
+    equal to the host mirror after every cycle, K16 once a resident
+    cycle."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    out = {}
+    for device in ("cpu", cuda):
+        cluster = Cluster.from_objects(*fleets.steady_objects(
+            apis, make_cluster, num_nodes=64, num_gangs=48,
+            tasks_per_gang=4))
+        sched = Scheduler(SchedulerConfig(resident=True), device=device)
+        rng = np.random.default_rng(0)
+        rows = []
+        for _ in range(6):
+            kernels.reset_launch_counts()
+            res = sched.run_once(cluster)
+            mode = sched._snapshotter.stats.last["mode"]
+            rows.append((res.packed.tobytes(), mode,
+                         kernels.launch_counts()["resident_apply"]))
+            sched._snapshotter.verify_device_residency()
+            fleets.churn_cluster(apis, cluster, rng, 0.05, 64,
+                                 restart=True)
+        out[str(device)] = rows
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert [r[:2] for r in gpu] == [r[:2] for r in cpu]
+    assert any(m == "resident" for _p, m, _l in gpu)
+    assert all(n == (1 if m == "resident" else 0) for _p, m, n in gpu)

@@ -472,8 +472,8 @@ def _schedulers(batch_size: int, placement: dict):
                 RA.AllocateConfig(), batch_size=batch_size,
                 placement=RefPlacementConfig(**placement)))))
     port = Scheduler(SchedulerConfig(
-        actions=("allocate",), analytics_every=0, repack_enable=False,
-        session=SessionConfig(
+        actions=("allocate",), incremental=False, analytics_every=0,
+        repack_enable=False, session=SessionConfig(
             allocate=dataclasses.replace(
                 A.AllocateConfig(), batch_size=batch_size,
                 placement=PlacementConfig(**placement)))), device="cpu")

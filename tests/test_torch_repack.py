@@ -124,7 +124,9 @@ def test_config_defaults_match_reference():
     ref, port = RefSchedulerConfig(), SchedulerConfig()
     for f in ("analytics_every", "starvation_alarm_cycles", "repack_enable",
               "repack_frag_threshold", "repack_trigger_cycles",
-              "repack_cooldown", "repack_max_migrations"):
+              "repack_cooldown", "repack_max_migrations", "incremental",
+              "resident", "verify_incremental",
+              "incremental_dirty_threshold"):
         assert getattr(port, f) == getattr(ref, f), f
     assert dataclasses.asdict(SessionConfig().analytics) == \
         dataclasses.asdict(RefSessionConfig().analytics)
@@ -237,7 +239,8 @@ def test_repack_scenario_matches_reference(pad32, captured):
     cluster = _port_cluster(ref_cluster)
     ref_sched = RefScheduler(ref_repack_tests._repack_cfg(
         incremental=False, **REPACK_KNOBS))
-    sched = Scheduler(SchedulerConfig(**REPACK_KNOBS), device="cpu")
+    sched = Scheduler(SchedulerConfig(incremental=False, **REPACK_KNOBS),
+                      device="cpu")
     ref_binder, binder = RefBinder(), Binder()
     fired = placed = stranded = None
     for cyc in range(1, 10):
@@ -301,7 +304,7 @@ def test_non_preemptible_fillers_are_never_moved(pad32, captured):
     res, sched = _run_pair(
         ref_analytics_tests._frag_cluster(), 5,
         ref_repack_tests._repack_cfg(incremental=False, **REPACK_KNOBS),
-        SchedulerConfig(**REPACK_KNOBS), pad32, captured)
+        SchedulerConfig(incremental=False, **REPACK_KNOBS), pad32, captured)
     fired = [r.repack for r in res if r.repack]
     assert fired and not any(d["feasible"] for d in fired)
     assert not any(r.evictions or r.bind_requests for r in res)
@@ -313,7 +316,7 @@ def test_repack_disabled_leaves_gang_stranded(pad32, captured):
     res, sched = _run_pair(
         ref_repack_tests._frag_cluster(), 5,
         ref_repack_tests._repack_cfg(incremental=False, **knobs),
-        SchedulerConfig(**knobs), pad32, captured)
+        SchedulerConfig(incremental=False, **knobs), pad32, captured)
     assert all(r.repack == {} and r.repack_seconds == 0.0 for r in res)
     assert not any(r.evictions or r.bind_requests for r in res)
     assert sched.repack_status()["ok"] is False
@@ -383,7 +386,7 @@ def test_catalog_case_with_default_knobs(module, name, victims, pad32,
         RefSchedulerConfig(actions=actions, incremental=False,
                            session=RefSessionConfig(
                                victims=RefVictimConfig())),
-        SchedulerConfig(actions=actions,
+        SchedulerConfig(actions=actions, incremental=False,
                         session=SessionConfig(victims=VictimConfig())),
         pad32, captured)
     assert all(r.analytics for r in res)

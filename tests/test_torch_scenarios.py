@@ -115,8 +115,8 @@ def test_scenario_cycle_matches_reference_or_is_refused(name, pad32):
     except NotImplementedError:
         supported = False
     sched = Scheduler(SchedulerConfig(
-        actions=("allocate",), analytics_every=0, repack_enable=False),
-        device="cpu")
+        actions=("allocate",), incremental=False, analytics_every=0,
+        repack_enable=False), device="cpu")
     if not supported:
         with pytest.raises(NotImplementedError):
             sched.run_once(cluster)
@@ -181,7 +181,8 @@ def test_victim_scenario_cycle_matches_reference_or_is_refused(
         name, batch_size, pad32):
     want, cluster = _victim_cycle(name, batch_size)
     sched = Scheduler(SchedulerConfig(
-        actions=DEFAULT_ACTIONS, analytics_every=0, repack_enable=False,
+        actions=DEFAULT_ACTIONS, incremental=False, analytics_every=0,
+        repack_enable=False,
         session=SessionConfig(victims=VictimConfig(batch_size=batch_size))),
         device="cpu")
     # allocate runs first: its refusal, else the victim actions' (which

@@ -428,8 +428,9 @@ def _allocate_schedulers(batch_size: int | None = None):
         actions=("allocate",), incremental=False, analytics_every=0,
         repack_enable=False, session=RefSessionConfig(allocate=ref_alloc)))
     port = Scheduler(SchedulerConfig(
-        actions=("allocate",), analytics_every=0, repack_enable=False,
-        session=SessionConfig(allocate=port_alloc)), device="cpu")
+        actions=("allocate",), incremental=False, analytics_every=0,
+        repack_enable=False, session=SessionConfig(allocate=port_alloc)),
+        device="cpu")
     return ref, port
 
 
