@@ -165,7 +165,9 @@ when the script starts; each cell is compared with its oracle when the result
 arrives (sharing after the last cell).  The log also goes, line by line,
 to ``chiprun_out/chip_smoke.log``.  Longer output
 (the compiler's register/spill report, per-phase numbers) goes to
-``chiprun_out/chip_smoke.json``.  Imports nothing of JAX.
+``chiprun_out/chip_smoke.json``, and the first captured call of every K9
+and K10 mode to ``build/kernel_inputs.pt`` (``scripts/compare_kernels.py``
+times another checkout's K9 and K10 on them).  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -187,6 +189,10 @@ F32_OPS_PER_S = 67e12
 REPEATS = 50
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+#: the first captured call of every K9 and K10 mode, saved for
+#: scripts/compare_kernels.py (an older checkout's kernels on these inputs)
+KERNEL_INPUTS_PATH = os.path.join(ROOT, "build", "kernel_inputs.pt")
+KERNEL_INPUTS: dict = {}
 
 
 #: the script's log, also written line by line to
@@ -289,6 +295,24 @@ class Capture:
     def __exit__(self, *exc):
         for mod, attr, fn in self._saved:
             setattr(mod, attr, fn)
+
+
+def _standalone(x):
+    """``x`` with every tensor in it (through tuples, lists, dicts and
+    dataclasses) copied into a storage of its own: the snapshot's leaves
+    view one uploaded buffer under several dtypes, which ``torch.save``
+    refuses."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_standalone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _standalone(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _standalone(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    return x
 
 
 def _global_names(source: str) -> list[str]:
@@ -1440,6 +1464,7 @@ def sharing_kernel_checks(cap: Capture) -> dict:
         p_out = A.pertask_fill_plain(*args, **kw).fields()
         errs.append(_max_abs_err(k_out, p_out))
     args, kw = cap.calls["pertask_fill"][0]
+    KERNEL_INPUTS["pertask_fill"] = (args, kw)
     nodes, tt, cand, prior, free, dev, qa = args[:7]
     B, T = prior.shape
     N, D = dev.shape
@@ -1461,26 +1486,29 @@ def sharing_kernel_checks(cap: Capture) -> dict:
         bound_by=by, checked=len(errs),
         shape=f"B={B} T={T} N={N} D={D} Q={Q} placed steps={steps}")
 
-    # K10 — the touched entries' rows and the pools at their nodes once,
-    # the lane deltas of the queue tables once; per touching (lane, node)
-    # ~2 (6 + 2 D) operations for the cumulative tests and the commit
+    # K10 — every (lane, slot) entry's rows once, the pools and floors of
+    # every node once (the zero claim reads them all), the lane deltas of
+    # the queue tables once, the outputs written once; per touching
+    # (lane, node) ~2 (6 + 2 D) operations for the cumulative tests and
+    # the commit
     errs = []
     for args, kw in cap.calls["dense_accept"]:
         k_out = cap._orig["dense_accept"](*args, **kw)
         p_out = A.dense_accept_plain(*args, **kw)
         errs.append(_max_abs_err(k_out, p_out))
     args, kw = cap.calls["dense_accept"][0]
+    KERNEL_INPUTS["dense_accept"] = (args, kw)
     nodes_b, ok = args[0], args[1]
     B, T = nodes_b.shape
-    D = args[8].shape[1]
+    N, D = args[8].shape
     Q = args[13].shape[0]
     ent = ok[:, None] & (nodes_b >= 0)
     E = int(ent.sum())
     U = int(torch.unique(nodes_b[ent]).numel())
     ms = _time_ms(lambda: cap._orig["dense_accept"](*args, **kw))
     plain_ms = _time_ms(lambda: A.dense_accept_plain(*args, **kw), 5)
-    nb = (B * T * (4 + 2 * 12 + 2 * 4 * D) + U * 2 * (2 * 12 + 2 * 4 * D)
-          + B * (2 + 2 * Q * 12) + 4 * Q * 12)
+    nb = (B * T * (4 + 2 * 12 + 2 * 4 * D) + N * (2 * 12 + 2 * 4 * D)
+          + N * (12 + 4 * D) + B * (3 + 2 * Q * 12) + 4 * Q * 12)
     b, by = bound(nb, E * 2 * (6 + 2 * D))
     out["dense_accept"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
@@ -1681,8 +1709,10 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
     calls = tcap.calls["dense_accept"]
     err, n = held("dense_accept", A.dense_accept_plain, calls)
     args, kw = calls[-1]
+    KERNEL_INPUTS["dense_accept:no_devices"] = (args, kw)
     nodes_b, ok = args[0], args[1]
     B, T = nodes_b.shape
+    N = args[7].shape[0]
     Q = args[13].shape[0]
     ent = ok[:, None] & (nodes_b >= 0)
     E = int(ent.sum())
@@ -1690,7 +1720,8 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
     k_fn = tcap._orig["dense_accept"]
     ms = _time_ms(lambda: k_fn(*args, **kw))
     plain_ms = _time_ms(lambda: A.dense_accept_plain(*args, **kw), 5)
-    nb = B * T * (4 + 2 * 12) + U * 2 * 24 + B * (2 + 2 * Q * 12) + 4 * Q * 12
+    nb = (B * T * (4 + 2 * 12) + N * 24 + N * 12 + B * (3 + 2 * Q * 12)
+          + 4 * Q * 12)
     b, by = bound(nb, E * 2 * 6)
     out["dense_accept:no_devices"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
@@ -1698,9 +1729,8 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
 
     # K9 subgroup-topology mode — sharing_kernel_checks' K9 bytes plus the
     # chunk-start [ND, R] aggregate once and each placed step's debit at
-    # every level (the copies into the lanes' rows are the kernel's own
-    # cost, not the function's); per placed task step ~70 operations a
-    # node (the domain gate and band)
+    # every level; per placed task step ~70 operations a node (the domain
+    # gate and band)
     calls = [c for c in scap.calls["pertask_fill"]
              if c[1].get("active") is None]
     retry_calls = [c for c in scap.calls["pertask_fill"]
@@ -1713,6 +1743,7 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
                          fields(A.pertask_fill_plain(*a, **kw)))
             for a, kw in calls]
     args, kw = calls[0]
+    KERNEL_INPUTS["pertask_fill:topology"] = (args, kw)
     nodes, tt, cand, prior, free, dev, qa = args[:7]
     B, T = prior.shape
     N = free.shape[0]
@@ -1742,10 +1773,11 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
     # scratch of its own; and the retry launches the warm-up captured
     banned = first.sub_dom
     bkw = dict(kw, banned=banned)
+    KERNEL_INPUTS["pertask_fill:banned"] = (args, bkw)
     rkw = dict(bkw, active=~first.success, base=first)
     errs = [_max_abs_err(fields(k_fn(*args, **bkw)),
                          fields(A.pertask_fill_plain(*args, **bkw)))]
-    for agg in (A.pertask_agg_scratch(B, kw["topo"], free), None):
+    for agg in (A.pertask_agg_scratch(kw["topo"], free), None):
         if agg is not None:
             k_fn(*args, **dict(kw, agg=agg))   # its chunk-start row
         rkw["agg"] = agg
@@ -2050,6 +2082,7 @@ def affinity_kernel_checks(caps: dict) -> dict:
     recs = [r for r in calls("pertask_fill") if r[3].get("mask") is not None]
     err = held(recs, A.pertask_fill_plain, lambda o: o.fields())
     c, k, args, kw = recs[0]
+    KERNEL_INPUTS["pertask_fill:mask"] = (args, kw)
     nodes, tt, cand, prior, free, dev, qa = args[:7]
     B, T = prior.shape
     N, D = dev.shape
@@ -2918,6 +2951,10 @@ def run(oracles: dict) -> int:
     log(f"launch floor (one PyTorch call on one element): "
         f"{report['launch_floor_ms']:.4f} ms")
     report["kernel_checks"] = dict(checks, **lane_checks, **mode_checks)
+    os.makedirs(os.path.dirname(KERNEL_INPUTS_PATH), exist_ok=True)
+    torch.save(_standalone(KERNEL_INPUTS), KERNEL_INPUTS_PATH)
+    log(f"K9 and K10 inputs ({', '.join(KERNEL_INPUTS)}) saved to "
+        f"{KERNEL_INPUTS_PATH} for scripts/compare_kernels.py")
     rows = []
     for name, info in kernels.KERNELS.items():
         c = checks[name]

@@ -164,8 +164,9 @@ _SIGNATURES = {
     "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
     + [_P],
     "kai_freed_by_lane": [_P] * 7 + [_I] * 5 + [_P] * 4 + [_P],
-    "kai_pertask_fill": [_P] * 41 + [_I] * 15 + [_F] + [_P] * 11 + [_P],
-    "kai_dense_accept": [_P] * 15 + [_I] * 6 + [_P] * 6 + [_P],
+    "kai_pertask_fill": [_P] * 42 + [_I] * 15 + [_F] + [_P] * 11 + [_P],
+    "kai_pertask_summary": [_P] * 9 + [_I] * 2 + [_P] + [_P],
+    "kai_dense_accept": [_P] * 15 + [_I] * 6 + [_P] * 7 + [_P],
     "kai_topo_tables_build": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
     "kai_topo_tables_update": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_P],
     "kai_affinity_mask": [_P] * 8 + [_I] * 8 + [_P] + [_P],

@@ -1670,6 +1670,16 @@ PERTASK_MAX_S = 32
 #: widest chunk K10 takes: its lane walk reproduces XLA:CPU's blocked
 #: cumsum with one level of block totals (up to 16 blocks of 16 lanes)
 DENSE_ACCEPT_MAX_B = 256
+#: K10 sorts its live entries' 64-bit keys, and lists their runs, in
+#: shared memory up to this many entries (192 KB), in a global scratch
+#: beyond
+DENSE_ACCEPT_SMEM_KEYS = 16384
+
+
+def _dense_accept_keys(entries: int) -> int:
+    """K10's sort size for ``entries`` (lane, slot) pairs: the next
+    power of two."""
+    return 1 << max(0, entries - 1).bit_length()
 
 
 def pertask_fill_limits(T: int, D: int, S: int,
@@ -1760,9 +1770,14 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
 
     With ``topo``, ``agg`` is the domain-aggregate scratch
     (:func:`pertask_agg_scratch`; one is allocated per call without it).
-    A first launch sums the chunk-start aggregate into its last row; a
-    retry launch given the scratch of its chunk's first launch copies
-    that row into the retried lanes' rows and sums nothing.
+    A first launch sums the chunk-start aggregate into it; a retry launch
+    given the scratch of its chunk's first launch reads that table and
+    sums nothing.  Each lane keeps the domains it debited in shared
+    memory.
+
+    Every launch first builds the chunk-start node summary
+    (:func:`pertask_summary_plain` is its plain version) into a scratch
+    of its own.
 
     ``mask`` bool [B, N] runs the mask mode: each block reads its lane's
     row of the affinity gates' node mask (K12)."""
@@ -1849,20 +1864,21 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                      torch.empty((B, S), dtype=i32, device=dv)))
     if (out.sub_dom is None) != (topo is None):
         raise ValueError("pertask_fill: base must come from the same mode")
-    # the lanes' live domain aggregates: one [ND + 1, R] table per lane
-    # in global memory, and the chunk-start table in the last row
+    # the chunk-start domain aggregate, [ND + 1, R] in global memory
     agg_ready = topo is not None and agg is not None and active is not None
     if topo is not None:
         if agg is None:
-            agg = pertask_agg_scratch(B, topo, free)
-        elif (agg.shape != (B + 1, N * L + 1, R_) or agg.dtype != f32
+            agg = pertask_agg_scratch(topo, free)
+        elif (agg.shape != (N * L + 1, R_) or agg.dtype != f32
               or agg.device != free.device or not agg.is_contiguous()):
             raise ValueError(f"pertask_fill: agg must be f32 "
-                             f"[{B + 1}, {N * L + 1}, {R_}] on the card")
+                             f"[{N * L + 1}, {R_}] on the card")
+    summ = torch.empty((PERTASK_SUMMARY_FIELDS, N), dtype=f32, device=dv)
     rc = kernels.library().kai_pertask_fill(
         *(kernels.ptr(v) for v in ts.values()),
         *(None if v is None else kernels.ptr(v)
           for v in (*opt.values(), agg if topo is not None else None)),
+        kernels.ptr(summ),
         B, T, N, D, K, X, L, S, Q, G, int(placement.binpack_accel),
         int(placement.binpack_cpu), int(placement.device_pack),
         int(track_devices), int(agg_ready), float(_jitter_scale(N)),
@@ -1875,19 +1891,92 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
     return out
 
 
-def pertask_agg_scratch(B: int, topo: TopoStatic | None,
+def pertask_agg_scratch(topo: TopoStatic | None,
                         free: Tensor) -> Tensor | None:
-    """K9's domain-aggregate scratch for ``B`` lanes, f32
-    [B + 1, ND + 1, R] (a row per lane, the chunk-start table last),
-    allocated once per action and passed to every :func:`pertask_fill`
-    launch; None without ``topo`` and for CPU tensors (the plain version
-    keeps its own)."""
+    """K9's domain-aggregate scratch, f32 [ND + 1, R] (the chunk-start
+    table every lane reads), allocated once per action and passed to
+    every :func:`pertask_fill` launch; None without ``topo`` and for CPU
+    tensors (the plain version keeps its own)."""
     if topo is None or not kernels.on_card(free):
         return None
     N, R_ = free.shape
     L = topo.dom_of.shape[0]
-    return torch.empty((B + 1, N * L + 1, R_), dtype=torch.float32,
+    return torch.empty((N * L + 1, R_), dtype=torch.float32,
                        device=free.device)
+
+
+#: K9's node summary: 14 f32 fields and a bit word a node (SoA [15, N])
+PERTASK_SUMMARY_FIELDS = 15
+#: the summary's bit word: valid, allocatable accel > 0, allocatable cpu
+#: > 0, allocatable accel <= 0
+SUMMARY_VALID, SUMMARY_RES0, SUMMARY_RES1, SUMMARY_CPUONLY = 1, 2, 4, 8
+
+
+def pertask_summary_plain(nodes: NodeState, free: Tensor, dev: Tensor,
+                          extra: Tensor, extra_dev: Tensor) -> Tensor:
+    """Plain version of K9's prologue: the chunk-start node summary, f32
+    [15, N] with the last row a bit word (int32 bits viewed as f32).
+    Rows: ``free + EPS`` (3), ``((free + releasing) + extra) + EPS`` (3),
+    ``free + releasing`` on accel and cpu (2), of the idle device row its
+    max and its count of devices at or above ``1 - EPS`` plus EPS, the
+    same of the pipelined row ``(dev + device_releasing) + extra_dev``,
+    the max among partly used idle devices (``EPS < d < 1 - EPS``; -inf
+    where none), ``max(device_memory_gib, EPS)``, then the bits
+    ``SUMMARY_*``.  Each reduction keeps what the per-device predicates
+    compare (``_accel_pool_ok``, ``gpu_sharing_score``), so a task's fit
+    read from it is bit-equal to theirs."""
+    f32 = torch.float32
+    rel = nodes.releasing
+    pipe = (dev + nodes.device_releasing) + extra_dev
+    ninf = torch.tensor(-float("inf"), dtype=f32, device=free.device)
+
+    def dmax(x):
+        return x.amax(-1) if x.shape[-1] else ninf.expand(x.shape[0])
+
+    def whole(x):
+        return (x >= 1.0 - EPS).to(f32).sum(-1) + EPS
+    partial = (dev > EPS) & (dev < 1.0 - EPS)
+    alloc = nodes.allocatable
+    bits = ((nodes.valid.to(torch.int32) * SUMMARY_VALID)
+            | ((alloc[:, 0] > 0).to(torch.int32) * SUMMARY_RES0)
+            | ((alloc[:, 1] > 0).to(torch.int32) * SUMMARY_RES1)
+            | ((alloc[:, 0] <= 0).to(torch.int32) * SUMMARY_CPUONLY))
+    rows = [*(free + EPS).t(), *(((free + rel) + extra) + EPS).t(),
+            *(free + rel)[:, :2].t(), dmax(dev), whole(dev), dmax(pipe),
+            whole(pipe), dmax(torch.where(partial, dev, ninf)),
+            torch.clamp(nodes.device_memory_gib, min=EPS),
+            bits.view(f32)]
+    return torch.stack(rows).contiguous()
+
+
+def pertask_summary(nodes: NodeState, free: Tensor, dev: Tensor,
+                    extra: Tensor, extra_dev: Tensor) -> Tensor:
+    """K9's prologue alone on the card (every :func:`pertask_fill`
+    launch runs it first, inside the same C call); CPU tensors run
+    :func:`pertask_summary_plain`.  Not counted as a launch of K9."""
+    if not kernels.on_card(free):
+        return pertask_summary_plain(nodes, free, dev, extra, extra_dev)
+    N, D = dev.shape
+    if D > PERTASK_MAX_D:
+        raise NotImplementedError(
+            f"pertask_summary: {D} exceeds the kernel's "
+            f"PERTASK_MAX_D={PERTASK_MAX_D}")
+    ts = dict(free=free, dev=dev, releasing=nodes.releasing, extra=extra,
+              device_releasing=nodes.device_releasing, extra_dev=extra_dev,
+              allocatable=nodes.allocatable, valid=nodes.valid,
+              device_memory_gib=nodes.device_memory_gib)
+    dv = kernels.require_cuda("pertask_summary", ts, dict(
+        free=torch.float32, dev=torch.float32, releasing=torch.float32,
+        extra=torch.float32, device_releasing=torch.float32,
+        extra_dev=torch.float32, allocatable=torch.float32,
+        valid=torch.bool, device_memory_gib=torch.float32))
+    summ = torch.empty((PERTASK_SUMMARY_FIELDS, N), dtype=torch.float32,
+                       device=dv)
+    rc = kernels.library().kai_pertask_summary(
+        *(kernels.ptr(v) for v in ts.values()), N, D, kernels.ptr(summ),
+        kernels.stream_of(free))
+    kernels.check(rc, "pertask_summary")
+    return summ
 
 
 # ---------------------------------------------------------------------------
@@ -1984,8 +2073,9 @@ def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
     """K10 — the dense accept prefix and the commit (see
     :func:`dense_accept_plain` for the contract).  CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise.  The kernel
-    walks, per node, only the lanes that placed there (K9's or K3's rows)
-    and never builds the [B, N, R] / [B, N, D] cumulatives.  Without the
+    sorts the live (lane, slot) entries by node, walks each node's run of
+    lanes (K9's or K3's rows) and never builds the [B, N, R] / [B, N, D]
+    cumulatives.  Without the
     device table (``track_devices=False``: the uniform lanes) the four
     device arguments may be None and ``dev`` comes back as given."""
     args = (nodes_b, ok, gate_ok, free_rows, dev_rows, bind_rows,
@@ -2018,12 +2108,19 @@ def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
     free2 = free.clone()
     dev2 = dev.clone() if track_devices else None
     qa2, qan2 = torch.empty_like(qa), torch.empty_like(qan)
+    # the sort's keys and run list past what shared memory holds go to
+    # global memory: 8 + 4 bytes an entry
+    keys = None
+    P = _dense_accept_keys(B * T)
+    if P > DENSE_ACCEPT_SMEM_KEYS:
+        keys = torch.empty((P + P // 2,), dtype=torch.int64, device=dv)
     rc = kernels.library().kai_dense_accept(
         *(None if t is None else kernels.ptr(t) for t in ts.values()),
         B, T, N, D, Q, int(track_devices),
         kernels.ptr(first_bad), kernels.ptr(take), kernels.ptr(free2),
         None if dev2 is None else kernels.ptr(dev2), kernels.ptr(qa2),
-        kernels.ptr(qan2), kernels.stream_of(free))
+        kernels.ptr(qan2), None if keys is None else kernels.ptr(keys),
+        kernels.stream_of(free))
     kernels.check(rc, "dense_accept")
     kernels.count_launch("dense_accept", no_devices=not track_devices)
     return take, free2, (dev2 if track_devices else dev), qa2, qan2
@@ -2294,7 +2391,7 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
     retry_chunks = torch.zeros((), dtype=torch.int64, device=dev)
     # K9's domain-aggregate scratch, shared by every chunk's two launches
     agg_scratch = (None if uniform else
-                   pertask_agg_scratch(B, topo_st, init.free))
+                   pertask_agg_scratch(topo_st, init.free))
     fuel = G * (T + 1)
     chunks = 0
     while fuel > 0 and bool(remaining[:G].any()):

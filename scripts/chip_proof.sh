@@ -2,15 +2,18 @@
 # Runs chip_smoke.py, the repack_racks and resident_churn cycle profiles and
 # the card tests from exactly the files git would commit, unpacked into
 # chip_proof/ (listed in .gitignore), so that nothing built or left behind in
-# the working tree is used.
+# the working tree is used; then times K9 and K10 of the parent commit,
+# unpacked into chip_parent/ (listed too), against the change's on the
+# inputs chip_smoke.py captured, in turns (parent, change, change, parent).
 #
-#   sh scripts/chip_proof.sh unpack        # stage everything, unpack the tree
+#   sh scripts/chip_proof.sh unpack [PARENT]  # stage everything, unpack the
+#                                             # tree and PARENT (default HEAD)
 #   chiprun --timeout 1500 -- sh scripts/chip_proof.sh run
 #
 # `run` (on the GPU machine) builds and runs from chip_proof/ and copies the
 # reports to chiprun_out/proof/: chip_smoke.json, chip_smoke.log,
-# profile_repack_racks_summary.json, profile_resident_churn_summary.json and
-# card_tests.log.
+# profile_repack_racks_summary.json, profile_resident_churn_summary.json,
+# card_tests.log and compare_kernels.jsonl (one line a turn).
 set -e
 cd "$(dirname "$0")/.."
 case "$1" in
@@ -19,6 +22,9 @@ unpack)
     rm -rf chip_proof
     mkdir chip_proof
     git archive "$(git write-tree)" | tar -x -C chip_proof
+    rm -rf chip_parent
+    mkdir chip_parent
+    git archive "${2:-HEAD}" | tar -x -C chip_parent
     ;;
 run)
     test -f chip_proof/chip_smoke.py
@@ -33,6 +39,15 @@ run)
         chiprun_out/profile_resident_churn_summary.json ../chiprun_out/proof/
     python3 -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels.py -q > ../chiprun_out/proof/card_tests.log
+    if test -f ../chip_parent/chip_smoke.py; then
+        inputs="$PWD/build/kernel_inputs.pt"
+        script="$PWD/scripts/compare_kernels.py"
+        for turn in parent change change parent; do
+            if test $turn = parent; then dir=../chip_parent; else dir=.; fi
+            (cd "$dir" && PYTHONPATH=. python3 "$script" --inputs "$inputs" \
+                --label $turn) >> ../chiprun_out/proof/compare_kernels.jsonl
+        done
+    fi
     ;;
 *)
     echo "usage: sh scripts/chip_proof.sh unpack|run" >&2

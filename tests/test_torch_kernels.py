@@ -809,7 +809,7 @@ def test_pertask_fill_subgroup_topology_matches_plain(cuda):
     chunk-start row it copies instead of summing."""
     args, kw = _subgroup_topology_lanes(cuda)
     kernels.reset_launch_counts()
-    agg = A.pertask_agg_scratch(args[2].shape[0], kw["topo"], args[4])
+    agg = A.pertask_agg_scratch(kw["topo"], args[4])
     out = A.pertask_fill(*args, agg=agg, **kw)
     want = A.attempt_gang_in_domain_plain(*args, **kw)
     assert_same(out.fields(), want.fields())
@@ -1285,3 +1285,246 @@ def test_cuda_resident_cycles_equal_cpu_cycles(cuda):
     assert [r[:2] for r in gpu] == [r[:2] for r in cpu]
     assert any(m == "resident" for _p, m, _l in gpu)
     assert all(n == (1 if m == "resident" else 0) for _p, m, n in gpu)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned K9 (node summary, one global pass a step) and K10 (entries
+# sorted by node): the edges of their designs
+# ---------------------------------------------------------------------------
+
+def test_pertask_summary_matches_plain(cuda):
+    """K9's prologue (the chunk-start node summary) against its plain
+    mirror on the sharing lanes' pools: the 14 f32 rows value-equal, the
+    bit word bit-equal."""
+    args, kw = _sharing_lanes(cuda, B=8, num_nodes=400, placement={},
+                              seed=5)
+    n, free, dev, extra, extra_dev = (args[0], args[4], args[5], args[8],
+                                      args[9])
+    got = A.pertask_summary(n, free, dev, extra, extra_dev)
+    want = A.pertask_summary_plain(n, free, dev, extra, extra_dev)
+    assert torch.equal(got[:-1], want[:-1])
+    assert torch.equal(got[-1].view(torch.int32), want[-1].view(torch.int32))
+
+
+def _tie_lanes(cuda, *, B: int, num_nodes: int, seed: int = 0):
+    """K9's arguments on an empty fleet of identical nodes: every node
+    scores alike but for the tie jitter, which is below f32 spacing over
+    hundreds of consecutive ranks, so the lowest node of a tie wins
+    across warp and tile boundaries."""
+    objs = fleets.sharing_objects(
+        apis, num_nodes=num_nodes, shared_nodes=0, training=4,
+        fractions=8, memory=4, launchers=2, seed=seed)
+    ses = Session.open(*objs, device=cuda)
+    st = ses.state
+    g, n, q = st.gangs, st.nodes, st.queues
+    rng = np.random.default_rng(seed)
+    ng = len(ses.index.gang_names)
+    cand = torch.from_numpy(rng.integers(0, ng, B).astype(np.int32)).to(cuda)
+    prior = torch.full((B, g.t), -1, dtype=torch.int32, device=cuda)
+    inf = float("inf")
+    args = (n, A.TaskTables.of(st), cand, prior, n.free.clone(),
+            n.device_free.clone(), q.allocated, q.allocated_nonpreemptible,
+            torch.zeros_like(n.free), torch.zeros_like(n.device_free),
+            A._chain_membership(q.parent, ses.config.num_levels),
+            torch.where(q.limit <= -0.5, inf, q.limit),
+            torch.where(q.quota <= -0.5, inf, q.quota))
+    return args, dict(placement=PlacementConfig(), track_devices=True)
+
+
+@pytest.mark.parametrize("num_nodes", [1000, 20_000])
+def test_pertask_fill_ties_and_tiles_match_plain(cuda, num_nodes):
+    """Ties across warp and tile boundaries (identical nodes), an N that
+    is no multiple of 32 or of a warp's range, and at 20,000 nodes an N
+    past the shared-memory staging (the nodes past it evaluated again in
+    the second pass)."""
+    args, kw = _tie_lanes(cuda, B=64, num_nodes=num_nodes)
+    out = A.pertask_fill(*args, **kw)
+    assert_same(out.fields(), A.pertask_fill_plain(*args, **kw).fields())
+    assert bool((out.nodes_t >= 0).any())
+
+
+def test_pertask_fill_touched_node_wins(cuda):
+    """Binpack sends a lane's later tasks to the node its earlier ones
+    took (the touched node's live rows win the argmax), on the sharing
+    lanes with and without the device table."""
+    args, kw = _sharing_lanes(cuda, B=64, num_nodes=400, placement={},
+                              seed=11)
+    for track in (True, False):
+        kw2 = dict(kw, track_devices=track)
+        out = A.pertask_fill(*args, **kw2)
+        assert_same(out.fields(),
+                    A.pertask_fill_plain(*args, **kw2).fields())
+        nt = out.nodes_t.cpu().numpy()
+        repeats = [len(set(r[r >= 0])) < int((r >= 0).sum()) for r in nt]
+        assert any(repeats)
+
+
+def _widest_topology_lanes(cuda, B=32, seed=0):
+    """K9 at its limits: T = 64 task slots in 31 rack-required subgroups
+    (S = 32), every third task a 0.5 fraction, on 31-device nodes whose
+    device tables are padded with a used-up 32nd device (D = 32; the
+    snapshot takes 31 devices a node)."""
+    nodes, queues, _, _, topo = make_cluster(
+        num_nodes=128, node_accel=31.0, num_gangs=0,
+        topology_levels=(2, 8))
+    leaves = [q.name for q in queues if q.parent is not None]
+    rack = apis.TopologyConstraint(topology="default",
+                                   required_level="topo/level1")
+    groups, pods = [], []
+    for gi in range(12):
+        name = f"wide-{gi}"
+        subs = [apis.SubGroup(f"s{k}", min_member=2 if k < 30 else 4,
+                              topology_constraint=rack) for k in range(31)]
+        groups.append(apis.PodGroup(name, queue=leaves[gi % len(leaves)],
+                                    min_member=64, sub_groups=subs,
+                                    creation_timestamp=float(gi)))
+        for t in range(64):
+            frac = t % 3 == 0
+            pods.append(apis.Pod(
+                f"{name}-{t}", name,
+                resources=apis.ResourceVec(0.0 if frac else 1.0, 1.0, 2.0),
+                accel_portion=0.5 if frac else 0.0,
+                subgroup=f"s{min(t // 2, 30)}", creation_timestamp=float(gi)))
+    ses = Session.open(nodes, queues, groups, pods, topo, device=cuda)
+    st = ses.state
+    n, q = st.nodes, st.queues
+    pad = torch.zeros((n.n, 1), dtype=torch.float32, device=cuda)
+    n = dataclasses.replace(
+        n, device_free=torch.cat([n.device_free, pad], 1).contiguous(),
+        device_releasing=torch.cat([n.device_releasing, pad],
+                                   1).contiguous())
+    tt = A.TaskTables.of(st)
+    assert (tt.task_valid.shape[1], n.device_free.shape[1],
+            tt.subgroup_min_needed.shape[1]) == (64, 32, 32)
+    rng = np.random.default_rng(seed)
+    ng = len(ses.index.gang_names)
+    cand = torch.from_numpy(rng.integers(0, ng, B).astype(np.int32)).to(cuda)
+    prior = torch.full((B, 64), -1, dtype=torch.int32, device=cuda)
+    inf = float("inf")
+    args = (n, tt, cand, prior, n.free.clone(), n.device_free,
+            q.allocated, q.allocated_nonpreemptible, torch.zeros_like(n.free),
+            torch.zeros_like(n.device_free),
+            A._chain_membership(q.parent, ses.config.num_levels),
+            torch.where(q.limit <= -0.5, inf, q.limit),
+            torch.where(q.quota <= -0.5, inf, q.quota))
+    return args, dict(placement=ses.config.allocate.placement,
+                      track_devices=True, topo=A.TopoStatic.of(n))
+
+
+def test_pertask_fill_at_its_limits_with_topology(cuda):
+    """T = 64, D = 32, S = 32 with subgroup topology: the first attempt,
+    then the banned retry of two lanes only (a sparse ``active``) on the
+    first launch's scratch."""
+    args, kw = _widest_topology_lanes(cuda)
+    agg = A.pertask_agg_scratch(kw["topo"], args[4])
+    out = A.pertask_fill(*args, agg=agg, **kw)
+    assert_same(out.fields(), A.pertask_fill_plain(*args, **kw).fields())
+    assert bool((out.nodes_t >= 0).sum(-1).max() > 32)
+    active = torch.zeros_like(out.success)
+    active[3] = active[17] = True
+    got = A.pertask_fill(*args, banned=out.sub_dom, active=active, base=out,
+                         agg=agg, **kw)
+    assert_same(got.fields(), A.pertask_fill_plain(
+        *args, banned=out.sub_dom, active=active, base=out, **kw).fields())
+
+
+def test_pertask_fill_all_false_mask_rows(cuda):
+    """The mask mode with whole rows of the mask false: those lanes
+    place nothing, the others as their plain version."""
+    args, kw = _sharing_lanes(cuda, B=64, num_nodes=400, placement={},
+                              seed=7)
+    mask = _lane_mask(cuda, 64, args[0].valid, 2)
+    mask[::5] = False
+    out = A.pertask_fill(*args, mask=mask, **kw)
+    assert_same(out.fields(), A.pertask_fill_plain(*args, mask=mask,
+                                                   **kw).fields())
+    assert bool((out.nodes_t[::5] < 0).all())
+
+
+def _dense_inputs(cuda, *, B, T, N=64, D=8, Q=6, seed=0, one_node=False,
+                  dup=False, failed=0.0, zero=False, floor_at=None):
+    """K10's arguments, synthetic: each lane places its slots on random
+    nodes (or slot 0 of every lane on node 7), whole-unit and fractional
+    claims, some bind-now; a lane's repeated node carries the same final
+    row in both slots, as K9 writes it.  ``floor_at`` puts node 7's cpu
+    floor where the ``floor_at``-th lane's cumulative claim crosses it;
+    ``zero`` puts one node's pool below its floor (the zero claim)."""
+    rng = np.random.default_rng(seed)
+    free = rng.choice(np.array([4.0, 8.0, 16.0, 300.0], np.float32), (N, 3))
+    if one_node:
+        free[:] = 300.0
+    dev = rng.choice(np.array([0.0, 0.5, 1.0], np.float32), (N, D))
+    rel_floor = -rng.choice(np.array([0.0, 1.0], np.float32), (N, 3)) - 1e-6
+    dev_floor = -rng.choice(np.array([0.0, 0.5], np.float32), (N, D)) - 1e-6
+    # distinct nodes within a lane (node 7 only in slot 0 with one_node)
+    others = np.array([i for i in range(N) if not (one_node and i == 7)])
+    nodes_b = np.stack([rng.choice(others, T, replace=False)
+                        for _ in range(B)]).astype(np.int32)
+    nodes_b[rng.random((B, T)) < 0.3] = -1
+    if one_node:
+        nodes_b[:, 0] = 7
+    if dup:
+        nodes_b[::3, 1] = nodes_b[::3, 0]
+    claim = rng.choice(np.array([0.25, 0.5, 1.0, 2.0], np.float32), (B, T, 3))
+    dclaim = rng.choice(np.array([0.0, 0.5, 1.0], np.float32), (B, T, D))
+    bind = np.where(rng.random((B, T, 1)) < 0.5, claim, 0.0).astype(
+        np.float32)
+    dbind = np.where(rng.random((B, T, 1)) < 0.5, dclaim, 0.0).astype(
+        np.float32)
+    nb = np.clip(nodes_b, 0, None)
+    if dup:   # the later slot repeats the first's final row
+        for arr in (claim, dclaim, bind, dbind):
+            arr[::3, 1] = arr[::3, 0]
+    free_rows = np.where((nodes_b >= 0)[..., None], free[nb] - claim, 0.0)
+    dev_rows = np.where((nodes_b >= 0)[..., None], dev[nb] - dclaim, 0.0)
+    bind = np.where((nodes_b >= 0)[..., None], bind, 0.0)
+    dbind = np.where((nodes_b >= 0)[..., None], dbind, 0.0)
+    ok = rng.random(B) >= failed
+    if floor_at is not None:   # lane k's claim at node 7 is claim[k, 0]
+        cum = np.cumsum(np.where(ok, claim[:, 0, 1], 0.0))
+        rel_floor[7, 1] = np.float32(300.0 - (cum[floor_at - 1]
+                                              + cum[floor_at]) / 2)
+    if zero:
+        rel_floor[3, 0] = free[3, 0] + 1.0
+    gate = rng.random(B) < 0.9
+    d_qa = rng.choice(np.array([0.0, 0.5, 1.0], np.float32), (B, Q, 3))
+    d_qan = d_qa * (rng.random((B, 1, 1)) < 0.5)
+    qa = rng.random((Q, 3)).astype(np.float32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    return (t(nodes_b), t(ok), t(gate), t(free_rows.astype(np.float32)),
+            t(dev_rows.astype(np.float32)), t(bind), t(dbind), t(free),
+            t(dev), t(rel_floor.astype(np.float32)),
+            t(dev_floor.astype(np.float32)), t(d_qa), t(d_qan.astype(
+                np.float32)), t(qa), t(qa.copy()))
+
+
+DENSE_EDGE_CASES = {
+    # 256 lanes all on node 7, crossing the 16-lane blocks; the floor
+    # crossed at lane 150
+    "one_node": dict(B=256, T=2, one_node=True, floor_at=150),
+    # a lane's node repeated in a second slot, and failed lanes
+    "dup_slots": dict(B=64, T=4, dup=True),
+    "failed": dict(B=128, T=4, failed=0.4),
+    # first_bad = 0: the zero claim fails
+    "zero_claim": dict(B=32, T=4, zero=True),
+    # B x T at the shared-memory sort's limit (16,384 entries), and past
+    # it (the sort in global memory)
+    "limit": dict(B=256, T=64, N=4096),
+    "past_limit": dict(B=256, T=80, N=4096),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_EDGE_CASES))
+def test_dense_accept_edges_match_plain(cuda, case):
+    dargs = _dense_inputs(cuda, seed=len(case), **DENSE_EDGE_CASES[case])
+    for track in (True, False):
+        out = A.dense_accept(*dargs, track_devices=track)
+        want = A.dense_accept_plain(*dargs, track_devices=track)
+        assert_same(out, want)
+    take = out[0]
+    if case == "zero_claim":
+        assert not bool(take.any())
+    if case == "one_node":
+        assert bool(take[:140].any()) and not bool(take[150:].any())

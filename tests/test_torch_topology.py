@@ -663,7 +663,7 @@ def test_launch_counts_by_mode():
                      required_level="topo/level1")
     st = port_session.Session.open(*objs, device="cpu").state
     topo = A.TopoStatic.of(st.nodes)
-    assert A.pertask_agg_scratch(4, topo, st.nodes.free) is None
+    assert A.pertask_agg_scratch(topo, st.nodes.free) is None
 
 
 # ---------------------------------------------------------------------------
