@@ -56,7 +56,7 @@ mismatch:
      device table;
    - *topology_subgroups*: the per-task path on the same tree, racks of
      different fill, mixed gangs and two-subgroup gangs each required at
-     the rack level (the gang preferring its block), 600 gangs —
+     the rack level (the gang preferring its block), 300 gangs —
      K9's subgroup-topology mode (64 lanes) with the in-cycle retry,
      K10;
    then K11, K3's topology and preferred modes, K9's topology and banned
@@ -74,7 +74,7 @@ mismatch:
      40,000 running pods, 10,000 pending pods in the other queues —
      reclaim must evict, through the chunked wavefront (64 lanes);
    - *saturated_sequential*: the same cell at ``VictimConfig(
-     batch_size=1)``, the sequential engine, its depth cut to 128
+     batch_size=1)``, the sequential engine, its depth cut to 64
      preemptors per queue (``queue_depth``);
    - *preempt_many_queues* (``bench.py``'s many-tenant preempt shape,
      the preempt action alone as there) at the default VictimConfig:
@@ -150,12 +150,16 @@ mismatch:
    packed delta's bytes with 0 redundant bytes and one K16 launch a
    resident cycle; then K16 is held against its plain version on every
    captured delta (each checked for unique indices first) and timed
-   beside the nearest ``index_put_`` loop;
+   beside the nearest ``index_put_`` loop, and K6's calls of the profiled
+   cycle (reclaim's queue-only ``freeable`` bound, the stale pass) are
+   held against the plain version on CPU copies and timed;
 10. runs the headline's five and two of affinity's timed cycles again,
    each against its oracle, once the oracle process (below) is idle, and
    prints both medians beside those of the runs it was busy for;
 11. prints one JSON line of per-kernel numbers (a row per kernel and per
-   topology, mask and repack mode), the card line, and last ``{"ok":
+   topology, mask, repack and queue-only mode; K3's rows with
+   ``torch.topk``'s time as the nearest library call), the card line,
+   and last ``{"ok":
    true, "device": {...}}``.
 
 The CPU oracles of the sharing and affinity cells (the slowest) run in
@@ -165,9 +169,10 @@ when the script starts; each cell is compared with its oracle when the result
 arrives (sharing after the last cell).  The log also goes, line by line,
 to ``chiprun_out/chip_smoke.log``.  Longer output
 (the compiler's register/spill report, per-phase numbers) goes to
-``chiprun_out/chip_smoke.json``, and the first captured call of every K9
-and K10 mode to ``build/kernel_inputs.pt`` (``scripts/compare_kernels.py``
-times another checkout's K9 and K10 on them).  Imports nothing of JAX.
+``chiprun_out/chip_smoke.json``, and the first captured call of every
+K3, K6, K9 and K10 mode to ``build/kernel_inputs.pt``
+(``scripts/compare_kernels.py`` times another checkout's kernels on
+them).  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -189,7 +194,7 @@ F32_OPS_PER_S = 67e12
 REPEATS = 50
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-#: the first captured call of every K9 and K10 mode, saved for
+#: the first captured call of every K3, K6, K9 and K10 mode, saved for
 #: scripts/compare_kernels.py (an older checkout's kernels on these inputs)
 KERNEL_INPUTS_PATH = os.path.join(ROOT, "build", "kernel_inputs.pt")
 KERNEL_INPUTS: dict = {}
@@ -419,6 +424,21 @@ def bound(nbytes: float, ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def k3_nearest(args, kw) -> dict:
+    """K3's nearest single PyTorch call, timed: ``torch.topk`` over the
+    lanes' [B, N] f32 score rows (each lane's band row) at k = min(T, N).
+    Not K3's function: no jitter, fill or assignment, and no tie order."""
+    cand, prior, lt, tables = args[0], args[1], args[8], args[9]
+    sc = tables[4]
+    rows = kw.get("rows")
+    ty = (lt.task_type0[cand.long()] if rows is None else rows).long()
+    scores = sc[ty].contiguous()
+    k = min(prior.shape[1], sc.shape[1])
+    return dict(nearest_library_ms=_time_ms(lambda: torch.topk(scores, k)),
+                nearest_library=f"torch.topk of the [B, N] score rows at "
+                                f"k={k} (no fill, no tie order)")
+
+
 def kernel_checks(cap: Capture) -> dict:
     """Every kernel on the captured main-path inputs vs its plain version:
     equality, timings, and the least time the card could take."""
@@ -487,7 +507,9 @@ def kernel_checks(cap: Capture) -> dict:
     b, by = bound(nb, B * N * 10)
     out["uniform_fill"] = dict(max_abs_err=max(errs), ms=ms,
                                plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                               shape=f"B={B} T={T} N={N} Q={Q}")
+                               shape=f"B={B} T={T} N={N} Q={Q}",
+                               **k3_nearest(args, kw))
+    KERNEL_INPUTS["uniform_fill"] = cap.calls["uniform_fill"][0]
 
     # K4 — the K = B*T entries and the pools at the <= K touched nodes;
     # the sort's compares (K log2(K)^2 / 2) dominate the operations
@@ -547,9 +569,10 @@ VICTIM_CELLS = {"saturated": ("saturated", None),
                 "fragmented": ("fragmented", None)}
 #: the sequential cell's depth cut: reclaim attempts at most this many
 #: preemptors per queue (the cell's 1,250 pending gangs wait in two
-#: queues), about a fifth of the full run's steps, so that the script
-#: stays within half its time limit
-SEQUENTIAL_QUEUE_DEPTH = 128
+#: queues), about a tenth of the full run's steps, so that the script
+#: stays within its time limit (cut from 128 when a slower host ran the
+#: script in 1,132 s)
+SEQUENTIAL_QUEUE_DEPTH = 64
 #: the preempt cell runs the preempt action alone, as the repo's own
 #: benchmark of this shape does (bench.py bench_preempt_many_queues); in
 #: the five-action cycle reclaim first spends 512 one-lane chunks on it
@@ -620,12 +643,12 @@ TOPOLOGY_KERNELS = ("drf_water_fill", "type_tables", "uniform_fill",
                     "dense_accept:no_devices", "topo_tables_build",
                     "topo_tables_update", "cluster_analytics")
 #: the topology_subgroups cell (the per-task path) on the same tree:
-#: ``state.fleets.topology_subgroup_objects`` with 600 gangs, uncut — a
-#: cycle is one chunk per one to two gangs (every lane's domain-binpack
-#: band picks the same fullest fitting rack), and the CPU oracle's plain
-#: K9 takes about 0.12 s a chunk at 5,000 nodes x 64 lanes on the card's
-#: host (20.7 s for 300 gangs), within the 120 s the oracle may take
-TOPO_SUB = dict(num_nodes=5_000, levels=(8, 16), gangs=600)
+#: ``state.fleets.topology_subgroup_objects`` with 300 gangs — a cycle is
+#: one chunk per one to two gangs (every lane's domain-binpack band picks
+#: the same fullest fitting rack), and the CPU oracle, which runs in the
+#: main process, took 96-175 s for 600 gangs on the card's hosts: cut to
+#: 300 when a slower host ran the script in 1,132 s
+TOPO_SUB = dict(num_nodes=5_000, levels=(8, 16), gangs=300)
 TOPO_SUB_RUNS = 3
 #: K9's calls alternate between a chunk's first attempt and its retry
 #: launch: keep the first chunk's pair and the twentieth's
@@ -663,8 +686,9 @@ AFFINITY_SHARING = dict(num_nodes=10_000, shared_nodes=5_000, services=16,
                            for k, v in AFFINITY_SHARING_FULL.items()})
 AFFINITY_SHARING_RUNS = 3
 #: affinity runs repeated at the end with the oracle processes idle (cut
-#: from 3 to 2 with AFFINITY_RUNS)
-IDLE_AFFINITY_RUNS = 2
+#: from 3 to 2 with AFFINITY_RUNS, and to 1 when a slower host ran the
+#: script in 1,132 s)
+IDLE_AFFINITY_RUNS = 1
 #: per cell: (timed runs, kernel calls kept in its warm-up, the kernels
 #: and modes every timed run must launch)
 AFFINITY_CELLS = {
@@ -1085,7 +1109,8 @@ def run_resident_cell(device: str = "cuda"):
     captured on every resident cycle (the delta; after the cycle, outside
     its timing, one copy of a state of each layout), the "profiled" cycle
     under the profiler's CUDA activity.  Returns ``(per-cycle records, captured K16
-    calls, profiler in-cycle table, fallbacks, set-up seconds)``."""
+    calls, profiler in-cycle table, fallbacks, set-up seconds, K6's
+    captured calls)``."""
     import copy
     import weakref
     from torch.profiler import ProfilerActivity, profile
@@ -1100,6 +1125,8 @@ def run_resident_cell(device: str = "cuda"):
     # copy of a resident state, cloned after the cycle (outside its timing)
     captured, bases, pending = [], {}, []
     orig_apply = RS.apply_delta
+    #: K6's calls in the profiled cycle (reclaim's bound, the stale pass)
+    k6cap = Capture({"freed_by_mask": range(16)})
 
     def capture(state, delta):
         pending.append((state, delta))
@@ -1143,11 +1170,16 @@ def run_resident_cell(device: str = "cuda"):
             if phase == "profiled":
                 acts = [ProfilerActivity.CUDA if device == "cuda"
                         else ProfilerActivity.CPU]
-                with profile(activities=acts) as prof:
+                with profile(activities=acts) as prof, k6cap:
                     res, secs = res_run.step(kernels.reset_launch_counts)
                     counts = kernels.launch_counts()
                 in_cycle = in_cycle_device_ms(prof)
                 del prof
+                # the resident state changes in place next cycle: keep
+                # copies of what K6 read
+                k6cap.calls["freed_by_mask"] = [
+                    (_standalone(a), _standalone(kw))
+                    for a, kw in k6cap.calls.get("freed_by_mask", [])]
             else:
                 res, secs = res_run.step(kernels.reset_launch_counts)
                 counts = kernels.launch_counts()
@@ -1179,7 +1211,8 @@ def run_resident_cell(device: str = "cuda"):
     resident_schedule(runs["resident"], step)
     fallbacks = {k: dict(r.sched._snapshotter.stats.fallbacks)
                  for k, r in runs.items() if r.sched._snapshotter}
-    return records, captured, in_cycle, fallbacks, build_s
+    return (records, captured, in_cycle, fallbacks, build_s,
+            k6cap.calls.get("freed_by_mask", []))
 
 
 def check_resident_cell(records: list, oracle: list) -> dict:
@@ -1323,6 +1356,60 @@ def resident_kernel_checks(captured: list) -> dict:
               f"{sum(1 for t in delta['idx'].values() if t.numel())} "
               f"groups, {len(puts)} changed leaves, {written} bytes "
               f"written")}
+
+
+def resident_freed_checks(calls: list) -> dict:
+    """K6 on resident_churn's captured calls — reclaim's ``freeable``
+    bound (the queue-only mode) and the stale pass — each vs its plain
+    version on CPU copies (the ordered sums need the CPU's
+    ``index_add_``), tolerance 0.  Timed on the queue-only call: the
+    kernel (median of 50), the plain version on the card, and the nearest
+    library call, ``index_add_`` of the masked requests into the [Q, R]
+    leaf table (atomic order, no roll-up).  Bound: bytes — the mask, the
+    masked pods' requests, queue and preemptible flag once, the two
+    rolled-up tables written once; operations: two adds per masked pod
+    and resource and the roll-up's Q x Q x R multiply-adds."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    errs, queue_only, full = [], None, None
+    for args, kw in calls:
+        state, mask, chain = args[:3]
+        got = V.freed_by_mask(*args, **kw)
+        errs.append(_max_abs_err(_to_cpu(got), V.freed_by_mask_plain(
+            _cpu_state(state), mask.cpu(), chain.cpu(),
+            queues_only=kw.get("queues_only", False))))
+        if kw.get("queues_only"):
+            queue_only = queue_only or (args, kw)
+        else:
+            full = full or (args, kw)
+    if queue_only is None:
+        raise AssertionError("resident_churn: no queue-only K6 call")
+    KERNEL_INPUTS["freed_by_mask:queues_only"] = queue_only
+    (state, mask, chain, *rest), kw = queue_only
+    k_ms = _time_ms(lambda: V.freed_by_mask(*queue_only[0], **kw))
+    p_ms = _time_ms(lambda: V.freed_by_mask_plain(
+        state, mask, chain, queues_only=True), 5)
+    r, q = state.running, state.queues
+    Q, R_ = q.q, r.req.shape[1]
+    seg = torch.where(mask, torch.clamp(r.queue, min=0), Q).long()
+    req_m = torch.where(mask[:, None], r.req, 0.0)
+    lib_ms = _time_ms(lambda: torch.zeros(
+        (Q + 1, R_), device=mask.device).index_add_(0, seg, req_m))
+    nm = int(mask.sum())
+    b, by = bound(r.m + nm * (4 * R_ + 4 + 1) + 2 * Q * R_ * 4,
+                  2 * nm * R_ + 4 * Q * Q * R_)
+    rec = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
+               bound_by=by, nearest_library_ms=lib_ms,
+               nearest_library="index_add_ of the [Q, R] leaf table only "
+                               "(atomic order, no roll-up)",
+               checked=len(calls),
+               shape=f"M={r.m} masked={nm} Q={Q} R={R_} (resident_churn, "
+                     f"reclaim's freeable)")
+    if full is not None:
+        KERNEL_INPUTS["freed_by_mask:resident_stale"] = full
+        rec["stale_call_ms"] = _time_ms(lambda: V.freed_by_mask(
+            *full[0], **full[1]))
+        rec["stale_call_masked"] = int(full[0][1].sum())
+    return {"freed_by_mask:queues_only": rec}
 
 
 def fresh_cluster(shape: dict):
@@ -1688,7 +1775,9 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
     b, by = bound(nb, B * N * 10 + B * ND * 3)
     out["uniform_fill:topology"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        checked=n, shape=f"B={B} T={T} N={N} ND={ND} Q={Q}")
+        checked=n, shape=f"B={B} T={T} N={N} ND={ND} Q={Q}",
+        **k3_nearest(args, kw))
+    KERNEL_INPUTS["uniform_fill:topology"] = (args, kw)
 
     # K3 preferred mode — the same inputs with every other lane's gang
     # preferring its block (topo/level0): a second pass over the nodes
@@ -1701,7 +1790,9 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
     b, by = bound(nb + _nbytes(pref), B * N * 22 + B * ND * 3)
     out["uniform_fill:preferred"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        checked=1, shape=f"B={B} N={N}, {B // 2 + B % 2} lanes preferring")
+        checked=1, shape=f"B={B} N={N}, {B // 2 + B % 2} lanes preferring",
+        **k3_nearest(args, pkw))
+    KERNEL_INPUTS["uniform_fill:preferred"] = (args, pkw)
 
     # K10 without the device table (the uniform lanes' rows here; the
     # per-task path without GPU sharing runs the same mode) — the
@@ -2076,7 +2167,9 @@ def affinity_kernel_checks(caps: dict) -> dict:
     b, by = bound(nb, B * N * 11)
     out["uniform_fill:mask"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        checked=len(recs), shape=f"B={B} T={T} N={N} Q={Q} ({c})")
+        checked=len(recs), shape=f"B={B} T={T} N={N} Q={Q} ({c})",
+        **k3_nearest(args, kw))
+    KERNEL_INPUTS["uniform_fill:mask"] = (args, kw)
 
     # K9 mask mode — sharing_kernel_checks' K9 bytes plus the [B, N] mask
     recs = [r for r in calls("pertask_fill") if r[3].get("mask") is not None]
@@ -2262,13 +2355,18 @@ def victim_kernel_checks(caps: dict) -> dict:
     for cell in ("saturated_sequential", "fragmented"):
         for args, kw in caps[cell].calls.get("freed_by_mask", []):
             state, mask, chain = args[:3]
+            only = kw.get("queues_only", False)
             got = caps[cell]._orig["freed_by_mask"](*args, **kw)
             cst = _cpu_state(state)
             errs.append(_max_abs_err(_to_cpu(got), V.freed_by_mask_plain(
-                cst, mask.cpu(), chain.cpu())))
-            if rec is None or int(mask.sum()) > int(rec[0][1].sum()):
+                cst, mask.cpu(), chain.cpu(), queues_only=only)))
+            if not only and (rec is None
+                             or int(mask.sum()) > int(rec[0][1].sum())):
                 rec = (args, kw, cell)
     (state, mask, chain, *rest), kw, cell = rec
+    KERNEL_INPUTS["freed_by_mask"] = next(
+        (a, k) for a, k in caps["saturated_sequential"].calls["freed_by_mask"]
+        if not k.get("queues_only"))
     pods = V.PodIndex.of(state)
     k_ms = _time_ms(lambda: V.freed_by_mask(state, mask, chain, pods))
     p_ms = _time_ms(lambda: V.freed_by_mask_plain(state, mask, chain), 5)
@@ -2423,7 +2521,8 @@ def lane_kernel_checks(caps: dict) -> dict:
     out["uniform_fill:lanes"] = dict(
         max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
         bound_by=by, shape=f"B={B} T={T} N={N} Q={Q} per-lane ({cell})",
-        checked=len(recs))
+        checked=len(recs), **k3_nearest(args, kw))
+    KERNEL_INPUTS["uniform_fill:lanes"] = (args, kw)
 
     # K4 with the per-entry freed credit: as kernel_checks' K4, plus the
     # [K, R] credit read once
@@ -2794,7 +2893,8 @@ def run(oracles: dict) -> int:
     # -- 9b. the resident_churn cell: the resident run and its two twins
     # over one churn stream, then the CPU oracle (the oracle process), then
     # K16 vs its plain version on every captured delta -------------------
-    records, captured, in_cycle, fallbacks, build_s = run_resident_cell()
+    records, captured, in_cycle, fallbacks, build_s, k6_calls = \
+        run_resident_cell()
     oracle, oracle_s = oracles["resident_churn"].result()
     rec = check_resident_cell(records, oracle)
     rec.update(in_cycle_ms=in_cycle, fallbacks=fallbacks,
@@ -2802,7 +2902,8 @@ def run(oracles: dict) -> int:
     report["resident_churn"] = rec
     del records, oracle
     checks.update(resident_kernel_checks(captured))
-    del captured
+    res_checks = resident_freed_checks(k6_calls)
+    del captured, k6_calls
     med = rec["cycle_seconds_median"]
     log(f"resident_churn: {rec['cycles']} cycles (modes {rec['modes']}, "
         f"fallbacks {rec['fallback_reasons']}), {RESIDENT_TIMED} timed: "
@@ -2918,7 +3019,8 @@ def run(oracles: dict) -> int:
                  "pertask_fill:banned": "topology_subgroups",
                  "uniform_fill:mask": "affinity",
                  "pertask_fill:mask": "affinity_sharing",
-                 "sparse_accept:repack": "repack_racks"}
+                 "sparse_accept:repack": "repack_racks",
+                 "freed_by_mask:queues_only": "resident_churn"}
 
     #: each mode's launches, counted by its wrapper at the launch in the
     #: last timed run of its cell (config 4 prefers no level: K3's
@@ -2927,7 +3029,7 @@ def run(oracles: dict) -> int:
     mode_launches = {m: report[c]["launches"][m]
                      for m, c in mode_path.items()}
 
-    mode_checks = {**topo_checks, **aff_checks, **rep_checks}
+    mode_checks = {**topo_checks, **aff_checks, **rep_checks, **res_checks}
     for name, c in (list(checks.items()) + list(lane_checks.items())
                     + list(mode_checks.items())):
         cell, counts = (path_of[name] if name in path_of else
@@ -2953,7 +3055,7 @@ def run(oracles: dict) -> int:
     report["kernel_checks"] = dict(checks, **lane_checks, **mode_checks)
     os.makedirs(os.path.dirname(KERNEL_INPUTS_PATH), exist_ok=True)
     torch.save(_standalone(KERNEL_INPUTS), KERNEL_INPUTS_PATH)
-    log(f"K9 and K10 inputs ({', '.join(KERNEL_INPUTS)}) saved to "
+    log(f"kernel inputs ({', '.join(KERNEL_INPUTS)}) saved to "
         f"{KERNEL_INPUTS_PATH} for scripts/compare_kernels.py")
     rows = []
     for name, info in kernels.KERNELS.items():
@@ -2974,6 +3076,7 @@ def run(oracles: dict) -> int:
             m = lane_checks[mode]
             row["victim_mode"] = dict(
                 cell=mode_path[mode], launches=mode_launches[mode],
+                nearest_library_ms=m.get("nearest_library_ms"),
                 **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "shape")})
         rows.append(row)
@@ -2989,6 +3092,7 @@ def run(oracles: dict) -> int:
             launches=mode_launches[name],
             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+            nearest_library_ms=c.get("nearest_library_ms"),
             launches_path=cell if mode_launches[name] else None,
             in_cycle_ms=({v: report[v]["in_cycle_ms"][base]["ms"]
                           for v in PROFILED_CELLS}

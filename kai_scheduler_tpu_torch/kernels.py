@@ -76,7 +76,8 @@ KERNELS: dict[str, KernelInfo] = {
                    "kai_scheduler_tpu/utils/numerics.py:30"),
         KernelInfo("freed_by_mask",
                    "kai_scheduler_tpu_torch/csrc/freed_by_mask.cu",
-                   "kai_scheduler_tpu/ops/victims.py:143"),
+                   "kai_scheduler_tpu/ops/victims.py:143",
+                   modes=("queues_only",)),
         KernelInfo("replace_victims",
                    "kai_scheduler_tpu_torch/csrc/replace_victims.cu",
                    "kai_scheduler_tpu/ops/victims.py:644"),
@@ -160,7 +161,7 @@ _SIGNATURES = {
     "kai_uniform_fill": [_P] * 31 + [_I] * 13 + [_F] + [_P] * 7 + [_P],
     "kai_sparse_accept": [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P],
     "kai_cumsum_ds": [_P, _I, _I, _P, _P, _P],
-    "kai_freed_by_mask": [_P] * 12 + [_I] * 5 + [_P] * 6 + [_P],
+    "kai_freed_by_mask": [_P] * 12 + [_I] * 7 + [_P] * 8 + [_P],
     "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
     + [_P],
     "kai_freed_by_lane": [_P] * 7 + [_I] * 5 + [_P] * 4 + [_P],

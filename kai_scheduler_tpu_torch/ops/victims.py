@@ -150,11 +150,14 @@ def _rollup(chain: Tensor, leaf: Tensor) -> Tensor:
     return out
 
 
-def freed_by_mask_plain(state: ClusterState, mask: Tensor, chain: Tensor):
+def freed_by_mask_plain(state: ClusterState, mask: Tensor, chain: Tensor,
+                        *, queues_only: bool = False):
     """Plain PyTorch version of K6 (ref ``:143``): ``(freed_nodes [N, R],
     freed_devices [N, D], freed_queues [Q, R], freed_queues_nonpreemptible
     [Q, R], freed_extended [N, E])``.  Every segment sum adds in ascending
-    pod order from +0.0 (``index_add_`` on the CPU is that loop)."""
+    pod order from +0.0 (``index_add_`` on the CPU is that loop).  With
+    ``queues_only`` only ``(freed_queues, freed_queues_nonpreemptible)``,
+    the same bits (reclaim's ``freeable`` reads no other output)."""
     r, n, q = state.running, state.nodes, state.queues
     N, D, Q = n.n, n.d, q.q
     f32 = torch.float32
@@ -165,6 +168,13 @@ def freed_by_mask_plain(state: ClusterState, mask: Tensor, chain: Tensor):
         return out.index_add_(0, seg.long(), values)[:num]
 
     req_m = torch.where(mask[:, None], r.req, 0.0)
+    leaf = seg_sum(req_m, torch.where(mask, torch.clamp(r.queue, min=0), Q), Q)
+    np_mask = mask & ~r.preemptible
+    leaf_np = seg_sum(torch.where(np_mask[:, None], r.req, 0.0),
+                      torch.where(np_mask, torch.clamp(r.queue, min=0), Q), Q)
+    freed_q = (_rollup(chain, leaf), _rollup(chain, leaf_np))
+    if queues_only:
+        return freed_q
     node_seg = torch.where(mask, torch.clamp(r.node, min=0), N)
     freed_nodes = seg_sum(req_m, node_seg, N)
     frac = mask & (r.device >= 0)
@@ -175,24 +185,25 @@ def freed_by_mask_plain(state: ClusterState, mask: Tensor, chain: Tensor):
         D, dtype=torch.int32, device=mask.device)[None, :]) & 1
     whole_bits = bits.to(f32) * (mask & (r.device < 0))[:, None]
     freed_dev = freed_dev + seg_sum(whole_bits, node_seg, N)
-    leaf = seg_sum(req_m, torch.where(mask, torch.clamp(r.queue, min=0), Q), Q)
-    np_mask = mask & ~r.preemptible
-    leaf_np = seg_sum(torch.where(np_mask[:, None], r.req, 0.0),
-                      torch.where(np_mask, torch.clamp(r.queue, min=0), Q), Q)
     freed_ext = seg_sum(torch.where(mask[:, None], r.extended, 0.0),
                         node_seg, N)
-    return (freed_nodes, freed_dev, _rollup(chain, leaf),
-            _rollup(chain, leaf_np), freed_ext)
+    return (freed_nodes, freed_dev, *freed_q, freed_ext)
+
+
+#: pod-list entries a block of K6 reads in one step (FM_TILE)
+_FREED_TILE = 2048
 
 
 def freed_by_mask(state: ClusterState, mask: Tensor, chain: Tensor,
-                  pods: PodIndex | None = None):
+                  pods: PodIndex | None = None, *, queues_only: bool = False):
     """K6 — resources released by evicting the masked running pods (see
-    :func:`freed_by_mask_plain` for the contract).  CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise.  ``pods`` is
-    the action's :class:`PodIndex` (built here when not given)."""
+    :func:`freed_by_mask_plain` for the contract, ``queues_only``
+    included).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise.  ``pods`` is the action's :class:`PodIndex` (built
+    here when not given)."""
     if not kernels.on_card(mask):
-        return freed_by_mask_plain(state, mask, chain)
+        return freed_by_mask_plain(state, mask, chain,
+                                   queues_only=queues_only)
     r, n, q = state.running, state.nodes, state.queues
     N, D, Q, M = n.n, n.d, q.q, r.m
     R_ = r.req.shape[1]
@@ -211,19 +222,32 @@ def freed_by_mask(state: ClusterState, mask: Tensor, chain: Tensor,
         queue_off=i32, queue_pods=i32, chain=b))
     if mask.shape != (M,) or chain.shape != (Q, Q):
         raise ValueError("freed_by_mask: mask must be [M], chain [Q, Q]")
+    # each queue's list is split over S blocks: enough that no block's
+    # slice holds more than a tile of the pod axis, at most 32 a queue and
+    # about 4,096 slices in all
+    S = max(1, min(32, -(-M // _FREED_TILE), 4096 // Q))
+    part = torch.empty((Q * S * (3 * R_ + 1),), dtype=f32, device=dev)
     leaf = torch.empty((2 * Q * R_,), dtype=f32, device=dev)
-    outs = (torch.empty((N, R_), dtype=f32, device=dev),
-            torch.empty((N, D), dtype=f32, device=dev),
-            torch.empty((Q, R_), dtype=f32, device=dev),
-            torch.empty((Q, R_), dtype=f32, device=dev),
-            torch.empty((N, E), dtype=f32, device=dev))
+    done = torch.empty((Q + 1,), dtype=i32, device=dev)
+    freed_q = (torch.empty((Q, R_), dtype=f32, device=dev),
+               torch.empty((Q, R_), dtype=f32, device=dev))
+    node_outs = (None, None, None) if queues_only else (
+        torch.empty((N, R_), dtype=f32, device=dev),
+        torch.empty((N, D), dtype=f32, device=dev),
+        torch.empty((N, E), dtype=f32, device=dev))
     rc = kernels.library().kai_freed_by_mask(
-        *(kernels.ptr(t) for t in ts.values()), N, R_, D, Q, E,
-        kernels.ptr(leaf), *(kernels.ptr(t) for t in outs),
+        *(kernels.ptr(t) for t in ts.values()), N, R_, D, Q, E, S,
+        int(queues_only), kernels.ptr(part), kernels.ptr(leaf),
+        kernels.ptr(done),
+        *(None if t is None else kernels.ptr(t) for t in node_outs[:2]),
+        *(kernels.ptr(t) for t in freed_q),
+        None if node_outs[2] is None else kernels.ptr(node_outs[2]),
         kernels.stream_of(mask))
     kernels.check(rc, "freed_by_mask")
-    kernels.count_launch("freed_by_mask")
-    return outs
+    kernels.count_launch("freed_by_mask", queues_only=queues_only)
+    if queues_only:
+        return freed_q
+    return (*node_outs[:2], *freed_q, node_outs[2])
 
 
 # ---------------------------------------------------------------------------
@@ -1541,7 +1565,8 @@ def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
     if mode == "reclaim":
         # lower bound of future queue allocation: everything any
         # candidate could ever free, rolled up the chain
-        freeable = freed_by_mask(state, base, chain, act.pods)[2]
+        freeable = freed_by_mask(state, base, chain, act.pods,
+                                 queues_only=True)[0]
         qa_lower = torch.clamp(result.queue_allocated - freeable, min=0.0)
         viable = viable & _ancestor_gate(q.parent, gq, num_levels, qa_lower,
                                          fair_share, task_req_g)

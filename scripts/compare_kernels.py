@@ -1,24 +1,29 @@
-"""Time K9 (``pertask_fill``) and K10 (``dense_accept``) of one checkout on
-the inputs another run captured, on one NVIDIA GPU.
+"""Time K3 (``uniform_fill``), K6 (``freed_by_mask``), K9
+(``pertask_fill``) and K10 (``dense_accept``) of one checkout on the
+inputs another run captured, on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # writes build/kernel_inputs.pt
     PYTHONPATH=<checkout> python3 scripts/compare_kernels.py \\
         --inputs build/kernel_inputs.pt --label <name>
 
-``chip_smoke.py`` saves the first captured call of every K9 and K10 mode
-on its main path (sharing, topology, topology_subgroups, affinity_sharing)
-to ``build/kernel_inputs.pt``.  This script loads them into whichever
-``kai_scheduler_tpu_torch`` comes first on ``sys.path`` (so it times an
-older checkout's kernels on the same inputs), holds each kernel against
-that checkout's plain version (tolerance 0), and prints one JSON line:
-each mode's median of 50 calls (CUDA events around each call, as
-``chip_smoke.py`` times them), the card's name and power limit, and the
-checkout's path.  ``scripts/chip_proof.sh run`` alternates it between
-the parent commit and the change (parent, change, change, parent).
+``chip_smoke.py`` saves the first captured call of every K3, K6, K9 and
+K10 mode on its main path to ``build/kernel_inputs.pt``.  This script
+loads them into whichever ``kai_scheduler_tpu_torch`` comes first on
+``sys.path`` (so it times an older checkout's kernels on the same
+inputs), holds each kernel against that checkout's plain version
+(tolerance 0; K6's on CPU copies, whose ``index_add_`` adds in order),
+and prints one JSON line: each mode's median of 50 calls (CUDA events
+around each call, as ``chip_smoke.py`` times them), the card's name and
+power limit, and the checkout's path.  A checkout whose K6 has no
+queue-only mode runs the whole kernel for that call (what its reclaim
+ran) and is held on the queue tables.  ``scripts/chip_proof.sh run``
+alternates it between the parent commit and the change (parent, change,
+change, parent).
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -58,7 +63,30 @@ def main() -> int:
         raise SystemExit("compare_kernels: no CUDA device")
     import kai_scheduler_tpu_torch
     from kai_scheduler_tpu_torch.ops import allocate as A
+    from kai_scheduler_tpu_torch.ops import victims as V
+    from kai_scheduler_tpu_torch.state import (state_from_numpy,
+                                               state_to_numpy)
     saved = torch.load(a.inputs, map_location="cuda", weights_only=False)
+    has_queues_only = "queues_only" in inspect.signature(
+        V.freed_by_mask).parameters
+
+    def freed(args, kw):
+        """K6's call, its outputs and its plain version's, on CPU copies
+        of the inputs."""
+        state, mask, chain = args[:3]
+        only = kw.get("queues_only", False)
+        if has_queues_only or not only:
+            def call():
+                return V.freed_by_mask(*args, **kw)
+        else:   # an older K6: the whole kernel, held on its queue tables
+            def call():
+                return V.freed_by_mask(*args)[2:4]
+        plain = V.freed_by_mask_plain(
+            state_from_numpy(state_to_numpy(state), "cpu"), mask.cpu(),
+            chain.cpu())
+        return (call, [t.cpu() for t in _flat(call())],
+                list(plain[2:4] if only else plain))
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -66,15 +94,25 @@ def main() -> int:
                card=card.strip(), modes={})
     for mode, (args, kw) in saved.items():
         kw = {k: v for k, v in kw.items() if k != "agg"}
-        if mode.startswith("pertask_fill"):
-            fn, plain = A.pertask_fill, A.pertask_fill_plain
+        if mode.startswith("freed_by_mask"):
+            call, got, want = freed(args, kw)
         else:
-            fn, plain = A.dense_accept, A.dense_accept_plain
-        for x, y in zip(_flat(fn(*args, **kw)), _flat(plain(*args, **kw))):
-            if not torch.equal(x, y):
-                raise AssertionError(f"{a.label} {mode}: kernel and plain "
-                                     f"version differ")
-        out["modes"][mode] = _time_ms(lambda: fn(*args, **kw))
+            fn, plain = {"pertask_fill": (A.pertask_fill,
+                                          A.pertask_fill_plain),
+                         "dense_accept": (A.dense_accept,
+                                          A.dense_accept_plain),
+                         "uniform_fill": (A.uniform_fill,
+                                          A.uniform_fill_plain)}[
+                mode.split(":")[0]]
+
+            def call(fn=fn, args=args, kw=kw):
+                return fn(*args, **kw)
+            got, want = _flat(call()), _flat(plain(*args, **kw))
+        if len(got) != len(want) or not all(
+                torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{a.label} {mode}: kernel and plain "
+                                 f"version differ")
+        out["modes"][mode] = _time_ms(call)
     print(json.dumps(out))
     return 0
 

@@ -166,6 +166,44 @@ def test_topk_tie_order_matches_lax_top_k():
         list(range(8))]
 
 
+def uniform_fill_keys(rows: np.ndarray) -> np.ndarray:
+    """K3's 64-bit selection key of every (score, node) (``uf_key`` in
+    ``csrc/uniform_fill.cu``): the score's order-preserving integer
+    (``kai_f32_key``) with its sign bit flipped, high, and ~node, low;
+    the larger key is the better entry."""
+    bits = rows.astype(np.float32).view(np.int32).astype(np.int64)
+    f32key = np.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    hi = (f32key & 0xFFFFFFFF) ^ 0x80000000
+    node = np.arange(rows.shape[-1], dtype=np.int64)
+    lo = ~node & 0xFFFFFFFF
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_uniform_fill_key_order_matches_lax_top_k(k):
+    """K3's top-k takes the k largest 64-bit keys in descending order: the
+    order of ``lax.top_k`` on rows of ties, signed zeros (-0.0 below
+    +0.0), the padding score KAI_BIG_NEG (-1e30), -inf and mixed values,
+    at 64 nodes and at 1,001."""
+    rng = np.random.default_rng(k)
+    for n in (64, 1001):
+        rows = np.stack([
+            np.full(n, 109.0, np.float32),
+            rng.integers(0, 4, n).astype(np.float32),
+            np.where(rng.random(n) < 0.5, -1e30, 9.0).astype(np.float32),
+            rng.choice(np.array([0.0, -0.0, -np.inf, 1.0, -1.0, -1e30],
+                                np.float32), n),
+            np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32),
+            (rng.normal(size=n) * 1e-7 + 109.0).astype(np.float32),
+        ])
+        keys = uniform_fill_keys(rows)
+        assert len(np.unique(keys[0])) == n
+        got = np.array([sorted(range(n), key=lambda i, r=r: -int(r[i]))[:k]
+                        for r in keys])
+        _, want = jax.lax.top_k(rows, k)
+        assert np.array_equal(np.asarray(want), got), n
+
+
 #: settings the per-task and topology paths lifted from allocate; the
 #: victim actions still refuse them (their placement check)
 VICTIM_ONLY = ("uniform_tasks", "track_devices", "subgroup_topology",

@@ -1528,3 +1528,219 @@ def test_dense_accept_edges_match_plain(cuda, case):
         assert not bool(take.any())
     if case == "one_node":
         assert bool(take[:140].any()) and not bool(take[150:].any())
+
+
+# ---------------------------------------------------------------------------
+# K3 and K6 at the edges of their Hopper designs
+# ---------------------------------------------------------------------------
+
+def _uniform_inputs(cuda, num_nodes=300, tasks_per_gang=8, B=64,
+                    running_fraction=0.0, seed=0):
+    """One uniform chunk's lanes over random real gangs of a
+    ``make_cluster`` fleet (K2's tables, the queue caps, the chains)."""
+    ses = _session(cuda, num_nodes=num_nodes, num_gangs=max(B, 40),
+                   tasks_per_gang=tasks_per_gang, num_departments=2,
+                   queues_per_department=2,
+                   running_fraction=running_fraction, seed=seed)
+    st, cfg = ses.state, ses.config.allocate
+    g, n, q = st.gangs, st.nodes, st.queues
+    rng = np.random.default_rng(seed)
+    ng = len(ses.index.gang_names)
+    cand = torch.from_numpy(rng.integers(0, ng, B).astype(np.int32)).to(cuda)
+    prior = torch.full((B, g.t), -1, dtype=torch.int32, device=cuda)
+    lim = torch.where(q.limit <= -0.5, float("inf"), q.limit)
+    quo = torch.where(q.quota <= -0.5, float("inf"), q.quota)
+    tables = A.type_tables(n, n.free, torch.zeros_like(n.free), g.type_req,
+                           g.type_selector, g.type_class, cfg.placement)
+    args = (cand, prior, g.min_needed[cand.long()].contiguous(),
+            q.allocated, q.allocated_nonpreemptible, lim, quo,
+            A._chain_membership(q.parent, 2), A.LaneTables.of(st), tables,
+            n.soft_scores, n.valid)
+    return st, args
+
+
+def _signed_zero_rows(cuda, args, B, N, stride, seed):
+    """Tables and a score bias under which, in the dense hoisted order
+    ``((bands + soft) + jitter) + bias``, every lane's scores are +0.0
+    (bias = -jitter), -0.0 at the node whose jitter is -0.0 (bias -0.0),
+    a few positives, and KAI_BIG_NEG where the lane's mask is off."""
+    fi, fp, ci, cp, sc = args[9]
+    rng = np.random.default_rng(seed)
+    lanes = torch.arange(B)[:, None]
+    offs = torch.arange(N)[None] - lanes * stride
+    jit = A._jitter_scale(N) * torch.remainder(offs, N).to(torch.float32)
+    bias = torch.where(jit == 0, torch.tensor(-0.0), -jit)
+    bump = torch.from_numpy(rng.random((B, N)) < 0.005)
+    bump[::4] = False
+    bias = torch.where(bump, bias + 1.0, bias)
+    tables = (fi, fp, ci, cp, torch.full_like(sc, -0.0))
+    soft = torch.full_like(args[10], -0.0)
+    valid = _lane_mask(cuda, B, args[11], seed).cpu()
+    # every fourth lane keeps its -0.0 node and three +0.0 nodes of higher
+    # index: lax.top_k puts those first (-0.0 ranks below +0.0, whatever
+    # the index), so the -0.0 node takes no replica
+    for b in range(0, B, 4):
+        x = b * stride % N
+        keep = [x] + rng.choice(np.arange(x + 1, N), 3,
+                                replace=False).tolist()
+        valid[b] = False
+        valid[b, keep] = True
+    return (args[:9] + (tables, soft, valid.to(cuda)),
+            bias.to(cuda))
+
+
+UNIFORM_EDGE_CASES = {
+    # an empty cluster: every score ties, the lower node wins
+    "ties": dict(),
+    "k1": dict(tasks_per_gang=1, one_slot=True),
+    "k64": dict(tasks_per_gang=64, B=32),
+    # N not a multiple of a warp, of a block or of a step
+    "n_odd": dict(num_nodes=1001),
+    # more nodes than one block's threads hold in a step many times over
+    "n_large": dict(num_nodes=20_000, B=8),
+    # a partly filled cluster: distinct scores, the thresholds rise
+    "partly_filled": dict(running_fraction=0.5, seed=3),
+    # +0.0, -0.0, positives and KAI_BIG_NEG in one row
+    "signed_zeros": dict(signed_zeros=True),
+}
+
+
+@pytest.mark.parametrize("case", list(UNIFORM_EDGE_CASES))
+def test_uniform_fill_edges_match_plain(cuda, case):
+    """K3 (plain mode, the mask mode, the per-lane victim mode with a
+    score bias) byte-equal to its plain version at its design's edges."""
+    spec = dict(UNIFORM_EDGE_CASES[case])
+    zeros = spec.pop("signed_zeros", False)
+    one_slot = spec.pop("one_slot", False)
+    st, args = _uniform_inputs(cuda, **spec)
+    if one_slot:   # T = 1: a top-k of one
+        lt = dataclasses.replace(
+            args[8], task_valid=args[8].task_valid[:, :1].contiguous())
+        args = (args[0], args[1][:, :1].contiguous()) + args[2:8] + (lt,) \
+            + args[9:]
+    B, N = args[1].shape[0], st.nodes.n
+    stride = max(1, N // B)
+    runs = []
+    if zeros:
+        zargs, bias = _signed_zero_rows(cuda, args, B, N, stride, seed=5)
+        runs.append((zargs, dict(dense=True, stride=stride, hoisted=True,
+                                 score_bias=bias)))
+    else:
+        for dense in (True, False):
+            for hoisted in (True, False):
+                runs.append((args, dict(dense=dense, stride=stride,
+                                        hoisted=hoisted)))
+        masked = args[:11] + (_lane_mask(cuda, B, args[11], seed=1),)
+        runs.append((masked, dict(dense=False, stride=1, hoisted=True)))
+        rng = np.random.default_rng(2)
+        q = st.queues
+        qa_b = (q.allocated[None] - torch.from_numpy(rng.choice(
+            [0.0, 1.0, 0.5], (B, q.q, 3)).astype(np.float32)).to(cuda))
+        bias = torch.from_numpy(np.where(rng.random((B, N)) < 0.05, 9.5,
+                                         0.0).astype(np.float32)).to(cuda)
+        rows = torch.from_numpy((np.arange(B) % args[9][1].shape[0])
+                                .astype(np.int32)).to(cuda)
+        lanes = args[:3] + (qa_b,) + args[4:]
+        runs.append((lanes, dict(dense=False, stride=1, hoisted=False,
+                                 rows=rows, score_bias=bias)))
+    for a, kw in runs:
+        before = kernels.KERNELS["uniform_fill"].launches
+        out = A.uniform_fill(*a, **kw)
+        assert kernels.KERNELS["uniform_fill"].launches == before + 1
+        assert_same(out, A.uniform_fill_plain(*a, **kw))
+    if zeros:
+        # the lanes cut to four nodes place, never on their -0.0 node
+        placed = out[2][::4].cpu()
+        minus = torch.arange(0, B, 4) * stride % N
+        assert bool((placed >= 0).any(-1).all())
+        assert not bool((placed == minus[:, None]).any())
+
+
+def _freed_leaves(cuda, seed=0):
+    from kai_scheduler_tpu_torch.state import state_to_numpy
+    st, ses = _victim_state(cuda, seed=seed, num_nodes=1000,
+                            num_gangs=1500, tasks_per_gang=4,
+                            running_fraction=0.9,
+                            num_departments=3, queues_per_department=3)
+    return state_to_numpy(st), ses
+
+
+def _freed_case(leaves, case, rng):
+    """(leaves, mask) of one K6 edge case."""
+    M = leaves["running.req"].shape[0]
+    lv = dict(leaves)
+    mask = rng.random(M) < 0.5
+    if case == "empty_mask":
+        mask[:] = False
+    elif case == "all_masked":
+        mask[:] = True
+    elif case == "negative_node_queue":
+        neg = rng.random(M) < 0.2
+        lv["running.node"] = np.where(neg, -1, lv["running.node"]).astype(
+            np.int32)
+        lv["running.queue"] = np.where(rng.random(M) < 0.2, -1,
+                                       lv["running.queue"]).astype(np.int32)
+    elif case == "one_queue":
+        lv["running.queue"] = np.zeros(M, np.int32)
+        mask = rng.random(M) < 0.9
+    elif case in ("whole_below_2p24", "whole_above_2p24"):
+        # one queue; ones everywhere and one large value at a random
+        # masked pod: the total lands at 2^24 - 1 (every order exact) or
+        # past 2^24 (only the ascending order gives the reference's bits)
+        lv["running.queue"] = np.zeros(M, np.int32)
+        mask = rng.random(M) < 0.95
+        req = np.ones_like(lv["running.req"])
+        big = int(rng.choice(np.nonzero(mask)[0]))
+        n_ones = int(mask.sum()) - 1
+        req[big] = 2.0 ** 24 - 1 - n_ones
+        if case == "whole_above_2p24":
+            req[big] += 3 + n_ones // 2
+        lv["running.req"] = req
+    elif case == "shapes":
+        # D = 0, E = 0, R = 12 (whole and fractional columns)
+        N = lv["nodes.device_free"].shape[0]
+        lv["nodes.device_free"] = np.zeros((N, 0), np.float32)
+        lv["running.device"] = np.full(M, -1, np.int32)
+        lv["running.extended"] = np.zeros((M, 0), np.float32)
+        lv["running.req"] = np.where(
+            rng.random((M, 12)) < 0.5, rng.integers(0, 9, (M, 12)),
+            rng.random((M, 12))).astype(np.float32)
+    return lv, mask
+
+
+FREED_EDGE_CASES = ("empty_mask", "all_masked", "negative_node_queue",
+                    "one_queue", "fractional", "whole_below_2p24",
+                    "whole_above_2p24", "shapes")
+
+
+@pytest.mark.parametrize("case", FREED_EDGE_CASES)
+def test_freed_by_mask_edges_match_plain(cuda, case):
+    """K6 and its queue-only mode byte-equal to the plain version at its
+    design's edges (the fractional case: memory-scale and fractional
+    summands, the ordered path)."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    from kai_scheduler_tpu_torch.state import state_from_numpy
+    leaves, ses = _freed_leaves(cuda, seed=len(case))
+    rng = np.random.default_rng(len(case))
+    lv, mask_np = _freed_case(leaves, case, rng)
+    st = state_from_numpy(lv, cuda)
+    cst = state_from_numpy(lv, "cpu")
+    chain = A._chain_membership(st.queues.parent, ses.config.num_levels)
+    mask = torch.from_numpy(mask_np).to(cuda)
+    kernels.reset_launch_counts()
+    got = V.freed_by_mask(st, mask, chain)
+    want = V.freed_by_mask_plain(cst, mask.cpu(), chain.cpu())
+    assert_same(got, want)
+    got_q = V.freed_by_mask(st, mask, chain, queues_only=True)
+    assert_same(got_q, want[2:4])
+    counts = kernels.launch_counts()
+    assert (counts["freed_by_mask"],
+            counts["freed_by_mask:queues_only"]) == (2, 1)
+    if case.startswith("whole"):
+        # the queue's pods span several of a queue block's tiles; past
+        # 2^24 the ascending sum rounds (its bits are not the exact
+        # total's, which a tree over these summands would give)
+        vals = lv["running.req"][mask_np][:, 0]
+        assert vals.size > 2 * 2048
+        exact = float(vals.astype(np.float64).sum())
+        assert (float(want[2][0, 0]) == exact) == (case == "whole_below_2p24")

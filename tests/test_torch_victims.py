@@ -237,6 +237,91 @@ def test_freed_by_mask_bit_equal(memory_scale):
             assert_same(w, g, f"output {i} p={p}")
 
 
+@pytest.mark.parametrize("name", ["saturated_small", "priorities_small",
+                                  "fragmented_small", "elastic_hierarchy"])
+@pytest.mark.parametrize("fractional", [False, True])
+def test_freed_by_mask_queues_only_equals_reference(name, fractional):
+    """K6's queue-only mode (reclaim's ``freeable`` bound) through the
+    plain version: the rolled-up queue tables of the reference's
+    ``freed_by_mask``, bit for bit, on the victim parity snapshots (as
+    built, and with fractional and memory-scale requests)."""
+    c = case(name)
+    ref, port = (fractional_leaves(c, 7, True) if fractional
+                 else (c.ref, c.port))
+    chain = _chain_membership(port.queues.parent, c.num_levels)
+    rchain = ref_chain(ref.queues.parent, c.num_levels)
+    rng = np.random.default_rng(len(name))
+    for p in (0.0, 0.3, 1.0):
+        mask = rng.random(port.running.m) < p
+        want = _ref_freed(ref, jnp.asarray(mask), rchain)
+        got = V.freed_by_mask(port, torch.from_numpy(mask), chain,
+                              queues_only=True)
+        assert len(got) == 2
+        for i, g in enumerate(got):
+            assert_same(want[2 + i], g, f"queue output {i} p={p}")
+
+
+def _tree_sum(x: np.ndarray) -> np.float32:
+    """A pairwise tree over ``x`` in f32 (adjacent pairs, an odd last
+    element carried up)."""
+    x = x.astype(np.float32)
+    while x.size > 1:
+        odd = x[-1:] if x.size % 2 else x[:0]
+        x = np.concatenate([x[:x.size // 2 * 2:2] + x[1:x.size // 2 * 2:2],
+                            odd]).astype(np.float32)
+    return x[0] if x.size else np.float32(0.0)
+
+
+def _queue_sums(values: np.ndarray, queue: np.ndarray, Q: int):
+    """The plain K6's leaf queue sums (an identity chain: no roll-up) of
+    ``values`` as pod requests, every pod masked."""
+    c = case("saturated_small")
+    lv = leaves(c.ref)
+    M = values.shape[0]
+    lv = {k: (v[:M] if k.startswith("running.") else v)
+          for k, v in lv.items()}
+    req = np.zeros((M, 3), np.float32)
+    req[:, 0] = values
+    lv["running.req"] = req
+    lv["running.queue"] = queue.astype(np.int32)
+    port = state_from_numpy(lv, "cpu")
+    eye = torch.eye(port.queues.q, dtype=torch.bool)
+    return V.freed_by_mask(port, torch.ones(M, dtype=torch.bool), eye,
+                           queues_only=True)[0][:Q, 0].numpy()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_whole_sums_below_2p24_are_order_free(seed):
+    """The argument K6's tree sums rest on: whole-number f32 summands
+    (either sign) whose magnitudes sum below 2^24 give the same bits in
+    the plain version's ascending order, in a shuffled order and in a
+    pairwise tree."""
+    rng = np.random.default_rng(seed)
+    M = int(rng.integers(2, 256))
+    scale = float(rng.choice([1.0, 100.0, 60_000.0]))
+    x = np.round(rng.uniform(-1, 1, M) * scale).astype(np.float32)
+    if np.abs(x).sum() >= 2 ** 24:
+        x = np.round(x / 4).astype(np.float32)
+    assert np.abs(x.astype(np.float64)).sum() < 2 ** 24
+    asc = _queue_sums(x, np.zeros(M), 1)[0]
+    assert asc.tobytes() == np.float32(x.astype(np.float64).sum()).tobytes()
+    for perm in (rng.permutation(M), rng.permutation(M)):
+        shuffled = np.float32(0.0)
+        for v in x[perm]:
+            shuffled = np.float32(shuffled + v)
+        assert shuffled.tobytes() == asc.tobytes()
+        assert _tree_sum(x[perm]).tobytes() == asc.tobytes()
+
+
+def test_fractional_sums_depend_on_order():
+    """Why K6 keeps the ascending serial sum for fractional summands:
+    their f32 sums differ between orders."""
+    x = np.array([0.1, 0.2, 0.3, 1e8, -1e8, 0.7] * 8, np.float32)
+    asc = _queue_sums(x, np.zeros(x.size), 1)[0]
+    tree = _tree_sum(x)
+    assert asc.tobytes() != tree.tobytes()
+
+
 # ---------------------------------------------------------------------------
 # victim ranking
 # ---------------------------------------------------------------------------
