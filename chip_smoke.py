@@ -86,11 +86,23 @@ mismatch:
      fit no node idle — consolidation (sequential) must move victims; 16
      running gangs below their quorum past the grace period —
      stalegangeviction must evict;
+   - *sharing_reclaim* at the default config, the per-task path with the
+     device share table (``SHARING_RECLAIM``): the sharing fleet ~79 %
+     held by whole-device training gangs and 0.5 / 24 GiB inference
+     shares of two over-quota leaves, nothing idle that a pending pod
+     fits; consolidation (the solver's one-lane K9, K7 moving inference
+     victims into a tainted pool) places the training gangs, reclaim's
+     dense per-task wavefront (K8's device table, K9's lanes mode, the
+     dense accept with its device terms) the other leaves' fractions and
+     shares, preempt the over-quota leaves' urgent fractions — every
+     action must have worked, fractions placed on devices; its CPU oracle
+     runs in the oracle process and is compared at the end;
    the packed commit, BindRequests, evictions (pod, move target) and
    move rebinds must equal the CPU oracle's; then K5-K8 and the victim
    modes of K2-K4 (per-lane pools, per-lane queue tables and score bias,
-   the freed credit) are held against their plain versions on the
-   captured inputs and timed;
+   the freed credit), K8's device mode and K9's lanes and legacy modes
+   are held against their plain versions on the captured inputs and
+   timed;
 8. runs the four affinity cells (in-cycle affinity terms: cross-gang
    required anti-affinity, anchors with dependers, shared host ports) the
    same way — a profiled warm-up with the inputs captured, timed runs on
@@ -162,15 +174,17 @@ mismatch:
    and last ``{"ok":
    true, "device": {...}}``.
 
-The CPU oracles of the sharing and affinity cells (the slowest) run in
-one spawned child process beside the card's work, on half the cores, and
+The CPU oracles of the sharing, affinity and sharing_reclaim cells (the
+slowest) run in one spawned child process beside the card's work, on half
+the cores, and
 resident_churn's in a second one on a quarter of them, all submitted
 when the script starts; each cell is compared with its oracle when the result
 arrives (sharing after the last cell).  The log also goes, line by line,
 to ``chiprun_out/chip_smoke.log``.  Longer output
 (the compiler's register/spill report, per-phase numbers) goes to
 ``chiprun_out/chip_smoke.json``, and the first captured call of every
-K3, K6, K9 and K10 mode to ``build/kernel_inputs.pt``
+K3, K6, K9 and K10 mode (and K8's device mode) to
+``build/kernel_inputs.pt``
 (``scripts/compare_kernels.py`` times another checkout's kernels on
 them).  Imports nothing of JAX.
 """
@@ -257,6 +271,7 @@ class Capture:
                        (victims, "type_tables", "type_tables:lanes"),
                        (victims, "uniform_fill", "uniform_fill:lanes"),
                        (victims, "sparse_accept", "sparse_accept:credit"),
+                       (victims, "pertask_fill", "pertask_fill:lanes"),
                        (allocate, "pertask_fill", "pertask_fill"),
                        (allocate, "dense_accept", "dense_accept"),
                        (allocate, "topo_tables_build", "topo_tables_build"),
@@ -370,6 +385,10 @@ def _nbytes(*ts) -> int:
 
 
 def _flatten(out):
+    """The tensors of an output, in order (a table not built, None, has
+    none)."""
+    if out is None:
+        return []
     if isinstance(out, torch.Tensor):
         return [out]
     res = []
@@ -422,6 +441,24 @@ def bound(nbytes: float, ops: float):
     memory rate and the operations over its f32 rate."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k9_bound(nodes, prior, Q, D, steps, pools, more=0, ops=60):
+    """K9's bound: the node tables once (with D device columns; the node
+    pools each in ``pools`` once — a shared [N, .] table or each lane's
+    [B, N, .] slice), the lanes' gang rows once, the lane outputs written
+    once, plus ``more`` bytes; ``ops`` f32 operations a node per task
+    step that placed (the fit on both pools, the bands, the score)."""
+    B, T = prior.shape
+    N = nodes.labels.shape[0]
+    K = nodes.labels.shape[1]
+    X = nodes.filter_masks.shape[0]
+    L = nodes.topology.shape[1]
+    node_bytes = (N * (4 * 12 + 2 * 4 * D + 1 + 4 * K + 5 * X + 4 + 4 * L)
+                  + _nbytes(*pools))
+    lane_bytes = B * (8 + T * (12 + 1 + 4 * K + 4 * 5))
+    out_bytes = B * (2 * Q * 12 + T * 9 + 1 + T * (24 + 8 * D))
+    return bound(node_bytes + lane_bytes + out_bytes + more, steps * N * ops)
 
 
 def k3_nearest(args, kw) -> dict:
@@ -566,7 +603,8 @@ FRAGMENTED = dict(num_nodes=10_000, pending=256, stale=16)
 VICTIM_CELLS = {"saturated": ("saturated", None),
                 "saturated_sequential": ("saturated", 1),
                 "preempt_many_queues": ("preempt_many_queues", None),
-                "fragmented": ("fragmented", None)}
+                "fragmented": ("fragmented", None),
+                "sharing_reclaim": ("sharing_reclaim", None)}
 #: the sequential cell's depth cut: reclaim attempts at most this many
 #: preemptors per queue (the cell's 1,250 pending gangs wait in two
 #: queues), about a tenth of the full run's steps, so that the script
@@ -588,6 +626,12 @@ VICTIM_KEEP = {
     "preempt_many_queues": dict(_LANES),
     "fragmented": {"cumsum_ds": (0,), "freed_by_mask": (1, 40),
                    "replace_victims": (0, 20)},
+    # consolidation's one-lane legacy fills (K9 through the solver) come
+    # first, then reclaim's and preempt's chunks
+    "sharing_reclaim": {"freed_by_lane": (0, 1, 2, 30),
+                        "pertask_fill:lanes": (0, 1, 2, 30),
+                        "pertask_fill": (0, 5, 40),
+                        "replace_victims": (0, 5, 40)},
 }
 #: the kernels each victim cell must launch
 VICTIM_NEED = {
@@ -600,7 +644,29 @@ VICTIM_NEED = {
                             "cluster_analytics"),
     "fragmented": ("cumsum_ds", "freed_by_mask", "replace_victims",
                    "type_tables", "uniform_fill", "cluster_analytics"),
+    "sharing_reclaim": ("drf_water_fill", "cumsum_ds", "freed_by_mask",
+                        "replace_victims", "freed_by_lane",
+                        "freed_by_lane:devices", "pertask_fill",
+                        "pertask_fill:lanes", "pertask_fill:legacy",
+                        "cluster_analytics"),
 }
+#: the sharing_reclaim cell (the victim actions on the per-task path with
+#: the device share table): ``state.fleets.sharing_reclaim_objects`` —
+#: the sharing cell's fleet (10,000 nodes x 8 devices of 80 GiB, two
+#: departments of two leaves) with ~79 % of the devices held by running
+#: pods in the first two leaves (whole-device training gangs on 47 % of
+#: the nodes, 0.5 and 24 GiB inference shares on 51 %, the CPU and memory
+#: of those nodes taken, a tainted inference pool of 2 %); pending in the
+#: other two leaves, in the sharing cell's proportions (training gangs of
+#: 8 whole-device pods : 0.5 fractions : 24 GiB shares = 1 : 6 : 3, the
+#: fractions and shares non-preemptible), plus urgent 0.5 fractions of the
+#: first two leaves at priority 2.  The backlog is cut to 8 + 48 + 24
+#: (+ 16 urgent) gangs so that the cell's CPU oracle (consolidation's
+#: linear walk, the wavefront's dense [B, N, D] accept and the plain K9 at
+#: 10,000 nodes, step by step) stays a small part of the script's time:
+#: 43 s in the oracle process on the H100 machine's host
+SHARING_RECLAIM = dict(num_nodes=10_000, training=8, fractions=48, memory=24,
+                       urgent=16)
 
 
 #: the GPU-sharing cell at full size: 10,000 nodes x 8 devices of 80 GiB,
@@ -747,8 +813,8 @@ REPACK_KEEP = {"cluster_analytics": (2,), "repack_fill": (0,),
 #: the cells with a profiled run (each kernel's in-cycle device time)
 PROFILED_CELLS = ("sharing", "topology", "topology_subgroups", "saturated",
                   "saturated_sequential", "preempt_many_queues",
-                  "fragmented", *AFFINITY_CELLS, "repack_racks",
-                  "resident_churn")
+                  "fragmented", "sharing_reclaim", *AFFINITY_CELLS,
+                  "repack_racks", "resident_churn")
 
 
 def analytics_fields(res) -> dict:
@@ -1561,13 +1627,7 @@ def sharing_kernel_checks(cap: Capture) -> dict:
     ms = _time_ms(lambda: cap._orig["pertask_fill"](*args, **kw))
     plain_ms = _time_ms(
         lambda: A.pertask_fill_plain(*args, **kw), 5)
-    K = nodes.labels.shape[1]
-    X = nodes.filter_masks.shape[0]
-    L = nodes.topology.shape[1]
-    node_bytes = N * (5 * 12 + 3 * 4 * D + 1 + 4 * K + 5 * X + 4 + 4 * L)
-    lane_bytes = B * (8 + T * (12 + 1 + 4 * K + 4 * 5))
-    out_bytes = B * (2 * Q * 12 + T * 9 + 1 + T * (24 + 8 * D))
-    b, by = bound(node_bytes + lane_bytes + out_bytes, steps * N * 60)
+    b, by = k9_bound(nodes, prior, Q, D, steps, args[8:10])
     out["pertask_fill"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
         bound_by=by, checked=len(errs),
@@ -1844,14 +1904,8 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
     steps = int((first.nodes_t >= 0).sum())
     ms = _time_ms(lambda: k_fn(*args, **kw))
     plain_ms = _time_ms(lambda: A.pertask_fill_plain(*args, **kw), 5)
-    K_ = nodes.labels.shape[1]
-    X = nodes.filter_masks.shape[0]
-    node_bytes = N * (5 * 12 + 1 + 4 * K_ + 5 * X + 4 + 4 * L)
-    lane_bytes = B * (8 + T * (12 + 1 + 4 * K_ + 4 * 5))
-    out_bytes = B * (2 * Q * 12 + T * 9 + 1 + T * 24)
-    agg_bytes = (N * L + 1) * 12 + steps * L * 12
-    b, by = bound(node_bytes + lane_bytes + out_bytes + agg_bytes,
-                  steps * N * 70)
+    b, by = k9_bound(nodes, prior, Q, 0, steps, args[8:9],
+                     (N * L + 1) * 12 + steps * L * 12, 70)
     out["pertask_fill:topology"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
         bound_by=by, checked=len(errs),
@@ -1880,8 +1934,9 @@ def topology_kernel_checks(tcap: Capture, scap: Capture) -> dict:
     ms = _time_ms(lambda: k_fn(*args, **bkw))
     plain_ms = _time_ms(lambda: A.pertask_fill_plain(*args, **bkw), 5)
     steps_b = int((k_fn(*args, **bkw).nodes_t >= 0).sum())
-    b, by = bound(node_bytes + lane_bytes + out_bytes + (N * L + 1) * 12
-                  + steps_b * L * 12 + _nbytes(banned), steps_b * N * 70)
+    b, by = k9_bound(nodes, prior, Q, 0, steps_b, args[8:9],
+                     (N * L + 1) * 12 + steps_b * L * 12 + _nbytes(banned),
+                     70)
     out["pertask_fill:banned"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
         bound_by=by, checked=len(errs),
@@ -2184,13 +2239,7 @@ def affinity_kernel_checks(caps: dict) -> dict:
     steps = int((fn(*args, **kw).nodes_t >= 0).sum())
     ms = _time_ms(lambda: fn(*args, **kw))
     plain_ms = _time_ms(lambda: A.pertask_fill_plain(*args, **kw), 5)
-    K_ = nodes.labels.shape[1]
-    X = nodes.filter_masks.shape[0]
-    L = nodes.topology.shape[1]
-    node_bytes = N * (5 * 12 + 3 * 4 * D + 1 + 4 * K_ + 5 * X + 4 + 4 * L)
-    lane_bytes = B * (8 + T * (12 + 1 + 4 * K_ + 4 * 5)) + B * N
-    out_bytes = B * (2 * Q * 12 + T * 9 + 1 + T * (24 + 8 * D))
-    b, by = bound(node_bytes + lane_bytes + out_bytes, steps * N * 60)
+    b, by = k9_bound(nodes, prior, Q, D, steps, args[8:10], B * N)
     out["pertask_fill:mask"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
         checked=len(recs),
@@ -2224,6 +2273,11 @@ def victim_cluster(cell: str):
     from kai_scheduler_tpu_torch.state import make_cluster
     from kai_scheduler_tpu_torch.state.fleets import fragmented_objects
     kind = VICTIM_CELLS[cell][0]
+    if kind == "sharing_reclaim":
+        from kai_scheduler_tpu_torch.state.fleets import \
+            sharing_reclaim_objects
+        return Cluster.from_objects(*sharing_reclaim_objects(
+            apis, **SHARING_RECLAIM))
     if kind == "saturated":
         return Cluster.from_objects(*make_cluster(**SATURATED))
     if kind == "preempt_many_queues":
@@ -2278,7 +2332,23 @@ def check_victim_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
     stale_names = {f"run-{i}-0" for i in range(FRAGMENTED["stale"])}
     stale_ev = [e for e in res.evictions if e.group in stale_names]
     need = VICTIM_NEED[cell]
-    if cell != "fragmented":
+    if cell == "sharing_reclaim":
+        # every action did work: consolidation moved victims, reclaim and
+        # preempt placed fractions on devices
+        steps = {k: v.steps for k, v in res.victim_stats.items()}
+        frac_dev = int((t.placement_device >= 0).sum())
+        if not moved or pipelined <= 0 or frac_dev <= 0 or min(
+                steps.get(a, 0) for a in ("consolidation", "reclaim",
+                                          "preempt")) <= 0:
+            raise AssertionError(f"{cell}: {len(moved)} moves, {pipelined} "
+                                 f"pipelined tasks, {frac_dev} on a device, "
+                                 f"steps {steps}")
+        for e in moved:
+            br = cluster.bind_requests.get(e.pod_name)
+            if br is None or br.selected_node != e.move_to:
+                raise AssertionError(f"{cell}: moved victim {e.pod_name} "
+                                     f"not rebound on {e.move_to}")
+    elif cell != "fragmented":
         if not res.evictions or pipelined <= 0:
             raise AssertionError(f"{cell}: {len(res.evictions)} evictions, "
                                  f"{pipelined} pipelined placements")
@@ -2298,6 +2368,7 @@ def check_victim_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
         **analytics_fields(res), cycle_seconds=secs, evictions=len(res.evictions),
         consolidation_moves=len(moved), stale_evictions=len(stale_ev),
         pipelined_tasks=pipelined, binds=len(res.bind_requests),
+        tasks_on_a_device=int((t.placement_device >= 0).sum()),
         move_rebinds=len(res.move_bind_requests),
         gangs_allocated=int(t.allocated.sum()),
         victim_stats={k: dataclasses.asdict(v)
@@ -2418,13 +2489,14 @@ def victim_kernel_checks(caps: dict) -> dict:
 
 
 def lane_kernel_checks(caps: dict) -> dict:
-    """K8 and the victim wavefront's modes of K2-K4 on the inputs
-    captured from the chunked cells vs their plain versions (K8's on CPU
-    copies — its plain segment sums need the CPU's ordered
-    ``index_add_``; K2-K4's on the card, as in :func:`kernel_checks`),
-    kernel and plain times on the card, and the bound.  K8's nearest
-    library call (NOT the same function): ``index_add_`` of the
-    [B (N + 1), R] lane-node table alone, atomic order."""
+    """K8 (its device mode on sharing_reclaim's inputs) and the victim
+    wavefront's modes of K2-K4 on the inputs captured from the chunked
+    cells vs their plain versions (K8's on CPU copies — its plain segment
+    sums need the CPU's ordered ``index_add_``; K2-K4's on the card, as in
+    :func:`kernel_checks`), kernel and plain times on the card, and the
+    bound.  K8's nearest library call (NOT the same function): one
+    ``index_add_`` of its lane-node (or lane-device) table alone, atomic
+    order."""
     from kai_scheduler_tpu_torch.ops import allocate as A
     from kai_scheduler_tpu_torch.ops import victims as V
     cells = ("saturated", "preempt_many_queues")
@@ -2436,51 +2508,85 @@ def lane_kernel_checks(caps: dict) -> dict:
     def largest(recs, size):
         return max(recs, key=lambda rec: size(rec[1]))
 
-    out = {}
-    # K8 — the live pods' rows and the CSR lists once, the three outputs
-    # once; 6 adds per live pod, 3 per (lane, node) and (lane, queue) of
-    # the lane prefix, 2 per (lane, node) of own_incr, 1 per chain entry
-    # of the roll-up
-    recs = [(c, a, {"compose": k["compose"]})
-            for c, a, k in calls("freed_by_lane")]
-    errs = []
-    for cell, (state, lane, B, chain), kw in recs:
-        got = caps[cell]._orig["freed_by_lane"](state, lane, B, chain, **kw)
-        want = V.freed_by_lane_plain(_cpu_state(state), lane.cpu(), B,
-                                     chain.cpu(), **kw)
-        errs.append(_max_abs_err(_to_cpu(got), want))
-    cell, (state, lane, B, chain), kw = largest(
-        recs, lambda a: a[2] * a[0].nodes.n)
-    pods = V.PodIndex.of(state)
-    k_ms = _time_ms(lambda: V.freed_by_lane(state, lane, B, chain, pods=pods,
-                                            **kw))
-    p_ms = _time_ms(lambda: V.freed_by_lane_plain(state, lane, B, chain,
-                                                  **kw), 5)
-    r, n, q = state.running, state.nodes, state.queues
-    M, N, Q = r.m, n.n, q.q
-    live = lane < B
-    n_live = int(live.sum())
-    seg = (torch.where(live, lane, B).long() * (N + 1)
-           + torch.where(live, torch.clamp(r.node, min=0), N).long())
-    req_m = torch.where(live[:, None], r.req, 0.0)
+    def k8_row(recs, devices):
+        """K8 on captured (cell, args, kw) calls; with ``devices``, its
+        [B, N, D] table too.  The live pods' rows and the CSR lists once,
+        the outputs written once; 6 adds per live pod, 3 per (lane, node)
+        and (lane, queue) of the lane prefix, 2 per (lane, node) of
+        own_incr, 1 per chain entry of the roll-up.  The device table adds
+        the live pods' (device, share, mask) read once, the [B, N, D] table
+        written once, 1 add per live fractional pod, D compares per live
+        whole pod and D per (lane, node) of the lane prefix."""
+        recs = [(c, a, {k: v for k, v in kw.items()
+                        if k in ("compose", "devices")})
+                for c, a, kw in recs]
+        errs = []
+        for cell, (state, lane, B, chain), kw in recs:
+            got = caps[cell]._orig["freed_by_lane"](state, lane, B, chain,
+                                                    **kw)
+            want = V.freed_by_lane_plain(_cpu_state(state), lane.cpu(), B,
+                                         chain.cpu(), **kw)
+            errs.append(_max_abs_err(_to_cpu(got), want))
+        cell, (state, lane, B, chain), kw = max(
+            recs, key=lambda rc: (rc[1][2] * rc[1][0].nodes.n,
+                                  int((rc[1][1] < rc[1][2]).sum())))
+        if devices:
+            KERNEL_INPUTS["freed_by_lane:devices"] = ((state, lane, B,
+                                                       chain), kw)
+        pods = V.PodIndex.of(state)
+        k_ms = _time_ms(lambda: V.freed_by_lane(state, lane, B, chain,
+                                                pods=pods, **kw))
+        p_ms = _time_ms(lambda: V.freed_by_lane_plain(state, lane, B, chain,
+                                                      **kw), 5)
+        r, n, q = state.running, state.nodes, state.queues
+        M, N, Q, D = r.m, n.n, q.q, (n.d if devices else 0)
+        live = lane < B
+        n_live = int(live.sum())
+        n_frac = int((live & (r.device >= 0)).sum()) if devices else 0
+        if devices:
+            seg = (torch.where(live, lane, B).long() * (N * D + 1)
+                   + torch.where(live & (r.device >= 0),
+                                 torch.clamp(r.node, min=0).long() * D
+                                 + torch.clamp(r.device, min=0).long(),
+                                 N * D))
 
-    def library():
-        torch.zeros(((B + 1) * (N + 1), 3), device=lane.device).index_add_(
-            0, seg, req_m)
-    lib_ms = _time_ms(library)
-    nnz = int(chain.sum())
-    nbytes = (M * 4 + n_live * 12 + (N + 1 + M + Q + 1 + M) * 4 + Q * Q
-              + B * N * 12 + B * Q * 12 + B * N)
-    ops = (6 * n_live + (3 * B * (N + Q) if kw["compose"] else 0)
-           + 2 * B * N + 3 * B * nnz)
-    b, by = bound(nbytes, ops)
-    out["freed_by_lane"] = dict(
-        max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
-        bound_by=by, nearest_library_ms=lib_ms,
-        nearest_library="index_add_ of the [B (N + 1), R] lane-node table "
-                        "only (atomic order)",
-        shape=f"B={B} N={N} Q={Q} M={M} live={n_live} "
-              f"compose={kw['compose']} ({cell})", checked=len(recs))
+            def library():
+                torch.zeros(((B + 1) * (N * D + 1),),
+                            device=lane.device).index_add_(0, seg,
+                                                           r.accel_held)
+            lib = ("index_add_ of the fractional shares into the "
+                   "[B (N D + 1)] lane-device table only (atomic order)")
+        else:
+            seg = (torch.where(live, lane, B).long() * (N + 1)
+                   + torch.where(live, torch.clamp(r.node, min=0),
+                                 N).long())
+            req_m = torch.where(live[:, None], r.req, 0.0)
+
+            def library():
+                torch.zeros(((B + 1) * (N + 1), 3),
+                            device=lane.device).index_add_(0, seg, req_m)
+            lib = ("index_add_ of the [B (N + 1), R] lane-node table only "
+                   "(atomic order)")
+        lib_ms = _time_ms(library)
+        nnz = int(chain.sum())
+        nbytes = (M * 4 + n_live * (12 + (12 if devices else 0))
+                  + (N + 1 + M + Q + 1 + M) * 4 + Q * Q
+                  + B * N * (12 + 4 * D) + B * Q * 12 + B * N)
+        ops = (6 * n_live + n_frac + (n_live - n_frac) * D
+               + (B * (N * (3 + D) + 3 * Q) if kw["compose"] else 0)
+               + 2 * B * N + 3 * B * nnz)
+        b, by = bound(nbytes, ops)
+        frac = f"D={D} fractional={n_frac} " if devices else ""
+        return dict(
+            max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
+            bound_by=by, nearest_library_ms=lib_ms, nearest_library=lib,
+            shape=f"B={B} N={N} {frac}Q={Q} M={M} live={n_live} "
+                  f"compose={kw['compose']} ({cell})", checked=len(recs))
+
+    out = {"freed_by_lane": k8_row(calls("freed_by_lane"), False),
+           "freed_by_lane:devices": k8_row(
+               [("sharing_reclaim", a, kw) for a, kw in
+                caps["sharing_reclaim"].calls["freed_by_lane"]], True)}
 
     # K2 with one pool per row: as kernel_checks' K2, plus the [Y, N, R]
     # pools read once
@@ -2543,6 +2649,73 @@ def lane_kernel_checks(caps: dict) -> dict:
     return out
 
 
+def log_victim_cell(cell, rec, res, secs, counts, cpu_s, in_cycle):
+    """The victim cell's log lines: what the cycle did, per action."""
+    log(f"{cell}: {secs:.3f} s cycle, {rec['evictions']} evictions "
+        f"({rec['consolidation_moves']} consolidation moves, "
+        f"{rec['stale_evictions']} stale), {rec['pipelined_tasks']} "
+        f"pipelined tasks ({rec['tasks_on_a_device']} on a shared device), "
+        f"{rec['binds']} binds, {rec['move_rebinds']} move rebinds, "
+        f"{rec['gangs_allocated']} gangs allocated; launches {counts}; "
+        f"commit, binds and evictions == CPU oracle ({cpu_s:.1f} s)")
+    for act, sec in res.action_seconds.items():
+        st = rec["victim_stats"].get(act)
+        extra = ""
+        if st and act in ("reclaim", "preempt") and \
+                VICTIM_CELLS[cell][1] is None:
+            extra = (f"chunked wavefront: {st['steps']} chunks, "
+                     f"{st['attempts']} lanes, {st['syncs']} host syncs, "
+                     f"{st['demotions']} leftover demotions, "
+                     f"{st['fallbacks']} sparse fallbacks, ")
+        elif st:
+            extra = (f"{st['steps']} steps, {st['attempts']} scenario "
+                     f"attempts, {st['syncs']} host syncs, ")
+        log(f"  {cell} action {act}: {extra}{sec:.4f} s")
+    log("  phases: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
+    log_analytics(rec)
+    log("  in-cycle kernel device ms / launches (profiled run): "
+        + ", ".join(f"{k} {v['ms']:.3f} / {v['launches']}"
+                    for k, v in in_cycle.items() if v["launches"]))
+
+
+def pertask_lane_kernel_checks(cap: Capture) -> dict:
+    """K9's lanes mode (each lane's own pools, queue table and score bias)
+    and its legacy mode (the solver's one-lane attempt) on the inputs
+    captured from the sharing_reclaim cell vs their plain versions, both
+    on the card (tolerance 0); kernel and plain times and the bound (as
+    :func:`sharing_kernel_checks`' K9, the pools each lane reads once, and
+    the lanes' [B, Q, R] queue tables and [B, N] bias once).  The lanes
+    mode's per-lane node summary is the design's scratch, not the
+    function's, and is not counted."""
+    from kai_scheduler_tpu_torch.ops import allocate as A
+    out = {}
+    for mode, key in (("pertask_fill:lanes", "pertask_fill:lanes"),
+                      ("pertask_fill:legacy", "pertask_fill")):
+        recs = [rc for rc in cap.calls.get(key, []) if rc[1].get("legacy")]
+        errs = [_max_abs_err(cap._orig[key](*a, **k).fields(),
+                             A.pertask_fill_plain(*a, **k).fields())
+                for a, k in recs]
+        args, kw = max(recs, key=lambda rc: rc[0][3].shape[0])
+        KERNEL_INPUTS[mode] = (args, kw)
+        nodes, tt, cand, prior, free, dev, qa, qan, extra, extra_dev = \
+            args[:10]
+        B, T = prior.shape
+        N, D = dev.shape
+        Q = qa.shape[-2]
+        steps = int((A.pertask_fill_plain(*args, **kw).nodes_t >= 0).sum())
+        ms = _time_ms(lambda: cap._orig[key](*args, **kw))
+        plain_ms = _time_ms(lambda: A.pertask_fill_plain(*args, **kw), 5)
+        b, by = k9_bound(nodes, prior, Q, D, steps, (extra, extra_dev),
+                         _nbytes(qa, kw.get("score_bias")))
+        out[mode] = dict(
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, checked=len(errs), nearest_library_ms=None,
+            nearest_library=None,
+            shape=f"B={B} T={T} N={N} D={D} Q={Q} placed steps={steps}")
+    return out
+
+
 def _oracle_process_init() -> None:
     # half the cores: the card's host-bound cycles run beside it
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
@@ -2577,6 +2750,8 @@ def main() -> int:
         oracles.update({cell: pools[0].submit(run_affinity_cycle, cell, "cpu")
                         for cell in AFFINITY_CELLS})
         oracles["sharing"] = pools[0].submit(run_sharing_cycle, "cpu")
+        oracles["sharing_reclaim"] = pools[0].submit(
+            run_victim_cycle, "sharing_reclaim", "cpu")
         return run(oracles)
     finally:
         for pool in pools:
@@ -2752,7 +2927,7 @@ def run(oracles: dict) -> int:
     # (a first GPU run, not timed, under the profiler's CUDA activity
     # with the victim kernels' inputs captured, gives each kernel's
     # in-cycle device time)
-    caps = {}
+    caps, deferred = {}, {}
     for cell in VICTIM_CELLS:
         with Capture(VICTIM_KEEP[cell]) as cap, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2762,42 +2937,29 @@ def run(oracles: dict) -> int:
         kernels.reset_launch_counts()
         res, cluster, secs = run_victim_cycle(cell, "cuda")
         counts = kernels.launch_counts()
+        caps[cell] = cap
+        if cell in oracles:
+            # its CPU oracle runs in the oracle process: compared at the end
+            deferred[cell] = (res, cluster, secs, counts, in_cycle)
+            log(f"{cell}: {secs:.3f} s cycle run, launches {counts}; "
+                f"compared with its oracle at the end; elapsed "
+                f"{time.perf_counter() - t_start:.0f} s")
+            continue
         cpu, _, cpu_s = run_victim_cycle(cell, "cpu")
         rec = check_victim_cycle(cell, (res, secs), cpu, cluster, counts)
         rec.update(cpu_oracle_seconds=cpu_s, in_cycle_ms=in_cycle)
         report[cell] = rec
-        caps[cell] = cap
-        log(f"{cell}: {secs:.3f} s cycle, {rec['evictions']} evictions "
-            f"({rec['consolidation_moves']} consolidation moves, "
-            f"{rec['stale_evictions']} stale), {rec['pipelined_tasks']} "
-            f"pipelined tasks, {rec['binds']} binds, {rec['move_rebinds']} "
-            f"move rebinds, {rec['gangs_allocated']} gangs allocated; "
-            f"launches {counts}; commit, binds and evictions == CPU oracle "
-            f"({cpu_s:.1f} s)")
-        for act, sec in res.action_seconds.items():
-            st = rec["victim_stats"].get(act)
-            extra = ""
-            if st and act in ("reclaim", "preempt") and \
-                    VICTIM_CELLS[cell][1] is None:
-                extra = (f"chunked wavefront: {st['steps']} chunks, "
-                         f"{st['attempts']} lanes, {st['syncs']} host syncs, "
-                         f"{st['demotions']} leftover demotions, "
-                         f"{st['fallbacks']} sparse fallbacks, ")
-            elif st:
-                extra = (f"{st['steps']} steps, {st['attempts']} scenario "
-                         f"attempts, {st['syncs']} host syncs, ")
-            log(f"  {cell} action {act}: {extra}{sec:.4f} s")
-        log("  phases: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
-        log_analytics(rec)
-        log("  in-cycle kernel device ms / launches (profiled run): "
-            + ", ".join(f"{k} {v['ms']:.3f} / {v['launches']}"
-                        for k, v in in_cycle.items() if v["launches"]))
+        log_victim_cell(cell, rec, res, secs, counts, cpu_s, in_cycle)
         log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
     checks.update(victim_kernel_checks(caps))
     lane_checks = lane_kernel_checks(caps)
     checks["freed_by_lane"] = lane_checks.pop("freed_by_lane")
+    sr_checks = pertask_lane_kernel_checks(caps["sharing_reclaim"])
+    sr_checks["freed_by_lane:devices"] = lane_checks.pop(
+        "freed_by_lane:devices")
     del caps
+    log(f"victim kernels checked; elapsed {time.perf_counter() - t_start:.0f}"
+        f" s")
 
     # -- 8. the affinity cells: a warm-up run under the profiler's CUDA
     # activity with K12's, K13's and the mask modes' inputs captured, timed
@@ -2951,6 +3113,15 @@ def run(oracles: dict) -> int:
         f"{k} {v:.4f}" for k, v in rec["phase_seconds"].items()))
     log_analytics(rec)
     log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+    # the victim cells whose CPU oracle ran in the oracle process
+    for cell, (res, cluster, secs, counts, in_cycle) in deferred.items():
+        cpu, _, cpu_s = oracles[cell].result()
+        rec = check_victim_cycle(cell, (res, secs), cpu, cluster, counts)
+        rec.update(cpu_oracle_seconds=cpu_s, in_cycle_ms=in_cycle)
+        report[cell] = rec
+        log_victim_cell(cell, rec, res, secs, counts, cpu_s, in_cycle)
+        log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+    del deferred
 
     # -- 10. what the oracle process costs the host-bound cycles: the
     # headline's and affinity's timed runs again, each checked against its
@@ -3020,7 +3191,10 @@ def run(oracles: dict) -> int:
                  "uniform_fill:mask": "affinity",
                  "pertask_fill:mask": "affinity_sharing",
                  "sparse_accept:repack": "repack_racks",
-                 "freed_by_mask:queues_only": "resident_churn"}
+                 "freed_by_mask:queues_only": "resident_churn",
+                 "freed_by_lane:devices": "sharing_reclaim",
+                 "pertask_fill:lanes": "sharing_reclaim",
+                 "pertask_fill:legacy": "sharing_reclaim"}
 
     #: each mode's launches, counted by its wrapper at the launch in the
     #: last timed run of its cell (config 4 prefers no level: K3's
@@ -3029,7 +3203,8 @@ def run(oracles: dict) -> int:
     mode_launches = {m: report[c]["launches"][m]
                      for m, c in mode_path.items()}
 
-    mode_checks = {**topo_checks, **aff_checks, **rep_checks, **res_checks}
+    mode_checks = {**topo_checks, **aff_checks, **rep_checks, **res_checks,
+                   **sr_checks}
     for name, c in (list(checks.items()) + list(lane_checks.items())
                     + list(mode_checks.items())):
         cell, counts = (path_of[name] if name in path_of else

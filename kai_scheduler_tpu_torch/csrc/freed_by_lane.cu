@@ -7,9 +7,13 @@
 // optional lane-prefix (`compose`: lane b's pool is the union of lanes
 // <= b, a jnp.cumsum over the lane axis), the roll-up of the queue sums
 // through the ancestor chain, einsum("qa,bqr->bar"), and
-// own_incr = sum_r own_n > EPS.  The device and extended tables of the
-// reference are not built: the port refuses the configurations that track
-// them.
+// own_incr = sum_r own_n > EPS.  With `freed_d` (the placement config
+// tracks devices: per-task snapshots with fractional or whole-device
+// pods) the device table [B, N, D] too: the reference's two segment sums
+// (:776-791), the fractional pods' accel_held at (lane, node, device), then
+// plus one per devices_mask bit of the whole-device pods at (lane, node),
+// lane-prefix composed as the node table is.  The extended (MIG) table is
+// not built: the port refuses `extended=True`.
 //
 // A pod belongs to at most one lane, so the sums can run in the
 // reference's order (ascending pod index from +0.0, XLA's scatter) with no
@@ -17,8 +21,13 @@
 // stable in pod index, built once per action):
 //   - node blocks: one thread per node walks its pods in order and adds
 //     each live pod's request into own_n[lane, node] (the output buffer,
-//     zeroed first); then own_incr over the lanes; then, with compose, the
-//     lane prefix of each of its three columns in place;
+//     zeroed first); then own_incr over the lanes; with the device table,
+//     a second walk adds each live fractional pod's share into
+//     own_d[lane, node, device] and a third, at each lane's first
+//     whole-device pod, counts that lane's bits per device over the node's
+//     list and adds the count (a sum of ones: exact, so the reference's
+//     per_d + per_w is per_d + count); then, with compose, the lane prefix
+//     of each of its 3 (+ D) columns in place;
 //   - queue blocks, one per leaf queue: the queue's pods in chunks of
 //     FL_CHUNK staged in shared memory (lane id, request), then one thread
 //     per (lane, resource) adds the chunk's matching pods in order into the
@@ -31,13 +40,14 @@
 // blocks of 16 summed left to right from +0.0, scans the block totals the
 // same way and adds each block's exclusive prefix (numerics.cumsum_blocked);
 // lanes are limited to FL_MAX_LANES (two levels of totals).
-// Bound: bytes — the live pods' rows once, the [B, N, R] and [B, Q, R]
-// outputs written (and, with compose, read and written again).
+// Bound: bytes — the live pods' rows once, the [B, N, R], [B, N, D] and
+// [B, Q, R] outputs written (and, with compose, read and written again).
 #include "kai_common.cuh"
 
 #define FL_THREADS 256
 #define FL_CHUNK 512
 #define FL_MAX_LANES 4096
+#define FL_MAX_D 32
 
 // jnp.cumsum order of n <= 256 floats in a local array, in place
 __device__ void fl_scan_local(float* t, int n) {
@@ -89,8 +99,10 @@ __global__ void __launch_bounds__(FL_THREADS) freed_by_lane_kernel(
     const int* __restrict__ lane, const float* __restrict__ req,
     const int* __restrict__ node_off, const int* __restrict__ node_pods,
     const int* __restrict__ queue_off, const int* __restrict__ queue_pods,
-    int N, int Q, int B, int compose, float* __restrict__ leaf,
-    float* __restrict__ freed_n, u8* __restrict__ own_incr) {
+    const int* __restrict__ device, const float* __restrict__ held,
+    const int* __restrict__ devices_mask, int N, int Q, int B, int D,
+    int compose, float* __restrict__ leaf, float* __restrict__ freed_n,
+    u8* __restrict__ own_incr, float* __restrict__ freed_d) {
   const int node_blocks = (N + FL_THREADS - 1) / FL_THREADS;
   const size_t lane_stride_n = (size_t)N * 3;
   if ((int)blockIdx.x < node_blocks) {
@@ -112,6 +124,42 @@ __global__ void __launch_bounds__(FL_THREADS) freed_by_lane_kernel(
     if (compose)
       for (int r = 0; r < 3; ++r)
         fl_scan_blocked(freed_n + (size_t)n * 3 + r, B, lane_stride_n);
+    if (!freed_d) return;
+    const size_t lane_stride_d = (size_t)N * D;
+    float* own_d = freed_d + (size_t)n * D;
+    const int k0 = node_off[n], k1 = node_off[n + 1];
+    // the fractional shares, in ascending pod order per cell
+    for (int k = k0; k < k1; ++k) {
+      const int m = node_pods[k];
+      const int l = lane[m], dv = device[m];
+      if (l < 0 || l >= B || dv < 0 || dv >= D) continue;
+      float* o = own_d + (size_t)l * lane_stride_d + dv;
+      *o = __fadd_rn(*o, held[m]);
+    }
+    // the whole-device pods' bits: a count per (lane, device), added once
+    // at the lane's first whole-device pod on this node
+    for (int k = k0; k < k1; ++k) {
+      const int m = node_pods[k];
+      const int l = lane[m];
+      if (l < 0 || l >= B || device[m] >= 0) continue;
+      bool first = true;
+      for (int j = k0; j < k && first; ++j)
+        first = !(lane[node_pods[j]] == l && device[node_pods[j]] < 0);
+      if (!first) continue;
+      float* o = own_d + (size_t)l * lane_stride_d;
+      for (int d = 0; d < D; ++d) {
+        int cnt = 0;
+        for (int j = k; j < k1; ++j) {
+          const int m2 = node_pods[j];
+          cnt += lane[m2] == l && device[m2] < 0 &&
+                 ((devices_mask[m2] >> d) & 1);
+        }
+        if (cnt) o[d] = __fadd_rn(o[d], (float)cnt);
+      }
+    }
+    if (compose)
+      for (int d = 0; d < D; ++d)
+        fl_scan_blocked(own_d + d, B, lane_stride_d);
     return;
   }
   // ---- one block per leaf queue -------------------------------------------
@@ -159,24 +207,35 @@ __global__ void freed_by_lane_rollup_kernel(const float* __restrict__ leaf,
   freed_q[t] = acc;
 }
 
-// `leaf` is a [B, Q, 3] scratch; every output is written in full
+// `leaf` is a [B, Q, 3] scratch; every output is written in full.  A null
+// `freed_d` builds no device table (`device`, `held`, `devices_mask` may
+// then be null too).
 KAI_EXPORT int kai_freed_by_lane(
     const int* lane, const float* req, const int* node_off,
     const int* node_pods, const int* queue_off, const int* queue_pods,
-    const u8* chain, int N, int R, int Q, int B, int compose, float* leaf,
-    float* freed_n, float* freed_q, u8* own_incr, cudaStream_t stream) {
+    const u8* chain, const int* device, const float* held,
+    const int* devices_mask, int N, int R, int Q, int B, int D, int compose,
+    float* leaf, float* freed_n, float* freed_q, u8* own_incr, float* freed_d,
+    cudaStream_t stream) {
   if (N < 1 || R != 3 || Q < 1 || B < 1 || B > FL_MAX_LANES)
+    return KAI_ERR_ARGS;
+  if (freed_d && (D < 1 || D > FL_MAX_D || !device || !held || !devices_mask))
     return KAI_ERR_ARGS;
   cudaError_t e = cudaMemsetAsync(freed_n, 0, (size_t)B * N * 3 * sizeof(float),
                                   stream);
   if (e == cudaSuccess)
     e = cudaMemsetAsync(leaf, 0, (size_t)B * Q * 3 * sizeof(float), stream);
+  if (e == cudaSuccess && freed_d)
+    e = cudaMemsetAsync(freed_d, 0, (size_t)B * N * D * sizeof(float), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (N + FL_THREADS - 1) / FL_THREADS + Q;
   freed_by_lane_kernel<<<blocks, FL_THREADS, 0, stream>>>(
-      lane, req, node_off, node_pods, queue_off, queue_pods, N, Q, B, compose,
-      leaf, freed_n, own_incr);
+      lane, req, node_off, node_pods, queue_off, queue_pods, device, held,
+      devices_mask, N, Q, B, freed_d ? D : 0, compose, leaf, freed_n,
+      own_incr, freed_d);
   const size_t total = (size_t)B * Q * 3;
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   freed_by_lane_rollup_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
                                 stream>>>(leaf, chain, Q, B, freed_q);
   return static_cast<int>(cudaGetLastError());

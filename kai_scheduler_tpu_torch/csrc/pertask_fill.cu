@@ -68,6 +68,18 @@
 // in-cycle retry (ref :1274-1289), each block with its own lane index; the
 // other blocks return at once and leave their outputs as they were.
 //
+// The victim actions' modes (ref :595, :903-907, :783-784; the solver and
+// the dense victim wavefront call the fill with neither prior placements
+// nor a quota).  `legacy`: every valid task is eligible and success is at
+// least min_needed placed.  The lanes mode: each block reads its lane's
+// slice of `extra` [B, N, 3], `extra_dev` [B, N, D] and `qa` [B, Q, 3]
+// (a zero lane stride keeps one shared), and `score_bias` [B, N] joins
+// the bands after the nominated band.  With per-lane pools the node
+// summary depends on the lane: the prologue builds one a lane ([B, 15, N],
+// grid y = lane), so every fit bit stays the reductions' exact answer; the
+// build reads each lane's slices once (B x N x (3 + D) floats) and writes
+// B x 15 x N.  The subgroup-topology mode takes neither.
+//
 // The mask mode (`lane_mask` [B, N], the affinity gates' node mask, K12):
 // each block reads its lane's row into the nodes it may use, `allowed =
 // domain_mask & ~forbidden` (ref :720 with domain_mask = n.valid & mask,
@@ -190,8 +202,13 @@ __global__ void __launch_bounds__(256) pf_prologue_kernel(
     const float* __restrict__ dev_mem, int N, int D,
     float* __restrict__ summ, const int* __restrict__ dom_ptr,
     const int* __restrict__ dom_nodes, int ND, int sum_agg,
-    float* __restrict__ agg) {
+    float* __restrict__ agg, int extra_ls, int extra_dev_ls) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // one summary a lane (grid y) where the pools are the lanes' own
+  const int y = blockIdx.y;
+  extra += (size_t)y * extra_ls;
+  extra_dev += (size_t)y * extra_dev_ls;
+  summ += (size_t)y * PF_NF * N;
   if (i < N) {
     const size_t o = (size_t)i * D;
     pf_summarize(free0 + i * 3, dev0 + o, rel + i * 3, extra + i * 3,
@@ -204,7 +221,7 @@ __global__ void __launch_bounds__(256) pf_prologue_kernel(
     summ[(size_t)PF_BITS * N + i] = __uint_as_float(bits);
   }
   const int d = i >> 5, lane = i & 31;
-  if (sum_agg && d <= ND) {  // the same for the whole warp
+  if (sum_agg && y == 0 && d <= ND) {  // the same for the whole warp
     float a[3] = {0.0f, 0.0f, 0.0f};
     if (d < ND) {  // the junk row ND is never read: it stays zero
       const int lo = dom_ptr[d], hi = dom_ptr[d + 1];
@@ -380,9 +397,10 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
     // subgroup topology
     const int* __restrict__ srl, const int* __restrict__ banned,
     const u8* __restrict__ active, const u8* __restrict__ lane_mask,
-    const float* __restrict__ agg, int T, int N, int NS, int D, int K, int L,
-    int S, int Q, int binpack_accel, int binpack_cpu, int device_pack,
-    int track, float jscale,
+    const float* __restrict__ score_bias, const float* __restrict__ agg,
+    int T, int N, int NS, int D, int K, int L, int S, int Q,
+    int binpack_accel, int binpack_cpu, int device_pack, int track,
+    int legacy, int extra_ls, int extra_dev_ls, int qa_ls, float jscale,
     // outputs
     float* __restrict__ qa2, float* __restrict__ qan2,
     int* __restrict__ nodes_t, int* __restrict__ dev_t,
@@ -426,6 +444,12 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
   __shared__ u8 s_bf[PF_WARPS];
   const int b = blockIdx.x;
   if (active && !active[b]) return;  // not a retried lane: keep its output
+  // the lane's pools and queue table (a zero stride: shared), its summary
+  extra += (size_t)b * extra_ls;
+  extra_dev += (size_t)b * extra_dev_ls;
+  qa += (size_t)b * qa_ls;
+  if (extra_ls || extra_dev_ls) summ += (size_t)b * PF_NF * N;
+  const float* bias_b = score_bias ? score_bias + (size_t)b * N : nullptr;
   const int tid = threadIdx.x;
   const int lane_w = tid & 31, warp = tid >> 5;
   const unsigned lt_mask = (1u << lane_w) - 1u;
@@ -485,7 +509,9 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
       }
       const bool first_unplaced = unplaced[t] && rank_unpl < 1;
       if (unplaced[t]) ++rank_unpl;
-      s_elig[t] = in_quorum ? elig_q[t] : first_unplaced;
+      // legacy: every valid task (none is placed yet)
+      s_elig[t] = legacy ? unplaced[t]
+                         : (in_quorum ? elig_q[t] : first_unplaced);
       goal += s_elig[t];
     }
     Ln.goal = goal;
@@ -758,6 +784,7 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
           float eb = __fadd_rn(
               __fadd_rn(__fadd_rn(__fadd_rn(topo_b, dom_band), jit), sf),
               n == nom ? 1000000.0f : 0.0f);
+          if (bias_b) eb = __fadd_rn(eb, bias_b[n]);
           if (c.track)
             eb = __fadd_rn(eb, (c.is_frac && (fl & PFL_SHARED)) ? 1000.0f
                                                                 : 0.0f);
@@ -939,7 +966,11 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
   __syncthreads();
 
   // ---- outputs: success, final rows of the touched nodes, queue tables ---
-  if (tid == 0) success[b] = (Ln.goal > 0 && Ln.count >= Ln.goal) ? 1 : 0;
+  if (tid == 0)
+    success[b] = (legacy ? Ln.count >= min_needed[Ln.gi]
+                         : (Ln.goal > 0 && Ln.count >= Ln.goal))
+                     ? 1
+                     : 0;
   if (topo)
     for (int s2 = tid; s2 < S; s2 += PF_THREADS)
       sub_dom_out[(size_t)b * S + s2] = Ln.sub_dom[s2];
@@ -974,11 +1005,13 @@ static int pf_prologue(const float* free0, const float* dev0,
                        const float* alloc, const u8* valid,
                        const float* dev_mem, int N, int D, float* summ,
                        const int* dom_ptr, const int* dom_nodes, int ND,
-                       int sum_agg, float* agg, cudaStream_t stream) {
+                       int sum_agg, float* agg, int lanes, int extra_ls,
+                       int extra_dev_ls, cudaStream_t stream) {
   const int work = sum_agg && 32 * (ND + 1) > N ? 32 * (ND + 1) : N;
-  pf_prologue_kernel<<<(work + 255) / 256, 256, 0, stream>>>(
+  const dim3 grid((work + 255) / 256, lanes);
+  pf_prologue_kernel<<<grid, 256, 0, stream>>>(
       free0, dev0, rel, extra, dev_rel, extra_dev, alloc, valid, dev_mem, N,
-      D, summ, dom_ptr, dom_nodes, ND, sum_agg, agg);
+      D, summ, dom_ptr, dom_nodes, ND, sum_agg, agg, extra_ls, extra_dev_ls);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -993,7 +1026,7 @@ KAI_EXPORT int kai_pertask_summary(const float* free0, const float* dev0,
   if (N < 1 || D < 0 || D > PF_MAXD) return KAI_ERR_ARGS;
   return pf_prologue(free0, dev0, rel, extra, dev_rel, extra_dev, alloc,
                      valid, dev_mem, N, D, summ, nullptr, nullptr, 0, 0,
-                     nullptr, stream);
+                     nullptr, 1, 0, 0, stream);
 }
 
 KAI_EXPORT int kai_pertask_fill(
@@ -1009,10 +1042,12 @@ KAI_EXPORT int kai_pertask_fill(
     const float* qan, const float* limit_eff, const float* quota_eff,
     const u8* chain, const int* cand, const int* prior, const int* srl,
     const int* dom_ptr, const int* dom_nodes, const int* banned,
-    const u8* active, const u8* lane_mask, float* agg_scratch, float* summ,
-    int B, int T, int N, int D, int K, int X, int L, int S, int Q, int G,
-    int binpack_accel, int binpack_cpu, int device_pack, int track,
-    int agg_ready, float jscale, float* qa2, float* qan2, int* nodes_t,
+    const u8* active, const u8* lane_mask, const float* score_bias,
+    float* agg_scratch, float* summ, int B, int T, int N, int D, int K, int X,
+    int L, int S, int Q, int G, int binpack_accel, int binpack_cpu,
+    int device_pack, int track, int agg_ready, int legacy, int extra_ls,
+    int extra_dev_ls, int qa_ls, float jscale, float* qa2, float* qan2,
+    int* nodes_t,
     int* dev_t, u8* pipe_t, u8* success, float* free_rows, float* dev_rows,
     float* bind_rows, float* devbind_rows, int* sub_dom,
     cudaStream_t stream) {
@@ -1024,10 +1059,16 @@ KAI_EXPORT int kai_pertask_fill(
   if (topo != (dom_nodes && agg_scratch && sub_dom) ||
       ((banned || agg_ready) && !topo))
     return KAI_ERR_ARGS;
+  if (topo && (legacy || extra_ls || extra_dev_ls || qa_ls))
+    return KAI_ERR_ARGS;  // the victim modes take no subgroup topology
+  if ((extra_ls && extra_ls != N * 3) || (extra_dev_ls && extra_dev_ls != N * D)
+      || (qa_ls && qa_ls != Q * 3))
+    return KAI_ERR_ARGS;
+  const int lanes = (extra_ls || extra_dev_ls) ? B : 1;
   int rc = pf_prologue(free0, dev0, rel, extra, dev_rel, extra_dev, alloc,
                        valid, dev_mem, N, D, summ, dom_ptr, dom_nodes,
                        topo ? N * L : 0, topo && !agg_ready, agg_scratch,
-                       stream);
+                       lanes, extra_ls, extra_dev_ls, stream);
   if (rc != 0) return rc;
   // dynamic shared memory: the touched rows and live summaries, the
   // debited domains, then as many staged nodes as the budget holds
@@ -1048,9 +1089,10 @@ KAI_EXPORT int kai_pertask_fill(
       task_nom, task_sub, sub_need, min_needed, gang_queue, preemptible,
       anti_self, pref_level, free0, dev0, rel, extra, dev_rel, extra_dev,
       labels, fmask, soft, topology, summ, qa, qan, limit_eff, quota_eff,
-      chain, cand, prior, srl, banned, active, lane_mask,
+      chain, cand, prior, srl, banned, active, lane_mask, score_bias,
       topo ? agg_scratch : nullptr, T, N, (int)ns, D, K, L, S, Q,
-      binpack_accel, binpack_cpu, device_pack, track, jscale, qa2, qan2,
+      binpack_accel, binpack_cpu, device_pack, track, legacy, extra_ls,
+      extra_dev_ls, qa_ls, jscale, qa2, qan2,
       nodes_t, dev_t, pipe_t, success, free_rows, dev_rows, bind_rows,
       devbind_rows, sub_dom);
   return static_cast<int>(cudaGetLastError());

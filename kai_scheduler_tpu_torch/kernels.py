@@ -83,11 +83,12 @@ KERNELS: dict[str, KernelInfo] = {
                    "kai_scheduler_tpu/ops/victims.py:644"),
         KernelInfo("freed_by_lane",
                    "kai_scheduler_tpu_torch/csrc/freed_by_lane.cu",
-                   "kai_scheduler_tpu/ops/victims.py:738"),
+                   "kai_scheduler_tpu/ops/victims.py:738",
+                   modes=("devices",)),
         KernelInfo("pertask_fill",
                    "kai_scheduler_tpu_torch/csrc/pertask_fill.cu",
                    "kai_scheduler_tpu/ops/allocate.py:517",
-                   modes=("topology", "banned", "mask")),
+                   modes=("topology", "banned", "mask", "lanes", "legacy")),
         KernelInfo("dense_accept",
                    "kai_scheduler_tpu_torch/csrc/dense_accept.cu",
                    "kai_scheduler_tpu/ops/allocate.py:1730",
@@ -164,8 +165,8 @@ _SIGNATURES = {
     "kai_freed_by_mask": [_P] * 12 + [_I] * 7 + [_P] * 8 + [_P],
     "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
     + [_P],
-    "kai_freed_by_lane": [_P] * 7 + [_I] * 5 + [_P] * 4 + [_P],
-    "kai_pertask_fill": [_P] * 42 + [_I] * 15 + [_F] + [_P] * 11 + [_P],
+    "kai_freed_by_lane": [_P] * 10 + [_I] * 6 + [_P] * 5 + [_P],
+    "kai_pertask_fill": [_P] * 43 + [_I] * 19 + [_F] + [_P] * 11 + [_P],
     "kai_pertask_summary": [_P] * 9 + [_I] * 2 + [_P] + [_P],
     "kai_dense_accept": [_P] * 15 + [_I] * 6 + [_P] * 7 + [_P],
     "kai_topo_tables_build": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],

@@ -1319,21 +1319,28 @@ class PerTaskOut:
 
 def _device_rows(nodes: NodeState, dev: Tensor, extra_dev: Tensor,
                  dev_l: Tensor, ix: Tensor, nodes_t: Tensor, t: int,
-                 req0: Tensor, por: Tensor, mem: Tensor):
+                 req0: Tensor, por: Tensor, mem: Tensor,
+                 dev_pipe_b: Tensor | None = None):
     """The device table's part of task ``t``'s step for the active lanes
     ``ix``, [k, N] each: the pool tests on idle and on idle+releasing share
     (``_accel_pool_ok``), the gpusharingorder band and the node portion.
     They are computed once per distinct (portion, memory, request) against
     the chunk-start device pool and patched at the nodes each lane already
     took this attempt (its live rows): the per-lane values, without a
-    [k, N, D] pass."""
+    [k, N, D] pass.  ``dev_pipe_b`` [B, N, D], the lanes' own pipelined
+    pools ``(dev + device_releasing) + extra_dev[b]`` (per-lane pools),
+    makes the idle+releasing test per lane."""
     key = torch.stack([por, mem, req0], -1)
     uk, inv = torch.unique(key, dim=0, return_inverse=True)
     u_frac = (uk[:, 0] > 0) | (uk[:, 1] > 0)
     p_u = node_portion(nodes, uk[:, 0], uk[:, 1])            # [U, N]
-    dev_pipe = (dev + nodes.device_releasing) + extra_dev
     ok_idle = _accel_pool_ok(dev, p_u, u_frac, uk[:, 2])[inv]
-    ok_pipe = _accel_pool_ok(dev_pipe, p_u, u_frac, uk[:, 2])[inv]
+    if dev_pipe_b is None:
+        dev_pipe = (dev + nodes.device_releasing) + extra_dev
+        ok_pipe = _accel_pool_ok(dev_pipe, p_u, u_frac, uk[:, 2])[inv]
+    else:
+        ok_pipe = _accel_pool_ok(dev_pipe_b[ix], p_u[inv], u_frac[inv],
+                                 uk[inv, 2])
     gsh = gpu_sharing_score(dev, p_u, u_frac)[inv]
     portion_n = p_u[inv]
     j, s = torch.nonzero(nodes_t[ix, :t] >= 0, as_tuple=True)
@@ -1341,8 +1348,10 @@ def _device_rows(nodes: NodeState, dev: Tensor, extra_dev: Tensor,
         # one extra node axis of size 1 keeps the tensor functions' shapes
         pn = nodes_t[ix[j], s].long()
         live = dev_l[ix[j], pn][:, None]                     # [P, 1, D]
+        xd = (extra_dev[pn] if extra_dev.dim() == 2
+              else extra_dev[ix[j], pn])
         live_pipe = ((live + nodes.device_releasing[pn][:, None])
-                     + extra_dev[pn][:, None])
+                     + xd[:, None])
         p_live = portion_n[j, pn][:, None]
         frac = (por[j] > 0) | (mem[j] > 0)
         ok_idle[j, pn] = _accel_pool_ok(live, p_live, frac, req0[j])[:, 0]
@@ -1360,7 +1369,8 @@ def attempt_gang_in_domain_plain(
         track_devices: bool, topo: TopoStatic | None = None,
         banned: Tensor | None = None,
         lane_ids: Tensor | None = None,
-        mask: Tensor | None = None) -> PerTaskOut:
+        mask: Tensor | None = None, score_bias: Tensor | None = None,
+        legacy: bool = False) -> PerTaskOut:
     """Plain PyTorch version of K9: the reference's
     ``_attempt_gang_in_domain`` (``:517``) for every lane ``b`` of a chunk
     (gang ``cand[b]``, tie-break lane ``b``, prior placements ``prior[b]``),
@@ -1383,7 +1393,17 @@ def attempt_gang_in_domain_plain(
     row); and ``mask`` bool [B, N] confines each lane to its own nodes
     (the mask mode: the affinity gates' node mask, K12; ref ``allowed =
     domain_mask & ~forbidden`` ``:720`` with ``domain_mask = n.valid &
-    mask`` ``:1259``)."""
+    mask`` ``:1259``).
+
+    The victim actions' modes.  ``legacy`` is the reference's protocol
+    for a caller that passes neither prior placements nor a quota (ref
+    ``:595``, the victim solver and wavefront): every valid task is
+    eligible and success is at least ``min_needed`` placed (``:903-907``).
+    Per-lane pools: ``extra`` [B, N, R], ``extra_dev`` [B, N, D] and
+    ``qa`` [B, Q, R] give each lane its own (the dense victim wavefront's
+    lane-prefix freed pools and queue tables; a 2-D ``extra_dev`` stays
+    shared); ``score_bias`` f32 [B, N] joins the bands after the
+    nominated band (ref ``:783-784``)."""
     B, T = prior.shape
     N, R_ = free.shape
     D = dev.shape[1]
@@ -1393,6 +1413,13 @@ def attempt_gang_in_domain_plain(
     gi = cand.long()
     arB = torch.arange(B, device=dv)
     ar_n = torch.arange(N, dtype=i32, device=dv)
+    lane_extra = extra.dim() == 3
+    lane_dev = extra_dev.dim() == 3
+    if (lane_extra or legacy) and topo is not None:
+        raise ValueError("per-lane pools and the legacy protocol take no "
+                         "subgroup topology")
+    dev_pipe_b = (((dev + nodes.device_releasing)[None] + extra_dev)
+                  if lane_dev and track_devices else None)
     task_req = tt.task_req[gi]                               # [B, T, R]
     task_valid = tt.task_valid[gi]
     task_sel = tt.task_selector[gi]
@@ -1448,6 +1475,8 @@ def attempt_gang_in_domain_plain(
     first_unplaced = unplaced_t & (
         torch.cumsum(unplaced_t.to(i32), -1, dtype=i32) - 1 < 1)
     eligible = torch.where(in_quorum[:, None], elig_quorum, first_unplaced)
+    if legacy:
+        eligible = unplaced_t
     goal = eligible.sum(-1, dtype=i32)
     if topo is not None:
         # the remaining request of each subgroup's chunk, summed in task
@@ -1479,7 +1508,8 @@ def attempt_gang_in_domain_plain(
     req_valid = torch.where(eligible[..., None], task_req, 0.0)
     cum_req = cumsum_blocked(req_valid, 1)                   # [B, T, R]
     exempt = ~anc[:, None, :, None]
-    gate_lim = ((qa + cum_req[:, :, None, :] <= limit_eff + EPS)
+    qa_t = qa[:, None] if qa.dim() == 3 else qa              # [B, 1, Q, R]
+    gate_lim = ((qa_t + cum_req[:, :, None, :] <= limit_eff + EPS)
                 | exempt).flatten(2).all(-1)                 # [B, T]
     gate_quota = ((qan + cum_req[:, :, None, :] <= quota_eff + EPS)
                   | exempt).flatten(2).all(-1)
@@ -1512,23 +1542,24 @@ def attempt_gang_in_domain_plain(
         cls = tclass[ix, t]
         is_frac = (por > 0) | (me > 0)
         fl = free_l[ix]
+        ex_k = extra[ix] if lane_extra else extra
         if track_devices:
             # feasible_nodes_dual's device branch, with the device table's
             # share of the work done once per distinct share request
             ok_idle, ok_pipe, gsh, portion_n = _device_rows(
                 nodes, dev, extra_dev, dev_l, ix, nodes_t, t, req[:, 0],
-                por, me)
+                por, me, dev_pipe_b)
             req_nosum = req.clone()
             req_nosum[:, 0] = torch.where(is_frac, 0.0, req[:, 0])
             sel = (selector_mask(nodes.labels, task_sel[ix, t])
                    & nodes.valid) & nodes.filter_masks[cls.long()]
             fit_idle = (resource_fit_mask(fl, req_nosum) & ok_idle) & sel
-            fit_pipe = (resource_fit_mask((fl + nodes.releasing) + extra,
+            fit_pipe = (resource_fit_mask((fl + nodes.releasing) + ex_k,
                                           req_nosum) & ok_pipe) & sel
         else:
             fit_idle, fit_pipe = feasible_nodes_dual(
                 nodes, req, task_sel[ix, t], por, me, free=fl,
-                device_free=None, extra_releasing=extra,
+                device_free=None, extra_releasing=ex_k,
                 extra_device_releasing=None, devices=False,
                 task_class=cls)
         allowed = nodes.valid[None] & ~forbidden[ix]
@@ -1583,6 +1614,8 @@ def attempt_gang_in_domain_plain(
                         + nodes.soft_scores[cls.long()])
                        + torch.where(ar_n[None] == tnom[ix, t, None],
                                      W_NOMINATED, 0.0))
+        if score_bias is not None:
+            extra_bands = extra_bands + score_bias[ix]
         if track_devices:
             extra_bands = extra_bands + gsh
         scores = score_nodes_for_task(nodes, fl, req, fit_idle, fit_pipe,
@@ -1593,7 +1626,8 @@ def attempt_gang_in_domain_plain(
         if track_devices:
             dev_row = dev_l[ix, node]                        # [k, D]
             dev_rel_row = (nodes.device_releasing[node]
-                           + extra_dev[node])
+                           + (extra_dev[ix, node] if lane_dev
+                              else extra_dev[node]))
             p = portion_n[arK, node]
             frac_row = torch.where(is_pipe[:, None], dev_row + dev_rel_row,
                                    dev_row)
@@ -1647,9 +1681,12 @@ def attempt_gang_in_domain_plain(
                 agg[ix, did] = agg[ix, did] + (-delta_node)
 
     ancf = anc.to(f32)[:, :, None] * q_delta[:, None, :]     # [B, Q, R]
-    qa2 = qa[None] + ancf
+    qa2 = (qa if qa.dim() == 3 else qa[None]) + ancf
     qan2 = qan[None] + torch.where(nonpre[:, None, None], ancf, 0.0)
-    success = (goal > 0) & (count >= goal)
+    if legacy:
+        success = count >= tt.min_needed[gi]
+    else:
+        success = (goal > 0) & (count >= goal)
     at = torch.clamp(nodes_t, min=0).long()
     hit = (nodes_t >= 0)[..., None]
 
@@ -1718,7 +1755,9 @@ def pertask_fill_plain(nodes: NodeState, tt: TaskTables, cand: Tensor,
                        active: Tensor | None = None,
                        base: PerTaskOut | None = None,
                        agg: Tensor | None = None,
-                       mask: Tensor | None = None) -> PerTaskOut:
+                       mask: Tensor | None = None,
+                       score_bias: Tensor | None = None,
+                       legacy: bool = False) -> PerTaskOut:
     """Plain PyTorch version of K9 with the retry's lane selection (see
     :func:`pertask_fill`): :func:`attempt_gang_in_domain_plain` over every
     lane, or over the ``active`` lanes only — each with its own lane index
@@ -1728,9 +1767,10 @@ def pertask_fill_plain(nodes: NodeState, tt: TaskTables, cand: Tensor,
         return attempt_gang_in_domain_plain(
             nodes, tt, c, p, free, dev, qa, qan, extra, extra_dev, chain,
             limit_eff, quota_eff, placement=placement,
-            track_devices=track_devices, topo=topo, **kw)
+            track_devices=track_devices, topo=topo, legacy=legacy, **kw)
     if active is None:
-        return plain(cand, prior, banned=banned, mask=mask)
+        return plain(cand, prior, banned=banned, mask=mask,
+                     score_bias=score_bias)
     ix = torch.nonzero(active).flatten()
     if ix.numel() == 0:
         return base
@@ -1756,7 +1796,9 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                  banned: Tensor | None = None, active: Tensor | None = None,
                  base: PerTaskOut | None = None,
                  agg: Tensor | None = None,
-                 mask: Tensor | None = None) -> PerTaskOut:
+                 mask: Tensor | None = None,
+                 score_bias: Tensor | None = None,
+                 legacy: bool = False) -> PerTaskOut:
     """K9 — every lane's per-task placement (see
     :func:`attempt_gang_in_domain_plain` for the contract).  CPU tensors
     run the plain version; CUDA tensors launch one block per lane or
@@ -1780,7 +1822,16 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
     of its own.
 
     ``mask`` bool [B, N] runs the mask mode: each block reads its lane's
-    row of the affinity gates' node mask (K12)."""
+    row of the affinity gates' node mask (K12).
+
+    The victim actions' modes (see :func:`attempt_gang_in_domain_plain`):
+    ``legacy`` (every valid task eligible, success at ``min_needed``), and
+    the lanes mode — ``extra`` [B, N, R], ``qa`` [B, Q, R], optionally
+    ``extra_dev`` [B, N, D] and ``score_bias`` [B, N] — in which each block
+    reads its lane's slices.  The node summary then depends on the lane's
+    pools, so the launch builds one summary a lane ([B, 15, N]): the
+    per-device predicates' bits stay exact, and the summary's build reads
+    the lane slices once."""
     if active is not None and base is None:
         raise ValueError("pertask_fill: active lanes need the base output")
     if not kernels.on_card(free):
@@ -1788,7 +1839,8 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
             nodes, tt, cand, prior, free, dev, qa, qan, extra, extra_dev,
             chain, limit_eff, quota_eff, placement=placement,
             track_devices=track_devices, topo=topo, banned=banned,
-            active=active, base=base, agg=agg, mask=mask)
+            active=active, base=base, agg=agg, mask=mask,
+            score_bias=score_bias, legacy=legacy)
     B, T = prior.shape
     N, R_ = free.shape
     D = dev.shape[1]
@@ -1796,10 +1848,24 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
     S = tt.subgroup_min_needed.shape[1]
     X = nodes.filter_masks.shape[0]
     L = nodes.topology.shape[1]
-    Q = qa.shape[0]
+    Q = qa.shape[-2]
     pertask_fill_limits(T, D, S, placement)
     if R_ != 3:
         raise ValueError("pertask_fill: resource axis must be 3")
+    lane_extra, lane_dev = extra.dim() == 3, extra_dev.dim() == 3
+    lane_qa = qa.dim() == 3
+    if (lane_extra or lane_dev or lane_qa or legacy) and topo is not None:
+        raise ValueError("pertask_fill: per-lane pools and the legacy "
+                         "protocol take no subgroup topology")
+    for t, shape, what in ((extra, (B, N, R_), "extra"),
+                           (extra_dev, (B, N, D), "extra_dev"),
+                           (qa, (B, Q, R_), "qa")):
+        if t.dim() == 3 and t.shape != shape:
+            raise ValueError(f"pertask_fill: per-lane {what} must be "
+                             f"{list(shape)}")
+    if score_bias is not None and score_bias.shape != (B, N):
+        raise ValueError("pertask_fill: score_bias must be [B, N]")
+    lanes_mode = lane_extra or lane_dev or lane_qa or score_bias is not None
     f32, i32, b = torch.float32, torch.int32, torch.bool
     gang = dict(task_req=tt.task_req, task_valid=tt.task_valid,
                 task_selector=tt.task_selector, task_portion=tt.task_portion,
@@ -1832,12 +1898,12 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                   device_memory_gib=f32, topology=i32, qa=f32, qan=f32,
                   limit_eff=f32, quota_eff=f32, chain=b, cand=i32,
                   prior=i32, dom_ptr=i32, dom_nodes=i32, banned=i32,
-                  active=b, mask=b)
+                  active=b, mask=b, score_bias=f32)
     ts = dict(**gang, **node, **queue, **lane,
               subgroup_required_level=tt.subgroup_required_level)
     opt = dict(dom_ptr=None if topo is None else topo.dom_ptr,
                dom_nodes=None if topo is None else topo.dom_nodes,
-               banned=banned, active=active, mask=mask)
+               banned=banned, active=active, mask=mask, score_bias=score_bias)
     dv = kernels.require_cuda("pertask_fill", dict(
         ts, **{k: v for k, v in opt.items() if v is not None}), dtypes)
     if banned is not None and (topo is None or banned.shape != (B, S)):
@@ -1873,7 +1939,10 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
               or agg.device != free.device or not agg.is_contiguous()):
             raise ValueError(f"pertask_fill: agg must be f32 "
                              f"[{N * L + 1}, {R_}] on the card")
-    summ = torch.empty((PERTASK_SUMMARY_FIELDS, N), dtype=f32, device=dv)
+    # one node summary, or one a lane where the pools are the lane's own
+    lane_summ = lane_extra or lane_dev
+    summ = torch.empty(((B if lane_summ else 1) * PERTASK_SUMMARY_FIELDS, N),
+                       dtype=f32, device=dv)
     rc = kernels.library().kai_pertask_fill(
         *(kernels.ptr(v) for v in ts.values()),
         *(None if v is None else kernels.ptr(v)
@@ -1881,13 +1950,16 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
         kernels.ptr(summ),
         B, T, N, D, K, X, L, S, Q, G, int(placement.binpack_accel),
         int(placement.binpack_cpu), int(placement.device_pack),
-        int(track_devices), int(agg_ready), float(_jitter_scale(N)),
+        int(track_devices), int(agg_ready), int(legacy),
+        N * R_ if lane_extra else 0, N * D if lane_dev else 0,
+        Q * R_ if lane_qa else 0, float(_jitter_scale(N)),
         *(kernels.ptr(v) for v in out.fields()),
         *([None] * (topo is None)), kernels.stream_of(free))
     kernels.check(rc, "pertask_fill")
     kernels.count_launch("pertask_fill",
                          topology=topo is not None and banned is None,
-                         banned=banned is not None, mask=mask is not None)
+                         banned=banned is not None, mask=mask is not None,
+                         lanes=lanes_mode, legacy=legacy)
     return out
 
 
@@ -1994,16 +2066,14 @@ def _lane_sum(w: Tensor, d: Tensor) -> Tensor:
 
 def _dense_rows(pool: Tensor, nodes_b: Tensor, rows: Tensor,
                 cols: Tensor | None = None) -> Tensor:
-    """[B, U, C]: ``pool`` rows at nodes ``cols`` (all nodes when None) for
-    every lane, with each lane's rows written at its placed nodes
-    (duplicates carry the same row)."""
-    B, T = nodes_b.shape
-    base = pool if cols is None else pool[cols]
-    out = base.expand((B,) + base.shape).clone()
+    """[B, U, C]: ``pool`` rows at nodes ``cols`` (all nodes when None:
+    :func:`lane_rows_dense`) for every lane, with each lane's rows written
+    at its placed nodes (duplicates carry the same row)."""
+    if cols is None:
+        return lane_rows_dense(pool, nodes_b, rows)
+    out = pool[cols].expand((nodes_b.shape[0],) + pool[cols].shape).clone()
     bi, ti = torch.nonzero(nodes_b >= 0, as_tuple=True)
-    nb = nodes_b[bi, ti].long()
-    at = nb if cols is None else torch.searchsorted(cols, nb)
-    out[bi, at] = rows[bi, ti]
+    out[bi, torch.searchsorted(cols, nodes_b[bi, ti].long())] = rows[bi, ti]
     return out
 
 
@@ -2213,6 +2283,52 @@ def attempt_gang_dense(state: ClusterState, gi: int, free: Tensor,
                         placed.to(torch.int32))
     free2 = free - per_node[:N, None].to(free.dtype) * g.task_req[gi, 0][None]
     return free2, qa2[0], qan2[0], nodes_t, pipe_t, success
+
+
+def attempt_gang_pertask(state: ClusterState, gi: int, free: Tensor,
+                         dev: Tensor, qa: Tensor, qan: Tensor, extra: Tensor,
+                         extra_dev: Tensor, *, config: AllocateConfig,
+                         chain: Tensor, limit_eff: Tensor, quota_eff: Tensor,
+                         tt: TaskTables, domain_mask: Tensor | None = None):
+    """One gang's per-task placement with dense outputs — the reference's
+    ``_attempt_gang`` (``:1208``) on the per-task path as the victim solver
+    calls it: lane 0, no prior placements and no quota (the ``legacy``
+    protocol), K9 with one lane.  ``domain_mask`` bool [N] (the affinity
+    gates' mask) runs K9's mask mode.
+
+    Returns ``(free2 [N, R], dev2 [N, D], qa2 [Q, R], qan2 [Q, R], nodes_t
+    i32 [T], dev_t i32 [T], pipe_t bool [T], success bool [])``: the pools
+    are rebuilt from K9's final rows at the nodes it placed on (``dev2`` is
+    ``dev`` without the device table)."""
+    n = state.nodes
+    T = state.gangs.t
+    dv = free.device
+    cand = torch.full((1,), gi, dtype=torch.int32, device=dv)
+    prior = torch.full((1, T), -1, dtype=torch.int32, device=dv)
+    mask = (None if domain_mask is None
+            else (n.valid & domain_mask)[None].contiguous())
+    out = pertask_fill(n, tt, cand, prior, free, dev, qa, qan, extra,
+                       extra_dev, chain, limit_eff, quota_eff,
+                       placement=config.placement,
+                       track_devices=config.track_devices, mask=mask,
+                       legacy=True)
+    free2 = lane_rows_dense(free, out.nodes_t, out.free_rows)[0]
+    dev2 = (lane_rows_dense(dev, out.nodes_t, out.dev_rows)[0]
+            if config.track_devices else dev)
+    return (free2, dev2, out.qa2[0], out.qan2[0], out.nodes_t[0],
+            out.dev_t[0], out.pipe_t[0], out.success[0])
+
+
+def lane_rows_dense(pool: Tensor, nodes_b: Tensor, rows: Tensor) -> Tensor:
+    """[B, N, C]: ``pool`` for every lane with each lane's rows written at
+    its placed nodes (K9's final rows: a lane's duplicates carry the same
+    row), without a host read."""
+    B, T = nodes_b.shape
+    N, C = pool.shape
+    out = torch.cat([pool, pool[:1]]).expand(B, N + 1, C).clone()
+    idx = torch.where(nodes_b >= 0, nodes_b, N).long()
+    out.scatter_(1, idx[..., None].expand(B, T, C), rows)
+    return out[:, :N]
 
 
 def single_type_lanes(state: ClusterState) -> LaneTables:

@@ -25,16 +25,20 @@ solver are hand-written CUDA kernels, each with its plain PyTorch version
   consolidation validator's greedy re-placement of every victim.
 
 Each scenario attempt places the preemptor through K2 and K3 with one lane
-(:func:`.allocate.attempt_gang_dense`).
+(:func:`.allocate.attempt_gang_dense`), or, on per-task snapshots (GPU
+sharing: fractional and memory-based shares, the device table), through
+K9 with one lane (:func:`.allocate.attempt_gang_pertask`).
 
 At ``batch_size > 1`` (the default) reclaim (with ``chunk_reclaim``) and
 preempt run the chunked victim wavefront instead
 (:func:`_run_victim_action_chunked`): ``B`` preemptors per chunk, one host
 read per chunk, every lane's freed pools from **K8**
-:func:`freed_by_lane` (``csrc/freed_by_lane.cu``), every lane's placement
-through K2 (one table row per lane) and K3 (per-lane queue tables and
-score bias), and the sparse accept through K4 with the lanes' freed
-credit.
+:func:`freed_by_lane` (``csrc/freed_by_lane.cu``; with the device table on
+per-task snapshots), every lane's placement through K2 (one table row per
+lane) and K3 (per-lane queue tables and score bias) — or, per task, K9's
+lanes mode (each lane's own freed pools, queue table and score bias) —
+and the sparse accept through K4 with the lanes' freed credit, or the
+dense accept (with the device terms on per-task snapshots).
 
 With in-cycle affinity terms (``anti_groups``, ``attract_groups``) both
 engines read and extend the cycle's claimed-domain table that allocate
@@ -57,11 +61,13 @@ from ..state.cluster_state import ClusterState
 from ..utils.numerics import cumsum_blocked, cumsum_ds
 from . import ordering
 from .allocate import (AllocateConfig, AllocationResult, LaneTables,
-                       _ancestor_gate, _chain_membership, _pad_row,
-                       affinity_mask, anti_defer_lanes, anti_domain_tables,
-                       anti_mark, attempt_gang_dense, attract_defer_lanes,
-                       check_supported, single_type_lanes, sparse_accept,
-                       type_tables, uniform_fill)
+                       TaskTables, _ancestor_gate, _chain_membership,
+                       _pad_row, affinity_mask, anti_defer_lanes,
+                       anti_domain_tables, anti_mark, attempt_gang_dense,
+                       attempt_gang_pertask, attract_defer_lanes,
+                       check_supported, lane_rows_dense, pertask_fill,
+                       single_type_lanes, sparse_accept, type_tables,
+                       uniform_fill)
 from .scoring import W_OWN_FREED
 
 Tensor = torch.Tensor
@@ -384,49 +390,77 @@ def _rollup_lanes(chain: Tensor, leaf: Tensor) -> Tensor:
 
 
 def freed_by_lane_plain(state: ClusterState, lane: Tensor, B: int,
-                        chain: Tensor, *, compose: bool):
+                        chain: Tensor, *, compose: bool,
+                        devices: bool = False):
     """Plain PyTorch version of K8 (ref ``_freed_by_lane``, ``:738``):
     ``lane`` i32 [M] gives each pod the wavefront lane that consumes it
-    (``B`` = none).  Returns ``(freed_nodes [B, N, R], freed_queues
-    [B, Q, R], own_incr bool [B, N])``: with ``compose`` lane ``b``'s pool
-    is the union of lanes ``<= b`` (a cumulative sum over lanes in the
-    reference's ``jnp.cumsum`` order), else its own assignment only;
-    ``own_incr`` marks the nodes where lane ``b``'s own pods free
-    anything.  The device and extended tables the reference can add are
-    not built: this package refuses the configurations that track them."""
+    (``B`` = none).  Returns ``(freed_nodes [B, N, R], freed_devices
+    [B, N, D] | None, freed_queues [B, Q, R], own_incr bool [B, N])``:
+    with ``compose`` lane ``b``'s pool is the union of lanes ``<= b`` (a
+    cumulative sum over lanes in the reference's ``jnp.cumsum`` order),
+    else its own assignment only; ``own_incr`` marks the nodes where lane
+    ``b``'s own pods free anything.  ``devices`` builds the device table
+    (the reference's ``track_devices``, ``:776-791``): the fractional
+    pods' ``accel_held`` summed at (lane, node, device), plus the
+    whole-device pods' ``devices_mask`` bits summed at (lane, node) — two
+    segment sums, in that order; None without it.  The extended table is
+    not built: this package refuses ``extended=True``."""
     r, n, q = state.running, state.nodes, state.queues
-    N, Q = n.n, q.q
+    N, Q, D = n.n, q.q, n.d
     R_ = r.req.shape[1]
     live = lane < B
     lane_s = torch.where(live, lane, B).long()
     req_m = torch.where(live[:, None], r.req, 0.0)
 
-    def seg_sum(seg: Tensor, num: int) -> Tensor:
-        out = torch.zeros(((B + 1) * (num + 1), R_), dtype=req_m.dtype,
-                          device=req_m.device)
-        out.index_add_(0, seg, req_m)
-        return out.reshape(B + 1, num + 1, R_)[:B, :num]
+    def seg_sum(values: Tensor, seg: Tensor, num: int) -> Tensor:
+        out = torch.zeros(((B + 1) * (num + 1),) + values.shape[1:],
+                          dtype=values.dtype, device=values.device)
+        out.index_add_(0, seg, values)
+        return out.reshape((B + 1, num + 1) + values.shape[1:])[:B, :num]
 
     node_s = torch.where(live, torch.clamp(r.node, min=0), N).long()
-    own_n = seg_sum(lane_s * (N + 1) + node_s, N)
+    seg_n = lane_s * (N + 1) + node_s
+    own_n = seg_sum(req_m, seg_n, N)
     queue_s = torch.where(live, torch.clamp(r.queue, min=0), Q).long()
-    leaf_own = seg_sum(lane_s * (Q + 1) + queue_s, Q)
+    leaf_own = seg_sum(req_m, lane_s * (Q + 1) + queue_s, Q)
     freed_n = cumsum_blocked(own_n) if compose else own_n
     leaf_cum = cumsum_blocked(leaf_own) if compose else leaf_own
+    freed_d = None
+    if devices:
+        frac = live & (r.device >= 0)
+        seg_d = (torch.where(frac, lane_s, B) * (N * D + 1)
+                 + torch.where(frac, node_s * D
+                               + torch.clamp(r.device, min=0).long(), N * D))
+        per_d = seg_sum(torch.where(frac, r.accel_held, 0.0)[:, None],
+                        seg_d, N * D)[..., 0].reshape(B, N, D)
+        bits = (r.devices_mask[:, None] >> torch.arange(
+            D, dtype=torch.int32, device=lane.device)[None, :]) & 1
+        whole = bits.to(req_m.dtype) * (live & (r.device < 0))[:, None]
+        own_d = per_d + seg_sum(whole, seg_n, N)
+        freed_d = cumsum_blocked(own_d) if compose else own_d
     own_sum = (own_n[..., 0] + own_n[..., 1]) + own_n[..., 2]
-    return freed_n, _rollup_lanes(chain, leaf_cum), own_sum > EPS
+    return freed_n, freed_d, _rollup_lanes(chain, leaf_cum), own_sum > EPS
+
+
+#: most devices a node K8's device table takes (a devices_mask bit each)
+FREED_BY_LANE_MAX_D = 32
 
 
 def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
-                  *, compose: bool, pods: PodIndex | None = None):
+                  *, compose: bool, devices: bool = False,
+                  pods: PodIndex | None = None,
+                  dev_out: Tensor | None = None):
     """K8 — per-lane freed capacity from a pod-to-lane assignment (see
-    :func:`freed_by_lane_plain`).  CPU tensors run the plain version;
-    CUDA tensors launch the kernel or raise.  ``pods`` is the action's
-    :class:`PodIndex` (K6's lists, reused)."""
+    :func:`freed_by_lane_plain`, ``devices`` included).  CPU tensors run
+    the plain version; CUDA tensors launch the kernel or raise.  ``pods``
+    is the action's :class:`PodIndex` (K6's lists, reused); ``dev_out``
+    an f32 [B, N, D] buffer the device table is written into (the action
+    allocates it once; one is allocated here without it)."""
     if not kernels.on_card(lane):
-        return freed_by_lane_plain(state, lane, B, chain, compose=compose)
+        return freed_by_lane_plain(state, lane, B, chain, compose=compose,
+                                   devices=devices)
     r, n, q = state.running, state.nodes, state.queues
-    N, Q, M = n.n, q.q, r.m
+    N, Q, M, D = n.n, q.q, r.m, n.d
     R_ = r.req.shape[1]
     if pods is None:
         pods = PodIndex.of(state)
@@ -434,9 +468,17 @@ def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
     ts = dict(lane=lane, req=r.req, node_off=pods.node_off,
               node_pods=pods.node_pods, queue_off=pods.queue_off,
               queue_pods=pods.queue_pods, chain=chain)
-    dev = kernels.require_cuda("freed_by_lane", ts, dict(
-        lane=i32, req=f32, node_off=i32, node_pods=i32, queue_off=i32,
-        queue_pods=i32, chain=b))
+    dts = dict(lane=i32, req=f32, node_off=i32, node_pods=i32, queue_off=i32,
+               queue_pods=i32, chain=b)
+    if devices:
+        if D > FREED_BY_LANE_MAX_D:
+            raise NotImplementedError(
+                f"freed_by_lane: {D} exceeds the kernel's "
+                f"FREED_BY_LANE_MAX_D={FREED_BY_LANE_MAX_D}")
+        ts.update(device=r.device, held=r.accel_held,
+                  devices_mask=r.devices_mask)
+        dts.update(device=i32, held=f32, devices_mask=i32)
+    dev = kernels.require_cuda("freed_by_lane", ts, dts)
     if lane.shape != (M,) or chain.shape != (Q, Q) or R_ != 3:
         raise ValueError("freed_by_lane: lane must be [M], chain [Q, Q], "
                          "R 3")
@@ -444,13 +486,28 @@ def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
     freed_n = torch.empty((B, N, R_), dtype=f32, device=dev)
     freed_q = torch.empty((B, Q, R_), dtype=f32, device=dev)
     own_incr = torch.empty((B, N), dtype=b, device=dev)
+    freed_d = None
+    if devices:
+        freed_d = dev_out
+        if freed_d is None:
+            freed_d = torch.empty((B, N, D), dtype=f32, device=dev)
+        elif (freed_d.shape != (B, N, D) or freed_d.dtype != f32
+              or freed_d.device != dev or not freed_d.is_contiguous()):
+            raise ValueError(f"freed_by_lane: dev_out must be f32 "
+                             f"[{B}, {N}, {D}] on the card")
+    dev_ptrs = ((kernels.ptr(r.device), kernels.ptr(r.accel_held),
+                 kernels.ptr(r.devices_mask)) if devices else (None,) * 3)
     rc = kernels.library().kai_freed_by_lane(
-        *(kernels.ptr(t) for t in ts.values()), N, R_, Q, B, int(compose),
+        *(kernels.ptr(ts[k]) for k in ("lane", "req", "node_off",
+                                        "node_pods", "queue_off",
+                                        "queue_pods", "chain")),
+        *dev_ptrs, N, R_, Q, B, D, int(compose),
         *(kernels.ptr(t) for t in (leaf, freed_n, freed_q, own_incr)),
+        None if freed_d is None else kernels.ptr(freed_d),
         kernels.stream_of(lane))
     kernels.check(rc, "freed_by_lane")
-    kernels.count_launch("freed_by_lane")
-    return freed_n, freed_q, own_incr
+    kernels.count_launch("freed_by_lane", devices=devices)
+    return freed_n, freed_d, freed_q, own_incr
 
 
 # ---------------------------------------------------------------------------
@@ -646,6 +703,8 @@ class _Action:
     #: K6's pod lists (None on the CPU, where the plain version runs)
     pods: PodIndex | None
     lanes: LaneTables
+    #: K9's gang tables (the per-task path; None on the uniform path)
+    tasks: TaskTables | None
     limit_eff: Tensor
     quota_eff: Tensor
     #: most running pods of any one gang — bounds a unit's pod count
@@ -655,11 +714,13 @@ class _Action:
 
 def action_context(state: ClusterState, result: AllocationResult,
                    fair_share: Tensor, *, num_levels: int,
-                   stats: VictimStats | None = None) -> _Action:
+                   stats: VictimStats | None = None,
+                   per_task: bool = False) -> _Action:
     """The per-action constants every solve reads, computed once at
     action start: ancestor chains, victim statics, the frozen job order,
     K6's pod lists (on the card), K3's one-type lane tables, the queue
-    caps and the largest gang's running-pod count (one host read)."""
+    caps and the largest gang's running-pod count (one host read); with
+    ``per_task``, K9's gang tables."""
     g, q, r = state.gangs, state.queues, state.running
     G = g.g
     stats = stats or VictimStats()
@@ -673,6 +734,7 @@ def action_context(state: ClusterState, result: AllocationResult,
         job_rank=frozen_job_rank(state, result.queue_allocated, fair_share),
         pods=PodIndex.of(state) if kernels.on_card(r.valid) else None,
         lanes=single_type_lanes(state),
+        tasks=TaskTables.of(state) if per_task else None,
         limit_eff=torch.where(q.limit <= UNLIMITED + 0.5, _INF, q.limit),
         quota_eff=torch.where(q.quota <= UNLIMITED + 0.5, _INF, q.quota),
         max_unit=max_unit, stats=stats)
@@ -686,10 +748,11 @@ def solve_for_preemptor(state: ClusterState, gi: int,
     bool [N] is the affinity gates' node mask (ref ``:402``, ``:539``),
     applied to every scenario's placement.  Returns ``None``
     when no scenario places it, else ``(victim_mask [M], nodes_t [T],
-    pipe_t [T], moves [M] | None, free', device_free', extra', extra_dev',
-    qa', qan', ext', ext_extra')`` — the commit-set fields a success
-    writes (the uniform path places no devices: ``placement_device``
-    stays -1)."""
+    dev_t [T] | None, pipe_t [T], moves [M] | None, free', device_free',
+    extra', extra_dev', qa', qan', ext', ext_extra')`` — the commit-set
+    fields a success writes (``dev_t`` is the per-task attempt's device
+    of each fractional task; the uniform path places no devices and gives
+    None: ``placement_device`` stays -1)."""
     reclaim = mode == "reclaim"
     consolidate = mode == "consolidate"
     g, q, n, r = state.gangs, state.queues, state.nodes, state.running
@@ -780,26 +843,35 @@ def solve_for_preemptor(state: ClusterState, gi: int,
         extra_dev_eff = extra_dev + freed_dev
         ext_extra_eff = ext_extra + freed_ext
         qa_eff = qa if consolidate else qa - freed_q
-        free2, qa2, qan2, nodes_t, pipe_t, success = attempt_gang_dense(
-            state, gi, free, qa_eff, qan, extra_eff, config=cfg,
-            chain=chain, limit_eff=act.limit_eff, quota_eff=act.quota_eff,
-            lt=act.lanes, domain_mask=domain_mask)
-        dev2, ext2 = result.device_free, result.extended_free
+        if cfg.uniform_tasks:
+            free2, qa2, qan2, nodes_t, pipe_t, success = attempt_gang_dense(
+                state, gi, free, qa_eff, qan, extra_eff, config=cfg,
+                chain=chain, limit_eff=act.limit_eff,
+                quota_eff=act.quota_eff, lt=act.lanes,
+                domain_mask=domain_mask)
+            dev2, dev_t = result.device_free, None
+        else:
+            (free2, dev2, qa2, qan2, nodes_t, dev_t, pipe_t,
+             success) = attempt_gang_pertask(
+                state, gi, free, result.device_free, qa_eff, qan, extra_eff,
+                extra_dev_eff, config=cfg, chain=chain,
+                limit_eff=act.limit_eff, quota_eff=act.quota_eff,
+                tt=act.tasks, domain_mask=domain_mask)
+        ext2 = result.extended_free
         moves = None
         if reclaim:
             success = success & _ancestor_gate(
                 q.parent, queue, num_levels, qa_eff, fair_share, total_req)
         if consolidate:
             free2, dev2, ext2, moves, all_ok = replace_victims(
-                state, mask_k, free2, result.device_free,
-                n.releasing + extra_eff,
+                state, mask_k, free2, dev2, n.releasing + extra_eff,
                 n.device_releasing + extra_dev_eff, ext2,
                 n.extended_releasing + ext_extra_eff, max_pods)
             success = success & all_ok
         stats.syncs += 1
         ok = bool(success)
-        return ok, (mask_k, nodes_t, pipe_t, moves, free2, dev2, extra_eff,
-                    extra_dev_eff, qa2, qan2, ext2, ext_extra_eff)
+        return ok, (mask_k, nodes_t, dev_t, pipe_t, moves, free2, dev2,
+                    extra_eff, extra_dev_eff, qa2, qan2, ext2, ext_extra_eff)
 
     if consolidate:
         # allPodsReallocated is not monotone: the linear first-success walk
@@ -1001,7 +1073,14 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
     read per chunk, its ``any(remaining)`` test; the chunk body branches
     on no device value.  The action's sparse/dense choice (the
     reference's ``lax.cond`` on a queue overflowing ``sparse_unit_k``)
-    reads once more."""
+    reads once more.
+
+    On per-task snapshots each lane's placement is K9's lanes mode (its
+    own freed pools, device table included, queue table and score bias,
+    the legacy protocol) and the accept is the dense one with the
+    reference's device terms (ref ``:1462-1475``), every lane's pools
+    rebuilt from K9's final rows; the commit writes the device pools and
+    the fractional tasks' devices (``:1590-1612``)."""
     reclaim = mode == "reclaim"
     stats = act.stats
     g, q, n, r = state.gangs, state.queues, state.nodes, state.running
@@ -1017,6 +1096,15 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
           else config.batch_size)
     B = max(1, min(bs, G))
     pcfg = config.placement
+    uniform = pcfg.uniform_tasks
+    track_dev = pcfg.track_devices
+    # the chunk's two [B, N, D] tables (the freed devices and the lanes'
+    # releasing device pools), allocated once per action
+    freed_d_buf = xdev_buf = None
+    if track_dev and kernels.on_card(n.valid):
+        freed_d_buf = torch.empty((B, N, n.d), dtype=torch.float32,
+                                  device=dev)
+        xdev_buf = torch.empty_like(freed_d_buf)
     depth = (config.queue_depth_preempt
              if not reclaim and config.queue_depth_preempt is not None
              else config.queue_depth)
@@ -1105,6 +1193,7 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
         free, qa, qan = res.free, res.queue_allocated, \
             res.queue_allocated_nonpreemptible
         extra = res.releasing_extra
+        dev_free, extra_dev = res.device_free, res.device_releasing_extra
 
         # ---- lanes: first B remaining gangs in frozen order -------------
         flags = remaining[:G][order0]
@@ -1255,10 +1344,14 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
             lane_of_pod = torch.where(
                 live0, torch.where(cand_lane, lanes[None, :], B).amin(1), B)
         lane_of_pod = lane_of_pod.to(i32)
-        freed_n_b, freed_q_b, own_incr_b = freed_by_lane(
+        freed_n_b, freed_d_b, freed_q_b, own_incr_b = freed_by_lane(
             state, lane_of_pod, B, chain, compose=not tb.sparse,
-            pods=act.pods)
+            devices=track_dev, pods=act.pods, dev_out=freed_d_buf)
         extra_b = extra[None] + freed_n_b                        # [B, N, R]
+        extra_dev_b = extra_dev
+        if track_dev:
+            extra_dev_b = torch.add(extra_dev[None], freed_d_b,
+                                    out=xdev_buf)                # [B, N, D]
         qa_eff_b = qa[None] - freed_q_b                          # [B, Q, R]
         if reclaim:
             gate_b = gate_b & _ancestor_gate_lanes(
@@ -1279,21 +1372,37 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
                 dup_b = dup_b | attract_defer_lanes(state, gsafe_b,
                                                     cand_valid, res.anti_used)
 
-        # ---- every lane's placement: K2 one row per lane, K3 ------------
-        ty_b = g.task_type[gsafe_b, 0].long()
-        tables = type_tables(n, free, extra_b, g.type_req[ty_b],
-                             g.type_selector[ty_b], g.type_class[ty_b],
-                             pcfg.placement)
-        qa2_b, qan2_b, nodes_b, pipe_b, _ = uniform_fill(
-            gsafe_b.to(i32), torch.full((B, T), -1, dtype=i32, device=dev),
-            torch.full((B,), T, dtype=i32, device=dev), qa_eff_b, qan,
-            limit_eff_q, quota_eff_q, chain, act.lanes, tables, n.soft_scores,
-            dmask_b, dense=pcfg.dense_feasibility,
-            stride=max(1, N // max(1, pcfg.batch_size)), hoisted=False,
-            rows=lanes, score_bias=bias_b)
-        placed_b = nodes_b >= 0
-        # the reference's legacy protocol: min_needed tasks placed
-        succ_b = placed_b.sum(1, dtype=i32) >= g.min_needed[gsafe_b]
+        # ---- every lane's placement: K2 one row per lane and K3, or K9 ---
+        if uniform:
+            ty_b = g.task_type[gsafe_b, 0].long()
+            tables = type_tables(n, free, extra_b, g.type_req[ty_b],
+                                 g.type_selector[ty_b], g.type_class[ty_b],
+                                 pcfg.placement)
+            qa2_b, qan2_b, nodes_b, pipe_b, _ = uniform_fill(
+                gsafe_b.to(i32), torch.full((B, T), -1, dtype=i32,
+                                            device=dev),
+                torch.full((B,), T, dtype=i32, device=dev), qa_eff_b, qan,
+                limit_eff_q, quota_eff_q, chain, act.lanes, tables,
+                n.soft_scores, dmask_b, dense=pcfg.dense_feasibility,
+                stride=max(1, N // max(1, pcfg.batch_size)), hoisted=False,
+                rows=lanes, score_bias=bias_b)
+            placed_b = nodes_b >= 0
+            # the reference's legacy protocol: min_needed tasks placed
+            succ_b = placed_b.sum(1, dtype=i32) >= g.min_needed[gsafe_b]
+            devt_b = None
+        else:
+            lanes_out = pertask_fill(
+                n, act.tasks, gsafe_b.to(i32),
+                torch.full((B, T), -1, dtype=i32, device=dev), free,
+                dev_free, qa_eff_b, qan, extra_b, extra_dev_b, chain,
+                limit_eff_q, quota_eff_q, placement=pcfg.placement,
+                track_devices=track_dev, mask=dmask_b if anti else None,
+                score_bias=bias_b.contiguous(), legacy=True)
+            qa2_b, qan2_b, nodes_b, pipe_b, devt_b = (
+                lanes_out.qa2, lanes_out.qan2, lanes_out.nodes_t,
+                lanes_out.pipe_t, lanes_out.dev_t)
+            placed_b = nodes_b >= 0
+            succ_b = lanes_out.success
         if anti:
             # a deferred lane is conflict-rejected, never terminal (ref
             # :1389-1392, :1545, :1549)
@@ -1328,14 +1437,21 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
                           > EPS).flatten(1).any(1)
         else:
             # dense accept: the accepted lanes' free/bind deltas (rebuilt
-            # from the placements) must fit the composed pools
-            cnt = torch.zeros((B, N + 1), dtype=i32, device=dev)
-            nidx = torch.where(placed_b, nodes_b, N).long()
-            cnt.scatter_add_(1, nidx, placed_b.to(i32))
-            bind_cnt = torch.zeros((B, N + 1), dtype=i32, device=dev)
-            bind_cnt.scatter_add_(1, nidx, (placed_b & ~pipe_b).to(i32))
-            free2_b = free[None] - cnt[:, :N, None].to(f32) * req_b[:, None, :]
-            bind_b = bind_cnt[:, :N, None].to(f32) * req_b[:, None, :]
+            # from the placements, or from K9's final rows) must fit the
+            # composed pools
+            if uniform:
+                cnt = torch.zeros((B, N + 1), dtype=i32, device=dev)
+                nidx = torch.where(placed_b, nodes_b, N).long()
+                cnt.scatter_add_(1, nidx, placed_b.to(i32))
+                bind_cnt = torch.zeros((B, N + 1), dtype=i32, device=dev)
+                bind_cnt.scatter_add_(1, nidx, (placed_b & ~pipe_b).to(i32))
+                free2_b = (free[None]
+                           - cnt[:, :N, None].to(f32) * req_b[:, None, :])
+                bind_b = bind_cnt[:, :N, None].to(f32) * req_b[:, None, :]
+            else:
+                free2_b = lane_rows_dense(free, nodes_b, lanes_out.free_rows)
+                bind_b = lane_rows_dense(torch.zeros_like(free), nodes_b,
+                                         lanes_out.bind_rows)
             d_free = torch.where(okm, free[None] - free2_b, 0.0)
             d_bind = torch.where(okm, bind_b, 0.0)
             cum_free_d = cumsum_blocked(d_free)
@@ -1350,6 +1466,30 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
                 own_n = freed_n_b - torch.cat(
                     [torch.zeros_like(freed_n_b[:1]), freed_n_b[:-1]])
                 leftover_b = (own_n - d_free > EPS).flatten(1).any(1)
+            if track_dev:
+                # the device pools (ref :1462-1475): the lane prefix of the
+                # device claims above each lane's releasing floor, the
+                # bind-now claims within the chunk-start idle devices
+                dev2_b = lane_rows_dense(dev_free, nodes_b,
+                                         lanes_out.dev_rows)
+                d_dev = torch.where(okm, dev_free[None] - dev2_b, 0.0)
+                d_devbind = torch.where(okm, lane_rows_dense(
+                    torch.zeros_like(dev_free), nodes_b,
+                    lanes_out.devbind_rows), 0.0)
+                cum_dev = cumsum_blocked(d_dev)
+                if not reclaim:
+                    own_d = freed_d_b - torch.cat(
+                        [torch.zeros_like(freed_d_b[:1]), freed_d_b[:-1]])
+                    leftover_b = leftover_b | (
+                        own_d - d_dev > EPS).flatten(1).any(1)
+                accept = accept & (
+                    dev_free[None] - cum_dev
+                    >= -(n.device_releasing[None] + extra_dev_b) - EPS
+                ).flatten(1).all(1)
+                accept = accept & (
+                    cumsum_blocked(d_devbind)
+                    <= torch.clamp(dev_free[None], min=0.0) + EPS
+                ).flatten(1).all(1)
         ok_qa = ((qa_comp <= limit_eff_q[None] + EPS)
                  | (cum_qa <= EPS)).flatten(1).all(1)
         ok_qan = ((qan[None] + cum_qan <= quota_eff_q[None] + EPS)
@@ -1412,8 +1552,14 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
             new_extra = torch.where(any_take, extra_b[star][0], extra)
             new_qa = (torch.where(any_take, qa_eff_b[star][0], qa)
                       + _lane_sum(w, d_qa))
+        new_dev, new_extra_dev = dev_free, extra_dev
+        if track_dev:
+            new_dev = dev_free - _lane_sum(w, d_dev)
+            new_extra_dev = torch.where(any_take, extra_dev_b[star][0],
+                                        extra_dev)
         res = dataclasses.replace(
             res, free=new_free, releasing_extra=new_extra,
+            device_free=new_dev, device_releasing_extra=new_extra_dev,
             queue_allocated=new_qa,
             queue_allocated_nonpreemptible=qan + _lane_sum(w, d_qan),
             victim=res.victim | victims)
@@ -1423,8 +1569,8 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
                       torch.where(take[:, None], nodes_b, -1), take)
         tk = take[:, None]
         placements[cand_g] = torch.where(tk, nodes_b, placements[cand_g])
-        placement_device[cand_g] = torch.where(tk, -1,
-                                               placement_device[cand_g])
+        placement_device[cand_g] = torch.where(
+            tk, -1 if devt_b is None else devt_b, placement_device[cand_g])
         pipelined[cand_g] = torch.where(tk, pipe_b, pipelined[cand_g])
         allocated[cand_g] = allocated[cand_g] | take
         attempted[cand_g] = attempted[cand_g] | take | first_fail
@@ -1471,18 +1617,13 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
 
 def check_placement_ported(placement: AllocateConfig) -> None:
     """Raise ``NotImplementedError`` naming the first placement setting the
-    victim actions have not ported: on top of allocate's refusals, the
-    per-task path, the device share table (their scenario solver and
-    wavefront run the uniform whole-gang kernel only) and topology — the
-    required and subgroup levels (the solver's per-lane domain pick, ref
+    victim actions have not ported: on top of allocate's refusals (the
+    extended MIG/DRA table among them), topology — the required and
+    subgroup levels (the solver's per-lane domain pick, ref
     ``:1055-1076``; the dense wavefront has none) and the uniform path's
-    preferred band.  The in-cycle affinity terms run on uniform
-    snapshots."""
+    preferred band.  The per-task path with the device share table and the
+    in-cycle affinity terms run."""
     for bad, what in (
-            (not placement.uniform_tasks,
-             "uniform_tasks=False (the per-task placement path)"),
-            (placement.track_devices,
-             "track_devices=True (device share table)"),
             (placement.subgroup_topology,
              "subgroup_topology=True (subgroup / required topology)"),
             (placement.uniform_tasks and placement.preferred_topology,
@@ -1534,7 +1675,8 @@ def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
              else config.queue_depth)
     stats = VictimStats()
     act = action_context(state, result, fair_share, num_levels=num_levels,
-                         stats=stats)
+                         stats=stats,
+                         per_task=not config.placement.uniform_tasks)
     chain, quota_eff_q = act.chain, act.quota_eff
     gq = torch.clamp(g.queue, min=0)
     gql = gq.long()
@@ -1632,10 +1774,15 @@ def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
                                       config=config, act=act,
                                       domain_mask=dmask)
         if won is not None:
-            (victims, nodes_t, pipe_t, moves, free2, dev2, extra2,
+            (victims, nodes_t, dev_t, pipe_t, moves, free2, dev2, extra2,
              extra_dev2, qa2, qan2, ext2, ext_extra2) = won
             placements = res.placements.clone()
             placements[gi] = nodes_t
+            if dev_t is None:
+                placement_device = _set_row(res.placement_device, gi, -1)
+            else:
+                placement_device = res.placement_device.clone()
+                placement_device[gi] = dev_t
             pipelined = res.pipelined.clone()
             pipelined[gi] = pipe_t
             victim_move = res.victim_move
@@ -1646,7 +1793,7 @@ def run_victim_action_counted(state: ClusterState, fair_share: Tensor,
                 device_releasing_extra=extra_dev2, extended_free=ext2,
                 extended_releasing_extra=ext_extra2, queue_allocated=qa2,
                 queue_allocated_nonpreemptible=qan2, placements=placements,
-                placement_device=_set_row(res.placement_device, gi, -1),
+                placement_device=placement_device,
                 pipelined=pipelined,
                 allocated=_set_row(res.allocated, gi, True),
                 victim=res.victim | victims, victim_move=victim_move)

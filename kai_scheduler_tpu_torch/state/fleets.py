@@ -129,6 +129,116 @@ def sharing_objects(apis, *, num_nodes: int, shared_nodes: int,
     return nodes, queues, groups, pods
 
 
+def sharing_reclaim_objects(apis, *, num_nodes: int, training: int,
+                            fractions: int, memory: int,
+                            training_nodes: float = 0.47,
+                            pool_nodes: float = 0.02, urgent: int = 0,
+                            node_accel: int = 8,
+                            accel_memory_gib: float = 80.0, seed: int = 0):
+    """A GPU-sharing fleet that the running pods hold, built with the object
+    API: ``sharing_objects``' nodes and queues (two departments of two leaf
+    queues, each leaf deserving a quarter of the devices).
+
+    Running, in the first two leaves (alternating; over their fair share):
+    on the first ``training_nodes`` of the nodes one gang of ``node_accel``
+    whole-device pods (4 CPU, 16 GiB each, priority 1); on the last
+    ``pool_nodes`` nothing — an inference pool, tainted
+    ``dedicated=inference:NoSchedule``; on the others inference pods at
+    priority 0 that tolerate the taint: two one-pod gangs at
+    ``accel_portion=0.5`` (6 CPU, 24 GiB) on each of devices 0-2 and three
+    one-pod gangs at ``accel_memory_gib=24`` (4 CPU, 18.5 GiB) on each of
+    devices 3-4, which leaves 4 CPU and 1 GiB of the node and devices 5-7
+    stranded.  About 80 % of the devices are held (at the default shares),
+    and no pending pod fits idle anywhere.
+
+    Pending, in the other two leaves, interleaved in creation order with
+    priorities 0-2 drawn from ``seed``: ``training`` preemptible gangs of
+    ``node_accel`` whole-device pods (4 CPU, 16 GiB); ``fractions``
+    one-pod gangs at ``accel_portion=0.5`` and ``memory`` one-pod gangs at
+    ``accel_memory_gib=24`` (1 CPU, 4 GiB), both non-preemptible (the
+    inference class); then ``urgent`` one-pod 0.5-fraction gangs at
+    priority 2 in the first two leaves, non-preemptible — the over-quota
+    teams' own urgent work, which may not reclaim (their queues are over
+    their fair share) but preempts their own priority-0 pods.
+    Consolidation serves the training gangs (their inference victims move
+    into the pool), reclaim the rest of the other leaves' backlog, preempt
+    the urgent gangs.  Returns ``(nodes, queues, groups, pods)``."""
+    rng = np.random.default_rng(seed)
+    nodes, queues, _, _ = sharing_objects(
+        apis, num_nodes=num_nodes, shared_nodes=0, training=0, fractions=0,
+        memory=0, launchers=0, node_accel=node_accel,
+        accel_memory_gib=accel_memory_gib)
+    leaves = [q.name for q in queues if q.parent is not None]
+    n_train = int(round(num_nodes * training_nodes))
+    n_pool = max(1, int(round(num_nodes * pool_nodes)))
+    for nd in nodes[num_nodes - n_pool:]:
+        nd.taints = [apis.Taint(key="dedicated", value="inference")]
+    tol = [apis.Toleration(key="dedicated", value="inference")]
+    groups, pods = [], []
+    k = 0
+
+    def gang(name, queue, prio, specs, node):
+        nonlocal k
+        groups.append(apis.PodGroup(name, queue=queue, min_member=len(specs),
+                                    priority=prio, creation_timestamp=float(k),
+                                    last_start_timestamp=0.0))
+        pods.extend(apis.Pod(f"{name}-{t}", name, creation_timestamp=float(k),
+                             status=apis.PodStatus.RUNNING, node=node, **spec)
+                    for t, spec in enumerate(specs))
+        k += 1
+    for i in range(num_nodes - n_pool):
+        node = f"node-{i}"
+        if i < n_train:
+            gang(f"train-{i}", leaves[k % 2], 1, [
+                dict(resources=apis.ResourceVec(1.0, 4.0, 16.0),
+                     accel_devices=[d]) for d in range(node_accel)], node)
+            continue
+        for d in range(5):
+            frac = d < 3
+            for j in range(2 if frac else 3):
+                spec = (dict(resources=apis.ResourceVec(0.0, 6.0, 24.0),
+                             accel_portion=0.5) if frac else
+                        dict(resources=apis.ResourceVec(0.0, 4.0, 18.5),
+                             accel_memory_gib=24.0))
+                gang(f"{'infer' if frac else 'embed'}-{i}-{d}-{j}",
+                     leaves[k % 2], 0,
+                     [dict(spec, accel_devices=[d], tolerations=tol)], node)
+    counts = {"training": training, "fraction": fractions, "memory": memory}
+    order = sorted(
+        (((j + 0.5) / n, kd) for kd, n in counts.items() for j in range(n)))
+    t0 = float(k)
+    for g, (_, kind) in enumerate(order):
+        name = f"want-{kind}-{g}"
+        if kind == "training":
+            specs = [dict(resources=apis.ResourceVec(1.0, 4.0, 16.0))] * \
+                node_accel
+        elif kind == "fraction":
+            specs = [dict(resources=apis.ResourceVec(0.0, 1.0, 4.0),
+                          accel_portion=0.5)]
+        else:
+            specs = [dict(resources=apis.ResourceVec(0.0, 1.0, 4.0),
+                          accel_memory_gib=24.0)]
+        groups.append(apis.PodGroup(
+            name, queue=leaves[2 + g % 2], min_member=len(specs),
+            priority=int(rng.integers(0, 3)), creation_timestamp=t0 + g,
+            preemptibility=(apis.Preemptibility.PREEMPTIBLE
+                            if kind == "training"
+                            else apis.Preemptibility.NON_PREEMPTIBLE)))
+        pods += [apis.Pod(f"{name}-{t}", name, creation_timestamp=t0 + g,
+                          **spec) for t, spec in enumerate(specs)]
+    t0 += len(order)
+    for u in range(urgent):
+        name = f"urgent-{u}"
+        groups.append(apis.PodGroup(
+            name, queue=leaves[u % 2], min_member=1, priority=2,
+            creation_timestamp=t0 + u,
+            preemptibility=apis.Preemptibility.NON_PREEMPTIBLE))
+        pods.append(apis.Pod(f"{name}-0", name, creation_timestamp=t0 + u,
+                             resources=apis.ResourceVec(0.0, 1.0, 4.0),
+                             accel_portion=0.5))
+    return nodes, queues, groups, pods
+
+
 def topology_subgroup_objects(apis, make_cluster, *, num_nodes: int,
                               levels: tuple, gangs: int, seed: int = 0):
     """A topology fleet with mixed and multi-subgroup gangs, built with

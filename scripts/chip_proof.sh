@@ -1,21 +1,20 @@
 #!/bin/sh
-# Runs chip_smoke.py, the headline, repack_racks and resident_churn cycle
-# profiles, the K6 trace on resident_churn and the card tests from exactly
-# the files git would commit, unpacked into chip_proof/ (listed in
-# .gitignore), so that nothing built or left behind in the working tree is
-# used; then times K3, K6, K9 and K10 of the parent commit, unpacked into
-# chip_parent/ (listed too), against the change's on the inputs
-# chip_smoke.py captured, in turns (parent, change, change, parent).
+# Runs chip_smoke.py, the sharing_reclaim cycle profile and the card tests
+# from exactly the files git would commit, unpacked into chip_proof/
+# (listed in .gitignore), so that nothing built or left behind in the
+# working tree is used; then times K3, K6, K8, K9 and K10 of the parent
+# commit, unpacked into chip_parent/ (listed too), against the change's on
+# the inputs chip_smoke.py captured, in turns (parent, change, change,
+# parent); the modes the parent lacks are listed as missing.
 #
 #   sh scripts/chip_proof.sh unpack [PARENT]  # stage everything, unpack the
 #                                             # tree and PARENT (default HEAD)
-#   chiprun --timeout 1500 -- sh scripts/chip_proof.sh run
+#   sh scripts/chip_proof.sh run              # on the GPU machine, ~20 min
 #
 # `run` (on the GPU machine) builds and runs from chip_proof/ and copies the
 # reports to chiprun_out/proof/: chip_smoke.json, chip_smoke.log,
-# profile_headline_summary.json, profile_repack_racks_summary.json,
-# profile_resident_churn_summary.json, trace_freed_by_mask.json,
-# card_tests.log and compare_kernels.jsonl (one line a turn).
+# profile_sharing_reclaim_summary.json, card_tests.log and
+# compare_kernels.jsonl (one line a turn).
 set -e
 cd "$(dirname "$0")/.."
 case "$1" in
@@ -34,15 +33,10 @@ run)
     cd chip_proof
     nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     python3 chip_smoke.py
-    python3 scripts/profile_torch_cycle.py --shape headline
-    python3 scripts/profile_torch_cycle.py --shape repack_racks
-    python3 scripts/profile_torch_cycle.py --shape resident_churn
-    python3 scripts/trace_freed_by_mask.py
+    python3 scripts/profile_torch_cycle.py --shape sharing_reclaim
     cp chiprun_out/chip_smoke.json chiprun_out/chip_smoke.log \
-        chiprun_out/profile_headline_summary.json \
-        chiprun_out/profile_repack_racks_summary.json \
-        chiprun_out/profile_resident_churn_summary.json \
-        chiprun_out/trace_freed_by_mask.json ../chiprun_out/proof/
+        chiprun_out/profile_sharing_reclaim_summary.json \
+        ../chiprun_out/proof/
     python3 -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels.py -q > ../chiprun_out/proof/card_tests.log
     if test -f ../chip_parent/chip_smoke.py; then

@@ -1,22 +1,25 @@
-"""Time K3 (``uniform_fill``), K6 (``freed_by_mask``), K9
-(``pertask_fill``) and K10 (``dense_accept``) of one checkout on the
-inputs another run captured, on one NVIDIA GPU.
+"""Time K3 (``uniform_fill``), K6 (``freed_by_mask``), K8
+(``freed_by_lane``), K9 (``pertask_fill``) and K10 (``dense_accept``) of
+one checkout on the inputs another run captured, on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # writes build/kernel_inputs.pt
     PYTHONPATH=<checkout> python3 scripts/compare_kernels.py \\
         --inputs build/kernel_inputs.pt --label <name>
 
 ``chip_smoke.py`` saves the first captured call of every K3, K6, K9 and
-K10 mode on its main path to ``build/kernel_inputs.pt``.  This script
-loads them into whichever ``kai_scheduler_tpu_torch`` comes first on
-``sys.path`` (so it times an older checkout's kernels on the same
-inputs), holds each kernel against that checkout's plain version
-(tolerance 0; K6's on CPU copies, whose ``index_add_`` adds in order),
-and prints one JSON line: each mode's median of 50 calls (CUDA events
-around each call, as ``chip_smoke.py`` times them), the card's name and
-power limit, and the checkout's path.  A checkout whose K6 has no
-queue-only mode runs the whole kernel for that call (what its reclaim
-ran) and is held on the queue tables.  ``scripts/chip_proof.sh run``
+K10 mode, and of K8's device mode, on its main path to
+``build/kernel_inputs.pt``.  This script loads them into whichever
+``kai_scheduler_tpu_torch`` comes first on ``sys.path`` (so it times an
+older checkout's kernels on the same inputs), holds each kernel against
+that checkout's plain version (tolerance 0; K6's and K8's on CPU copies,
+whose ``index_add_`` adds in order), and prints one JSON line: each
+mode's median of 50 calls (CUDA events around each call, as
+``chip_smoke.py`` times them), the card's name and power limit, and the
+checkout's path.  A checkout whose K6 has no queue-only mode runs the
+whole kernel for that call (what its reclaim ran) and is held on the
+queue tables; a mode whose arguments the checkout's wrapper does not take
+(K8's device table, K9's lanes and legacy modes before they existed) is
+listed under ``missing``.  ``scripts/chip_proof.sh run``
 alternates it between the parent commit and the change (parent, change,
 change, parent).
 """
@@ -90,12 +93,33 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    def lane_freed(args, kw):
+        """K8's call, its outputs and its plain version's, on CPU copies."""
+        state, lane, B, chain = args
+
+        def call():
+            return V.freed_by_lane(*args, **kw)
+        plain = V.freed_by_lane_plain(
+            state_from_numpy(state_to_numpy(state), "cpu"), lane.cpu(), B,
+            chain.cpu(), **kw)
+        return call, [t.cpu() for t in _flat(call())], _flat(plain)
+
     out = dict(label=a.label, package=kai_scheduler_tpu_torch.__file__,
-               card=card.strip(), modes={})
+               card=card.strip(), modes={}, missing=[])
     for mode, (args, kw) in saved.items():
         kw = {k: v for k, v in kw.items() if k != "agg"}
+        wrapper = {"freed_by_mask": V.freed_by_mask,
+                   "freed_by_lane": V.freed_by_lane,
+                   "pertask_fill": A.pertask_fill,
+                   "dense_accept": A.dense_accept,
+                   "uniform_fill": A.uniform_fill}[mode.split(":")[0]]
+        if not set(kw) <= set(inspect.signature(wrapper).parameters):
+            out["missing"].append(mode)
+            continue
         if mode.startswith("freed_by_mask"):
             call, got, want = freed(args, kw)
+        elif mode.startswith("freed_by_lane"):
+            call, got, want = lane_freed(args, kw)
         else:
             fn, plain = {"pertask_fill": (A.pertask_fill,
                                           A.pertask_fill_plain),

@@ -3,7 +3,8 @@ GPU.
 
     python3 scripts/profile_torch_cycle.py [--shape headline|contended|
         sharing|topology|topology_subgroups|saturated|
-        saturated_sequential|preempt_many_queues|fragmented|affinity|
+        saturated_sequential|preempt_many_queues|fragmented|
+        sharing_reclaim|affinity|
         affinity_reclaim|affinity_reclaim_sequential|affinity_sharing|
         repack_racks|resident_churn]
 
@@ -13,8 +14,9 @@ under ``torch.profiler`` (CPU and CUDA activities), and prints:
 - the cycle's wall time (the warm-up run's too: the profiler's own
   per-op cost inflates the profiled one) and its phases
   (``CycleResult.phase_seconds``); for the victim cells (``saturated``,
-  ``saturated_sequential``, ``preempt_many_queues``, ``fragmented``, as
-  ``chip_smoke.py`` configures them) the per-action seconds, steps
+  ``saturated_sequential``, ``preempt_many_queues``, ``fragmented``,
+  ``sharing_reclaim``, as ``chip_smoke.py`` configures them) the
+  per-action seconds, steps
   (wavefront chunks for a chunked action), scenario attempts (lanes) and
   syncs;
 - the device's busy time — the union of every kernel (ours and
@@ -167,7 +169,8 @@ def main() -> int:
     elif victim:
         shape = {"saturated": chip_smoke.SATURATED,
                  "preempt_many_queues": chip_smoke.PREEMPT_MANY,
-                 "fragmented": chip_smoke.FRAGMENTED}[
+                 "fragmented": chip_smoke.FRAGMENTED,
+                 "sharing_reclaim": chip_smoke.SHARING_RECLAIM}[
                      chip_smoke.VICTIM_CELLS[args.shape][0]]
         _, _, warm = chip_smoke.run_victim_cycle(args.shape, "cuda")
         cluster = chip_smoke.victim_cluster(args.shape)

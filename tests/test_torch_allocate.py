@@ -204,10 +204,12 @@ def test_uniform_fill_key_order_matches_lax_top_k(k):
         assert np.array_equal(np.asarray(want), got), n
 
 
-#: settings the per-task and topology paths lifted from allocate; the
-#: victim actions still refuse them (their placement check)
-VICTIM_ONLY = ("uniform_tasks", "track_devices", "subgroup_topology",
-               "preferred_topology")
+#: settings the topology paths lifted from allocate; the victim actions
+#: still refuse them (their placement check)
+VICTIM_ONLY = ("subgroup_topology", "preferred_topology")
+#: settings the per-task path lifted from allocate and, since, from the
+#: victim actions: forced on, reclaim's result must equal the reference's
+VICTIMS_LIFTED = ("uniform_tasks", "track_devices")
 #: settings the port now runs on both allocate and the victim actions: on
 #: a snapshot with term rows (with none the reference raises ValueError)
 #: the port's result must equal the reference's
@@ -238,6 +240,37 @@ def _lifted_run_matches(flag: str, base: A.AllocateConfig):
     assert bool(got.allocated.any()) and bool(got.anti_used.any())
 
 
+def _victims_run_matches(flag: str, base: A.AllocateConfig):
+    """``flag`` forced on (``track_devices`` on the per-task path, the one
+    that tracks devices) for the sequential reclaim action over a small
+    saturated cluster: the port's result equals the reference's."""
+    import kai_scheduler_tpu.ops.victims as RV
+    from kai_scheduler_tpu.ops.allocate import init_result as ref_init
+    from kai_scheduler_tpu_torch.ops import victims as V
+    cfg = dataclasses.replace(base, uniform_tasks=False,
+                              track_devices=flag == "track_devices")
+    ref_state, ref_index = ref_cs.build_snapshot(*ref_make(
+        num_nodes=12, node_accel=4.0, num_gangs=16, tasks_per_gang=2,
+        running_fraction=0.75, queue_accel_quota=4.0,
+        partition_queues_by_running=True), pad=32)
+    ses = RefSession.from_state(ref_state, ref_index, RefConfig())
+    ref_cfg = dataclasses.replace(ses.config.allocate, **{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+        if f.name != "placement"})
+    ref_vc = dataclasses.replace(ses.config.victims, placement=ref_cfg,
+                                 batch_size=1)
+    want = RV.run_victim_action_jit(
+        ses.state, ses.state.queues.fair_share, ref_init(ses.state),
+        num_levels=ses.config.num_levels, mode="reclaim", config=ref_vc)
+    port = state_from_numpy(ref_leaves(ses.state), "cpu")
+    got = V.run_victim_action(
+        port, port.queues.fair_share, A.init_result(port),
+        num_levels=ses.config.num_levels, mode="reclaim",
+        config=V.VictimConfig(placement=cfg, batch_size=1))
+    assert_results_equal(jax.device_get(want), got)
+    assert bool(got.victim.any()) and bool(got.allocated.any())
+
+
 @pytest.mark.parametrize("flag,value", [
     ("uniform_tasks", False), ("track_devices", True),
     ("subgroup_topology", True), ("preferred_topology", True),
@@ -248,12 +281,16 @@ def test_unported_settings_raise_naming_the_flag(flag, value):
     """A setting the port has not ported raises ``NotImplementedError``
     naming it (the victim actions' own refusals for the settings only
     allocate runs); the affinity flags, ported since, run instead and
-    must equal the reference on a snapshot with term rows."""
+    must equal the reference on a snapshot with term rows, and the
+    per-task flags run the victim actions equal to the reference."""
     base = A.AllocateConfig(track_devices=False, uniform_tasks=True,
                             subgroup_topology=False,
                             preferred_topology=False)
     if flag in LIFTED:
         _lifted_run_matches(flag, base)
+        return
+    if flag in VICTIMS_LIFTED:
+        _victims_run_matches(flag, base)
         return
     cfg = dataclasses.replace(base, **{flag: value})
     ref_state, _ = ref_cs.build_snapshot(*ref_make(num_nodes=4,

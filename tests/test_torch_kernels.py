@@ -84,6 +84,9 @@ def assert_same(a, b):
     b = b if isinstance(b, (tuple, list)) else (b,)
     assert len(a) == len(b)
     for x, y in zip(a, b):
+        if x is None or y is None:   # a table neither side built
+            assert x is None and y is None
+            continue
         assert x.dtype == y.dtype and x.shape == y.shape
         assert torch.equal(x.cpu(), y.cpu())
 
@@ -1744,3 +1747,240 @@ def test_freed_by_mask_edges_match_plain(cuda, case):
         assert vals.size > 2 * 2048
         exact = float(vals.astype(np.float64).sum())
         assert (float(want[2][0, 0]) == exact) == (case == "whole_below_2p24")
+
+
+# ---------------------------------------------------------------------------
+# the victim actions on per-task snapshots: K8's device table, K9's lanes
+# and legacy modes, the stale pass's K6 device table, whole cycles
+# ---------------------------------------------------------------------------
+
+def _device_state(cuda, D: int, seed: int):
+    """A running cluster on the card with ``D`` devices a node (the
+    snapshot takes 31 at most: at 32 the node device tables gain a 32nd
+    column): fractional shares (0.5, 24 GiB of 80 and random) on random
+    devices, whole-device pods with random ``devices_mask`` bits over every
+    device (bit 31 included at 32 devices), so fractional and whole-device
+    pods meet on one device; a few pods on no node."""
+    from kai_scheduler_tpu_torch.state import state_from_numpy, state_to_numpy
+    ses = _session(cuda, num_nodes=200, node_accel=float(min(D, 31)),
+                   num_gangs=300, tasks_per_gang=4, running_fraction=0.8,
+                   num_departments=3, queues_per_department=3)
+    lv = state_to_numpy(ses.state)
+    for k in ("nodes.device_free", "nodes.device_releasing"):
+        lv[k] = np.pad(lv[k], ((0, 0), (0, D - lv[k].shape[1])))
+    rng = np.random.default_rng(seed)
+    M = lv["running.req"].shape[0]
+    frac = rng.random(M) < 0.4
+    lv["running.device"] = np.where(frac, rng.integers(0, D, M),
+                                    -1).astype(np.int32)
+    lv["running.accel_held"] = np.where(frac, rng.choice(np.float32(
+        [0.5, 0.3, 0.05, 0.7]), M), 0.0).astype(np.float32)
+    bits = rng.integers(0, 2 ** 32, M, dtype=np.uint64) & ((1 << D) - 1)
+    lv["running.devices_mask"] = np.where(frac, 0, bits.astype(
+        np.uint32).view(np.int32)).astype(np.int32)
+    node = lv["running.node"].copy()
+    node[rng.random(M) < 0.03] = -1
+    lv["running.node"] = node
+    return state_from_numpy(lv, cuda), ses
+
+
+FREED_DEVICE_CASES = ("random", "empty", "one_lane", "d1", "d32")
+
+
+@pytest.mark.parametrize("compose", [True, False])
+@pytest.mark.parametrize("case", FREED_DEVICE_CASES)
+def test_freed_by_lane_device_table_matches_plain(cuda, case, compose):
+    """K8's device mode byte-equal to its plain version: an empty lane
+    assignment, every pod in one lane, one and 32 devices a node,
+    fractional and whole-device pods on one device; composed and not."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    D = {"d1": 1, "d32": 32}.get(case, 8)
+    st, ses = _device_state(cuda, D, seed=len(case))
+    assert st.nodes.d == D
+    chain = A._chain_membership(st.queues.parent, ses.config.num_levels)
+    rng = np.random.default_rng(len(case) + compose)
+    M, B = st.running.m, 64
+    lane = np.where(rng.random(M) < 0.7, rng.integers(0, B, M), B)
+    if case == "empty":
+        lane[:] = B
+    elif case == "one_lane":
+        lane[:] = 0
+    lane = torch.from_numpy(lane.astype(np.int32)).to(cuda)
+    kernels.reset_launch_counts()
+    got = V.freed_by_lane(st, lane, B, chain, compose=compose, devices=True)
+    counts = kernels.launch_counts()
+    assert (counts["freed_by_lane"], counts["freed_by_lane:devices"]) == (1, 1)
+    want = V.freed_by_lane_plain(_cpu_state(st), lane.cpu(), B, chain.cpu(),
+                                 compose=compose, devices=True)
+    assert_same(got, want)
+    assert got[1].shape == (B, st.nodes.n, D)
+    assert (float(got[1].sum()) > 0) == (case != "empty")
+    # without the device table the kernel writes none
+    assert V.freed_by_lane(st, lane, B, chain, compose=compose)[1] is None
+
+
+def _lanes_mode_args(cuda, B: int, seed: int):
+    """``_sharing_lanes``' inputs with each lane's own freed pools on a
+    few nodes (0.5, 0.3 and whole devices, with their accel, cpu and
+    memory), its queue table below the chunk's and an own-freed score
+    bias; lanes 0 and 1 differ on one device only."""
+    from kai_scheduler_tpu_torch.ops.scoring import W_OWN_FREED
+    args, kw = _sharing_lanes(cuda, B=B, num_nodes=400, placement={},
+                              seed=seed)
+    (n, tt, cand, prior, free, dev, qa, qan, extra, extra_dev, chain,
+     lim, quo) = args
+    rng = np.random.default_rng(seed)
+    N, D = dev.shape
+    ex = np.repeat(extra.cpu().numpy()[None], B, 0)
+    exd = np.repeat(extra_dev.cpu().numpy()[None], B, 0)
+    bias = np.zeros((B, N), np.float32)
+    for b in range(B):
+        nodes = rng.choice(N, size=4, replace=False)
+        for nd in nodes:
+            d = (rng.choice(np.float32([0.5, 0.3, 1.0]), D)
+                 * (rng.random(D) < 0.4)).astype(np.float32)
+            exd[b, nd] += d
+            ex[b, nd] += np.float32([d.sum(), 4.0, 16.0])
+        bias[b, nodes] = W_OWN_FREED
+    qa_b = np.repeat(qa.cpu().numpy()[None], B, 0)
+    qa_b = (qa_b * rng.uniform(0.8, 1.0, qa_b.shape)).astype(np.float32)
+    if B > 1:
+        ex[1], exd[1], qa_b[1], bias[1] = ex[0], exd[0].copy(), qa_b[0], \
+            bias[0]
+        exd[1, int(np.argmax(bias[0])), 2] = 0.5
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    prior = torch.full_like(prior, -1)
+    return ((n, tt, cand, prior, free, dev, t(qa_b), qan, t(ex), t(exd),
+             chain, lim, quo),
+            dict(kw, score_bias=t(bias), legacy=True))
+
+
+@pytest.mark.parametrize("B", [1, 64, 256])
+def test_pertask_fill_lanes_mode_matches_plain(cuda, B):
+    """K9's lanes mode (per-lane freed pools, device table included,
+    queue tables and score bias; the legacy protocol) byte-equal to its
+    plain version; and the legacy protocol alone, with shared pools."""
+    args, kw = _lanes_mode_args(cuda, B, seed=B)
+    kernels.reset_launch_counts()
+    out = A.pertask_fill(*args, **kw)
+    counts = kernels.launch_counts()
+    assert (counts["pertask_fill"], counts["pertask_fill:lanes"],
+            counts["pertask_fill:legacy"]) == (1, 1, 1)
+    assert_same(out.fields(),
+                A.attempt_gang_in_domain_plain(*args, **kw).fields())
+    if B > 1:
+        assert bool((out.nodes_t >= 0).any())
+    # shared device pools, per-lane node pools (no device table tracked)
+    kw2 = dict(kw, track_devices=False)
+    args2 = args[:9] + (args[9][0].contiguous(),) + args[10:]
+    assert_same(A.pertask_fill(*args2, **kw2).fields(),
+                A.attempt_gang_in_domain_plain(*args2, **kw2).fields())
+    # the legacy protocol on the chunk-start pools (the solver's call)
+    base, _ = _sharing_lanes(cuda, B=B, num_nodes=400, placement={}, seed=B)
+    base = base[:3] + (torch.full_like(base[3], -1),) + base[4:]
+    kw3 = dict(placement=kw["placement"], track_devices=True, legacy=True)
+    assert_same(A.pertask_fill(*base, **kw3).fields(),
+                A.attempt_gang_in_domain_plain(*base, **kw3).fields())
+
+
+def test_pertask_fill_score_bias_decides_a_tie(cuda):
+    """One fraction on a fleet of equal nodes: the kernel takes node 0
+    without a bias and the biased node with it, as the plain version."""
+    from kai_scheduler_tpu_torch.ops.scoring import W_OWN_FREED
+    objs = fleets.sharing_objects(apis, num_nodes=64, shared_nodes=0,
+                                  training=0, fractions=2, memory=0,
+                                  launchers=0)
+    st = Session.open(*objs, device=cuda).state
+    n, q = st.nodes, st.queues
+    inf = float("inf")
+    ext = torch.zeros((1,) + n.free.shape, device=cuda)
+    args = (n, A.TaskTables.of(st), torch.zeros((1,), dtype=torch.int32,
+                                                device=cuda),
+            torch.full((1, st.gangs.t), -1, dtype=torch.int32, device=cuda),
+            n.free, n.device_free, q.allocated, q.allocated_nonpreemptible,
+            ext, n.device_releasing[None].contiguous(),
+            A._chain_membership(q.parent, 2),
+            torch.where(q.limit <= -0.5, inf, q.limit),
+            torch.where(q.quota <= -0.5, inf, q.quota))
+    for node in (None, 9):
+        bias = torch.zeros((1, n.n), device=cuda)
+        if node is not None:
+            bias[0, node] = W_OWN_FREED
+        kw = dict(placement=PlacementConfig(), track_devices=True,
+                  score_bias=bias, legacy=True)
+        out = A.pertask_fill(*args, **kw)
+        assert_same(out.fields(),
+                    A.attempt_gang_in_domain_plain(*args, **kw).fields())
+        assert int(out.nodes_t[0, 0]) == (0 if node is None else node)
+
+
+def _sharing_reclaim_cluster():
+    return Cluster.from_objects(*fleets.sharing_reclaim_objects(
+        apis, num_nodes=200, training=6, fractions=16, memory=16,
+        urgent=8))
+
+
+@pytest.mark.parametrize("batch_size", [1, 64])
+def test_cuda_sharing_reclaim_cycle_equals_cpu_cycle(cuda, batch_size):
+    """The sharing_reclaim cell at 200 nodes through the five default
+    actions on the card and on the CPU: packed commit, BindRequests,
+    evictions and move rebinds equal; the victim actions went through
+    K8's device table and K9's lanes mode (chunked) or K9's legacy mode
+    and K7 (sequential)."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    from kai_scheduler_tpu_torch.framework.session import SessionConfig
+    from kai_scheduler_tpu_torch.ops.victims import VictimConfig
+    out, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        out[device] = Scheduler(SchedulerConfig(
+            incremental=False, session=SessionConfig(victims=VictimConfig(
+                batch_size=batch_size))), device=device).run_once(
+            _sharing_reclaim_cluster())
+        counts[device] = kernels.launch_counts()
+    c = counts["cuda"]
+    assert c["pertask_fill:legacy"] > 0 and c["replace_victims"] > 0, c
+    if batch_size > 1:
+        assert c["freed_by_lane:devices"] > 0, c
+        assert c["pertask_fill:lanes"] > 0, c
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.evictions
+    assert gpu.packed.tobytes() == cpu.packed.tobytes()
+    for field in ("bind_requests", "evictions", "move_bind_requests"):
+        assert [dataclasses.astuple(b) for b in getattr(gpu, field)] == \
+            [dataclasses.astuple(b) for b in getattr(cpu, field)], field
+
+
+def test_stale_pass_device_table_matches_plain(cuda):
+    """The stale pass on a per-task snapshot: K6's device table (the
+    stale whole-device and inference gangs' shares) credits the releasing
+    device pool as the plain version does."""
+    from kai_scheduler_tpu_torch.ops import stale as S
+    from kai_scheduler_tpu_torch.ops.allocate import init_result
+    from kai_scheduler_tpu_torch.state import state_from_numpy, state_to_numpy
+    ses = Session.open(*fleets.sharing_reclaim_objects(
+        apis, num_nodes=200, training=4, fractions=4, memory=4),
+        device=cuda)
+    lv = state_to_numpy(ses.state)
+    running = lv["gangs.running_count"]
+    pick = np.nonzero(running >= 1)[0][::7]
+    lv["gangs.stale_s"] = lv["gangs.stale_s"].copy()
+    lv["gangs.stale_s"][pick] = 120.0
+    lv["gangs.min_member"] = lv["gangs.min_member"].copy()
+    lv["gangs.min_member"][pick] = running[pick] + 1
+    res = {}
+    for device in (cuda, "cpu"):
+        st = state_from_numpy(lv, device)
+        kernels.reset_launch_counts()
+        res[str(device)] = S.stale_gang_eviction(
+            st, init_result(st), num_levels=ses.config.num_levels)
+        if device is cuda:
+            assert kernels.launch_counts()["freed_by_mask"] == 1
+    got, want = res[str(cuda)], res["cpu"]
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, torch.Tensor):
+            assert torch.equal(a.cpu(), b), f.name
+    assert float(want.device_releasing_extra.sum()) > 0

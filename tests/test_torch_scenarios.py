@@ -200,6 +200,76 @@ def test_victim_scenario_cycle_matches_reference_or_is_refused(
             [dataclasses.asdict(b) for b in getattr(want, field)], field
 
 
+#: the catalogs whose cases auto-tune to the per-task path (fractional and
+#: memory-based shares, heterogeneous gangs, subgroups), through the five
+#: actions at both victim widths
+PER_TASK_CATALOGS = (test_hierarchy_order_scenarios, test_sharing_scenarios,
+                     test_topology_scenarios, test_deletion_mixed_scenarios)
+FIVE_ACTION_WIDTHS = [
+    pytest.param(c.name, b, id=c.name if b == 1 else f"{c.name}-default")
+    for b in (1, VictimConfig().batch_size)
+    for m in PER_TASK_CATALOGS for c in m.CASES]
+
+
+@pytest.mark.parametrize("name,batch_size", FIVE_ACTION_WIDTHS)
+def test_five_action_cycle_matches_reference_or_is_refused(
+        name, batch_size, pad32):
+    """The GPU-sharing, hierarchy, topology and deletion/mixed cases
+    through the five default actions (the sequential victim engine and
+    the default config): on the per-task path the victim actions run with
+    the device share table; the commit, the BindRequests (devices
+    included), the evictions and the move rebinds equal the reference's,
+    or the port refuses by name (MIG, subgroup or required topology, the
+    uniform preferred band)."""
+    ref_cluster = _build(CASES[name])
+    cluster = _port_cluster(ref_cluster)
+    want = RefScheduler(RefSchedulerConfig(
+        incremental=False, analytics_every=0, repack_enable=False,
+        session=RefSessionConfig(victims=RefVictimConfig(
+            batch_size=batch_size)))).run_once(ref_cluster)
+    sched = Scheduler(SchedulerConfig(
+        actions=DEFAULT_ACTIONS, incremental=False, analytics_every=0,
+        repack_enable=False,
+        session=SessionConfig(victims=VictimConfig(batch_size=batch_size))),
+        device="cpu")
+    reason = (_refusal(pad32["config"])
+              or _refusal(pad32["victims"].placement, check_placement_ported))
+    if reason is not None:
+        with pytest.raises(NotImplementedError, match=re.escape(reason)):
+            sched.run_once(cluster)
+        return
+    got = sched.run_once(cluster)
+    assert got.packed.tobytes() == pad32["packed"].tobytes()
+    for field in ("bind_requests", "evictions", "move_bind_requests"):
+        assert [dataclasses.asdict(b) for b in getattr(got, field)] == \
+            [dataclasses.asdict(b) for b in getattr(want, field)], field
+
+
+def test_five_action_refusals():
+    """What the five-action cycle still refuses on the catalogs: MIG
+    (``extended=True``), subgroup / required topology and the uniform
+    preferred band, 15 of the 113 cases; no case is refused for the
+    per-task path or the device share table."""
+    refused = {}
+    for m in (*CATALOGS, test_victim_scenarios):
+        for case in m.CASES:
+            cluster = _build(case)
+            patch = getattr(m, "_prepare", lambda c: None)(case)
+            if patch is not None:
+                patch(cluster)
+            _, index = ref_cs.build_snapshot(*cluster.snapshot_lists(),
+                                             pad=32, now=cluster.now)
+            auto = ref_session._auto_tune(ref_session.SessionConfig(),
+                                          index, 32, 32)
+            reason = (_refusal(auto.allocate) or _refusal(
+                auto.victims.placement, check_placement_ported))
+            if reason is not None:
+                refused[case.name] = reason
+    assert len(refused) == 15, sorted(refused)
+    assert all(("extended=True" in r or "topology" in r)
+               for r in refused.values()), refused
+
+
 def test_catalog_cases_run_on_the_port():
     """Most catalog cases need only what the port has ported, every
     topology case (required, subgroup and preferred levels) among them:
@@ -258,23 +328,45 @@ def test_per_task_catalog_cases_run_on_the_port():
 
 
 @pytest.mark.parametrize("name", sorted(VICTIM_CASES))
-def test_victim_cycle_on_per_task_snapshot_is_refused(name, pad32):
+def test_victim_cycle_on_per_task_snapshot_matches_reference(name, pad32):
     """Spread scoring sends every snapshot down the per-task path (the
-    whole-gang fill is the sequential greedy under binpack only); the
-    victim actions have not ported it, so the five-action cycle refuses
-    instead of running the uniform victim code on it."""
+    whole-gang fill is the sequential greedy under binpack only): the
+    five-action cycle at the default victim config runs the victim
+    actions' per-task solver and wavefront (K9 with one lane, K9's lanes
+    mode and the dense accept), equal to the reference's — or, where the
+    snapshot carries a setting the port still refuses (MIG, subgroup or
+    required topology), refuses by name on both paths."""
     case = VICTIM_CASES[name]
     ref_cluster = _build(case)
     patch = test_victim_scenarios._prepare(case)
     if patch is not None:
         patch(ref_cluster)
-    spread = AllocateConfig(placement=dataclasses.replace(
-        AllocateConfig().placement, binpack_accel=False, binpack_cpu=False))
+    cluster = _port_cluster(ref_cluster)
+    spread = dict(binpack_accel=False, binpack_cpu=False)
+    ref_alloc = ref_session.SessionConfig().allocate
+    want = RefScheduler(RefSchedulerConfig(
+        incremental=False, analytics_every=0, repack_enable=False,
+        session=RefSessionConfig(allocate=dataclasses.replace(
+            ref_alloc, placement=dataclasses.replace(
+                ref_alloc.placement, **spread))))).run_once(ref_cluster)
+    assert not pad32["config"].uniform_tasks
     sched = Scheduler(SchedulerConfig(
-        actions=DEFAULT_ACTIONS, session=SessionConfig(allocate=spread)),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="uniform_tasks=False"):
-        sched.run_once(_port_cluster(ref_cluster))
+        actions=DEFAULT_ACTIONS, incremental=False, analytics_every=0,
+        repack_enable=False, session=SessionConfig(allocate=AllocateConfig(
+            placement=dataclasses.replace(AllocateConfig().placement,
+                                          **spread)))), device="cpu")
+    reason = (_refusal(pad32["config"])
+              or _refusal(pad32["victims"].placement, check_placement_ported))
+    if reason is not None:
+        assert "extended=True" in reason or "topology" in reason, reason
+        with pytest.raises(NotImplementedError, match=re.escape(reason)):
+            sched.run_once(cluster)
+        return
+    got = sched.run_once(cluster)
+    assert got.packed.tobytes() == pad32["packed"].tobytes()
+    for field in ("bind_requests", "evictions", "move_bind_requests"):
+        assert [dataclasses.asdict(b) for b in getattr(got, field)] == \
+            [dataclasses.asdict(b) for b in getattr(want, field)], field
 
 
 def test_dra_and_deletion_catalogs_run_on_the_port():

@@ -398,8 +398,9 @@ def test_solve_for_preemptor_bit_equal(solved):
      extra_dev2, qa2, qan2, ext2, ext_extra2) = want
     assert bool(success), "the case must exercise a successful scenario"
     assert got is not None
-    (g_victims, g_nodes, g_pipe, g_moves, g_free, g_dev, g_extra,
+    (g_victims, g_nodes, g_dev_t, g_pipe, g_moves, g_free, g_dev, g_extra,
      g_extra_dev, g_qa, g_qan, g_ext, g_ext_extra) = got
+    assert g_dev_t is None      # the uniform path places no devices
     if g_moves is None:
         g_moves = torch.full((c.port.running.m,), -1, dtype=torch.int32)
     assert np.all(np.asarray(dev_t) == -1)
@@ -517,10 +518,12 @@ def test_reclaim_without_chunking_is_sequential_at_any_batch_size():
 
 
 def test_unported_placement_raises():
+    """Subgroup and required topology stay refused by name (the per-task
+    path and the device table run since the victim actions ported them)."""
     c = case("two_queue")
     cfg = dataclasses.replace(c.config, placement=dataclasses.replace(
-        c.config.placement, uniform_tasks=False))
-    with pytest.raises(NotImplementedError, match="uniform_tasks"):
+        c.config.placement, uniform_tasks=False, subgroup_topology=True))
+    with pytest.raises(NotImplementedError, match="subgroup_topology"):
         V.run_victim_action(c.port, c.port.queues.fair_share,
                             init_result(c.port), num_levels=c.num_levels,
                             mode="consolidate", config=cfg)
