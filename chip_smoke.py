@@ -97,12 +97,23 @@ mismatch:
      shares, preempt the over-quota leaves' urgent fractions — every
      action must have worked, fractions placed on devices; its CPU oracle
      runs in the oracle process and is compared at the end;
+   - *mig_reclaim* at the default config (``MIG_RECLAIM``): 10,000 nodes x
+     8 H100 under the mixed MIG strategy (7 x 1g.10gb, 3 x 2g.20gb or
+     2 x 3g.40gb a GPU, or whole GPUs: E = 3), 80 % held by two
+     over-quota leaves, the free slices stranded behind taken CPU;
+     allocate's per-task chunks place what fits idle (K9 and K10
+     extended), consolidation moves 3g victims into a tainted pool (K9's
+     extended legacy mode, K7 with E = 3), reclaim's dense wavefront (K8's
+     extended table, K9's extended lanes mode) and preempt the rest, the
+     stale pass evicts (K6's [N, E] table) — every action must have
+     worked; its CPU oracle runs in the oracle process;
    the packed commit, BindRequests, evictions (pod, move target) and
    move rebinds must equal the CPU oracle's; then K5-K8 and the victim
    modes of K2-K4 (per-lane pools, per-lane queue tables and score bias,
-   the freed credit), K8's device mode and K9's lanes and legacy modes
-   are held against their plain versions on the captured inputs and
-   timed;
+   the freed credit), K8's device and extended modes, K9's lanes, legacy
+   and extended modes and K10's extended mode (with mig_reclaim's K6 and
+   K7 calls) are held against their plain versions on the captured
+   inputs and timed;
 8. runs the four affinity cells (in-cycle affinity terms: cross-gang
    required anti-affinity, anchors with dependers, shared host ports) the
    same way — a profiled warm-up with the inputs captured, timed runs on
@@ -174,12 +185,12 @@ mismatch:
    and last ``{"ok":
    true, "device": {...}}``.
 
-The CPU oracles of the sharing, affinity and sharing_reclaim cells (the
-slowest) run in one spawned child process beside the card's work, on half
-the cores, and
-resident_churn's in a second one on a quarter of them, all submitted
-when the script starts; each cell is compared with its oracle when the result
-arrives (sharing after the last cell).  The log also goes, line by line,
+The CPU oracles of the sharing and affinity cells (the slowest) run in
+one spawned child process beside the card's work, on half the cores, and
+resident_churn's, then sharing_reclaim's and mig_reclaim's, in a second
+one on a quarter of them, all submitted when the script starts; each cell
+is compared with its oracle when the result arrives (sharing after the
+last cell).  The log also goes, line by line,
 to ``chiprun_out/chip_smoke.log``.  Longer output
 (the compiler's register/spill report, per-phase numbers) goes to
 ``chiprun_out/chip_smoke.json``, and the first captured call of every
@@ -604,7 +615,8 @@ VICTIM_CELLS = {"saturated": ("saturated", None),
                 "saturated_sequential": ("saturated", 1),
                 "preempt_many_queues": ("preempt_many_queues", None),
                 "fragmented": ("fragmented", None),
-                "sharing_reclaim": ("sharing_reclaim", None)}
+                "sharing_reclaim": ("sharing_reclaim", None),
+                "mig_reclaim": ("mig_reclaim", None)}
 #: the sequential cell's depth cut: reclaim attempts at most this many
 #: preemptors per queue (the cell's 1,250 pending gangs wait in two
 #: queues), about a tenth of the full run's steps, so that the script
@@ -632,6 +644,14 @@ VICTIM_KEEP = {
                         "pertask_fill:lanes": (0, 1, 2, 30),
                         "pertask_fill": (0, 5, 40),
                         "replace_victims": (0, 5, 40)},
+    # allocate's per-task chunks and consolidation's one-lane legacy fills
+    # (K9 through the solver) share the allocate module's K9 site
+    "mig_reclaim": {"freed_by_lane": (0, 1, 2, 20),
+                    "pertask_fill:lanes": (0, 1, 2, 20),
+                    "pertask_fill": (0, 1, 2, 6, 10, 14, 18, 22),
+                    "dense_accept": (0, 1, 2),
+                    "freed_by_mask": (0, 1, 5, 30),
+                    "replace_victims": (0, 5, 20)},
 }
 #: the kernels each victim cell must launch
 VICTIM_NEED = {
@@ -649,6 +669,12 @@ VICTIM_NEED = {
                         "freed_by_lane:devices", "pertask_fill",
                         "pertask_fill:lanes", "pertask_fill:legacy",
                         "cluster_analytics"),
+    "mig_reclaim": ("drf_water_fill", "cumsum_ds", "freed_by_mask",
+                    "replace_victims", "freed_by_lane",
+                    "freed_by_lane:extended", "pertask_fill",
+                    "pertask_fill:extended", "pertask_fill:lanes",
+                    "pertask_fill:legacy", "dense_accept",
+                    "dense_accept:extended", "cluster_analytics"),
 }
 #: the sharing_reclaim cell (the victim actions on the per-task path with
 #: the device share table): ``state.fleets.sharing_reclaim_objects`` —
@@ -664,9 +690,31 @@ VICTIM_NEED = {
 #: (+ 16 urgent) gangs so that the cell's CPU oracle (consolidation's
 #: linear walk, the wavefront's dense [B, N, D] accept and the plain K9 at
 #: 10,000 nodes, step by step) stays a small part of the script's time:
-#: 43 s in the oracle process on the H100 machine's host
+#: 43-46 s in an oracle process on the H100 machine's host
 SHARING_RECLAIM = dict(num_nodes=10_000, training=8, fractions=48, memory=24,
                        urgent=16)
+#: the mig_reclaim cell (MIG and other extended scalar resources through
+#: allocate and the four victim actions): ``state.fleets.
+#: mig_reclaim_objects`` — 10,000 nodes x 8 H100 80GB under the NVIDIA
+#: device plugin's ``mixed`` MIG strategy (30 % of the nodes split every
+#: GPU into 7 x 1g.10gb, 30 % into 3 x 2g.20gb, 10 % into 2 x 3g.40gb, 30 %
+#: keep 8 whole GPUs: E = 3), two departments of two leaves; 80 % of the
+#: slices and whole GPUs held by the first two leaves (one-slice inference
+#: gangs whose CPU strands the free slices, training gangs of 8), a
+#: tainted pool of 2 %, 16 running gangs stale below their quorum.
+#: Pending in the other two leaves: one-slice inference gangs (1g : 2g :
+#: 3g = 4 : 2 : 1, non-preemptible), 3g pairs and training gangs of 8
+#: (preemptible), plus urgent 1g slices of the first two leaves at
+#: priority 2.  Allocate places what fits idle (the whole nodes left, a few
+#: roomy MIG nodes: K9 and K10 extended), consolidation moves 3g victims
+#: into the pool (K7), reclaim's dense wavefront (K8's extended table,
+#: K9's extended lanes mode) and preempt the rest, the stale pass evicts
+#: (K6's [N, E] table).  The backlog is cut to 176 + 16 + 16 (+ 8 urgent)
+#: gangs so that the cell's CPU oracle takes about a minute (54 s on a
+#: 4-thread CPU run of the port, 46 s in an oracle process on the H100
+#: machine's host)
+MIG_RECLAIM = dict(num_nodes=10_000, inference=176, pairs=16, training=16,
+                   urgent=8, stale=16)
 
 
 #: the GPU-sharing cell at full size: 10,000 nodes x 8 devices of 80 GiB,
@@ -680,8 +728,10 @@ SHARING_FULL = dict(training=2_500, fractions=16_000, memory=8_000,
 #: wavefront accepts about two lanes a chunk on this fleet (binpack sends
 #: every lane of a type to the same fullest node), so the full backlog is
 #: thousands of chunks, and the CPU oracle's plain versions take a large
-#: fraction of a second a chunk at 10,000 nodes x 256 lanes
-SHARING_CUT = 25
+#: fraction of a second a chunk at 10,000 nodes x 256 lanes (25 until the
+#: oracle process that holds the sharing and affinity oracles set the
+#: script's time: 952-956 s of oracles, 1,042-1,086 s in all)
+SHARING_CUT = 50
 SHARING = dict(num_nodes=10_000, shared_nodes=5_000,
                **{k: v // SHARING_CUT for k, v in SHARING_FULL.items()})
 SHARING_RUNS = 3
@@ -813,7 +863,8 @@ REPACK_KEEP = {"cluster_analytics": (2,), "repack_fill": (0,),
 #: the cells with a profiled run (each kernel's in-cycle device time)
 PROFILED_CELLS = ("sharing", "topology", "topology_subgroups", "saturated",
                   "saturated_sequential", "preempt_many_queues",
-                  "fragmented", "sharing_reclaim", *AFFINITY_CELLS,
+                  "fragmented", "sharing_reclaim", "mig_reclaim",
+                  *AFFINITY_CELLS,
                   "repack_racks", "resident_churn")
 
 
@@ -2273,6 +2324,13 @@ def victim_cluster(cell: str):
     from kai_scheduler_tpu_torch.state import make_cluster
     from kai_scheduler_tpu_torch.state.fleets import fragmented_objects
     kind = VICTIM_CELLS[cell][0]
+    if kind == "mig_reclaim":
+        from kai_scheduler_tpu_torch.state.fleets import mig_reclaim_objects
+        nodes, queues, groups, pods, now = mig_reclaim_objects(
+            apis, **MIG_RECLAIM)
+        cluster = Cluster.from_objects(nodes, queues, groups, pods)
+        cluster.now = now
+        return cluster
     if kind == "sharing_reclaim":
         from kai_scheduler_tpu_torch.state.fleets import \
             sharing_reclaim_objects
@@ -2332,7 +2390,27 @@ def check_victim_cycle(cell: str, gpu, cpu, cluster, counts: dict) -> dict:
     stale_names = {f"run-{i}-0" for i in range(FRAGMENTED["stale"])}
     stale_ev = [e for e in res.evictions if e.group in stale_names]
     need = VICTIM_NEED[cell]
-    if cell == "sharing_reclaim":
+    if cell == "mig_reclaim":
+        # every action did work: allocate bound slices, consolidation moved
+        # MIG victims, reclaim and preempt pipelined, the stale pass evicted
+        steps = {k: v.steps for k, v in res.victim_stats.items()}
+        stale_ev = [e for e in res.evictions
+                    if cluster.pod_groups[e.group].stale_since is not None]
+        mig_binds = [b for b in res.bind_requests
+                     if cluster.pods[b.pod_name].extended]
+        if not moved or pipelined <= 0 or not stale_ev or not mig_binds \
+                or min(steps.get(a, 0) for a in (
+                    "consolidation", "reclaim", "preempt")) <= 0:
+            raise AssertionError(
+                f"{cell}: {len(moved)} moves, {pipelined} pipelined tasks, "
+                f"{len(stale_ev)} stale evictions, {len(mig_binds)} MIG "
+                f"binds, steps {steps}")
+        for e in moved:
+            br = cluster.bind_requests.get(e.pod_name)
+            if br is None or br.selected_node != e.move_to:
+                raise AssertionError(f"{cell}: moved victim {e.pod_name} "
+                                     f"not rebound on {e.move_to}")
+    elif cell == "sharing_reclaim":
         # every action did work: consolidation moved victims, reclaim and
         # preempt placed fractions on devices
         steps = {k: v.steps for k, v in res.victim_stats.items()}
@@ -2716,6 +2794,145 @@ def pertask_lane_kernel_checks(cap: Capture) -> dict:
     return out
 
 
+def mig_kernel_checks(cap: Capture) -> dict:
+    """The extended modes on the inputs captured from the mig_reclaim
+    cell vs their plain versions (tolerance 0): K9's (allocate's per-task
+    lanes, the victim wavefront's lanes with per-lane extended credit, the
+    solver's legacy attempt), K10's and K8's (its extended table; on CPU
+    copies, as K8's other modes); kernel and plain times on the card and
+    the bound — each mode's function bytes plus the [N, E], [B, N, E] and
+    [B, T, E] tensors it reads or writes, once.  K6's and K7's calls of
+    this cell (the victims' [N, E] extended rows; the MIG victims'
+    re-placement against the extended pools) are held too."""
+    from kai_scheduler_tpu_torch.ops import allocate as A
+    from kai_scheduler_tpu_torch.ops import victims as V
+    out = {}
+
+    def k9(key, recs, name):
+        errs = [_max_abs_err(cap._orig[key](*a, **k).fields(),
+                             A.pertask_fill_plain(*a, **k).fields())
+                for a, k in recs]
+        args, kw = max(recs, key=lambda rc: rc[0][3].shape[0])
+        KERNEL_INPUTS[name] = (args, kw)
+        nodes, tt, cand, prior, free, dev, qa, qan, extra, extra_dev = \
+            args[:10]
+        B, T = prior.shape
+        N, D = dev.shape
+        Q = qa.shape[-2]
+        E = kw["ext"].shape[1]
+        steps = int((A.pertask_fill_plain(*args, **kw).nodes_t >= 0).sum())
+        ms = _time_ms(lambda: cap._orig[key](*args, **kw))
+        plain_ms = _time_ms(lambda: A.pertask_fill_plain(*args, **kw), 5)
+        b, by = k9_bound(nodes, prior, Q, D, steps,
+                         (extra, extra_dev, kw["ext"], kw["ext_extra"],
+                          nodes.extended_releasing),
+                         _nbytes(qa, kw.get("score_bias"))
+                         + 3 * B * T * E * 4 + E * 4)
+        return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                    bound_ms=b, bound_by=by, checked=len(errs),
+                    nearest_library_ms=None, nearest_library=None,
+                    shape=f"B={B} T={T} N={N} D={D} E={E} Q={Q} placed "
+                          f"steps={steps}")
+    ext_calls = [rc for rc in cap.calls.get("pertask_fill", [])
+                 if rc[1].get("ext") is not None]
+    row = k9("pertask_fill", [rc for rc in ext_calls
+                              if not rc[1].get("legacy")],
+             "pertask_fill:extended")
+    row["victim_lanes"] = k9("pertask_fill:lanes",
+                             cap.calls["pertask_fill:lanes"],
+                             "pertask_fill:lanes_extended")
+    row["legacy"] = k9("pertask_fill", [rc for rc in ext_calls
+                                        if rc[1].get("legacy")],
+                       "pertask_fill:legacy_extended")
+    out["pertask_fill:extended"] = row
+
+    # K10 with the extended columns: the live entries' rows (R + D + E
+    # each, with their bind-now rows), the pools at their nodes and the
+    # zero claim's whole pools and floors, the queue deltas, once each
+    recs = [rc for rc in cap.calls["dense_accept"]
+            if rc[1].get("ext") is not None]
+    errs = [_max_abs_err(cap._orig["dense_accept"](*a, **k),
+                         A.dense_accept_plain(*a, **k)) for a, k in recs]
+    args, kw = max(recs, key=lambda rc: int(rc[0][1].sum()))
+    KERNEL_INPUTS["dense_accept:extended"] = (args, kw)
+    ms = _time_ms(lambda: cap._orig["dense_accept"](*args, **kw))
+    plain_ms = _time_ms(lambda: A.dense_accept_plain(*args, **kw), 5)
+    nodes_b, ok = args[0], args[1]
+    B, T = nodes_b.shape
+    free, dev = args[7], args[8]
+    E = kw["ext"].shape[1]
+    D = dev.shape[1] if kw["track_devices"] else 0
+    live = int(((nodes_b >= 0) & ok[:, None]).sum())
+    C = 3 + D + E
+    nb = (_nbytes(nodes_b, ok, args[2], args[11], args[12], args[13],
+                  args[14]) + live * 2 * C * 4 + 2 * free.numel() * 4
+          + 2 * (dev.numel() if D else 0) * 4 + 3 * kw["ext"].numel() * 4)
+    b, by = bound(nb, live * C * 6 + free.numel() * 3)
+    out["dense_accept:extended"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, checked=len(errs), nearest_library_ms=None,
+        nearest_library=None, shape=f"B={B} T={T} E={E} live={live}")
+
+    # K8's extended table (on CPU copies): as lane_kernel_checks' K8 with
+    # the device table, plus each live pod's [E] row read once, the
+    # [B, N, E] table written once (and composed in place)
+    recs = [(a, {k: v for k, v in kw.items()
+                 if k in ("compose", "devices", "extended")})
+            for a, kw in cap.calls["freed_by_lane"]]
+    errs = []
+    for (state, lane, B, chain), kw in recs:
+        got = cap._orig["freed_by_lane"](state, lane, B, chain, **kw)
+        want = V.freed_by_lane_plain(_cpu_state(state), lane.cpu(), B,
+                                     chain.cpu(), **kw)
+        errs.append(_max_abs_err(_to_cpu(got), want))
+    (state, lane, B, chain), kw = max(
+        recs, key=lambda rc: int((rc[0][1] < rc[0][2]).sum()))
+    KERNEL_INPUTS["freed_by_lane:extended"] = ((state, lane, B, chain), kw)
+    pods = V.PodIndex.of(state)
+    ms = _time_ms(lambda: V.freed_by_lane(state, lane, B, chain, pods=pods,
+                                          **kw))
+    plain_ms = _time_ms(lambda: V.freed_by_lane_plain(state, lane, B, chain,
+                                                      **kw), 5)
+    r, n, q = state.running, state.nodes, state.queues
+    M, N, Q = r.m, n.n, q.q
+    D = n.d if kw.get("devices") else 0
+    E = r.extended.shape[1]
+    n_live = int((lane < B).sum())
+    nbytes = (M * 4 + n_live * (12 + 4 * E + (12 if D else 0))
+              + (N + 1 + M + Q + 1 + M) * 4 + Q * Q
+              + B * N * (12 + 4 * D + 4 * E) + B * Q * 12 + B * N)
+    ops = (6 * n_live + E * n_live
+           + (B * (N * (3 + D + E) + 3 * Q) if kw["compose"] else 0)
+           + 2 * B * N + 3 * B * int(chain.sum()))
+    b, by = bound(nbytes, ops)
+    out["freed_by_lane:extended"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
+        bound_by=by, checked=len(errs), nearest_library_ms=None,
+        nearest_library=None,
+        shape=f"B={B} N={N} E={E} D={D} Q={Q} M={M} live={n_live} "
+              f"compose={kw['compose']}")
+
+    # K6 and K7 on this cell's calls (the victims' extended rows)
+    k67 = {}
+    for key in ("freed_by_mask", "replace_victims"):
+        errs = []
+        for args, kw in cap.calls.get(key, []):
+            got = cap._orig[key](*args, **kw)
+            cst = _cpu_state(args[0])
+            want = (V.freed_by_mask_plain(
+                cst, args[1].cpu(), args[2].cpu(),
+                queues_only=kw.get("queues_only", False))
+                if key == "freed_by_mask" else
+                V.replace_victims_plain(cst, *_to_cpu(args[1:]), **kw))
+            errs.append(_max_abs_err(_to_cpu(got), want))
+        k67[key] = dict(checked=len(errs), max_abs_err=max(errs),
+                        extended_rows=int(sum(
+                            bool((a[0].running.extended[a[1]] > 0).any())
+                            for a, _ in cap.calls.get(key, []))))
+    out["freed_by_lane:extended"]["k6_k7"] = k67
+    return out
+
+
 def _oracle_process_init() -> None:
     # half the cores: the card's host-bound cycles run beside it
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
@@ -2739,8 +2956,8 @@ def main() -> int:
     # slowest CPU oracles beside the card's work: one the affinity and
     # sharing cells', in the order the card needs them, the other
     # resident_churn's, whose cold cycle alone (25,000 pods placed in
-    # ~2,400 allocate chunks) takes some 400 s on the CPU; both are
-    # stopped on any exit
+    # ~2,400 allocate chunks) takes some 400 s on the CPU, then the two
+    # per-task victim cells'; both are stopped on any exit
     spawn = multiprocessing.get_context("spawn")
     pools = [concurrent.futures.ProcessPoolExecutor(
         max_workers=1, mp_context=spawn, initializer=init)
@@ -2750,8 +2967,11 @@ def main() -> int:
         oracles.update({cell: pools[0].submit(run_affinity_cycle, cell, "cpu")
                         for cell in AFFINITY_CELLS})
         oracles["sharing"] = pools[0].submit(run_sharing_cycle, "cpu")
-        oracles["sharing_reclaim"] = pools[0].submit(
-            run_victim_cycle, "sharing_reclaim", "cpu")
+        # the two victim cells' oracles (~46 s each) follow
+        # resident_churn's (~610 s) in the second process: the first one's
+        # affinity and sharing oracles (~860 s) set the script's time
+        for cell in ("sharing_reclaim", "mig_reclaim"):
+            oracles[cell] = pools[1].submit(run_victim_cycle, cell, "cpu")
         return run(oracles)
     finally:
         for pool in pools:
@@ -2957,6 +3177,9 @@ def run(oracles: dict) -> int:
     sr_checks = pertask_lane_kernel_checks(caps["sharing_reclaim"])
     sr_checks["freed_by_lane:devices"] = lane_checks.pop(
         "freed_by_lane:devices")
+    sr_checks.update(mig_kernel_checks(caps["mig_reclaim"]))
+    log(f"mig_reclaim: K6 and K7 on its calls == plain "
+        f"{sr_checks['freed_by_lane:extended']['k6_k7']}")
     del caps
     log(f"victim kernels checked; elapsed {time.perf_counter() - t_start:.0f}"
         f" s")
@@ -3194,7 +3417,10 @@ def run(oracles: dict) -> int:
                  "freed_by_mask:queues_only": "resident_churn",
                  "freed_by_lane:devices": "sharing_reclaim",
                  "pertask_fill:lanes": "sharing_reclaim",
-                 "pertask_fill:legacy": "sharing_reclaim"}
+                 "pertask_fill:legacy": "sharing_reclaim",
+                 "freed_by_lane:extended": "mig_reclaim",
+                 "pertask_fill:extended": "mig_reclaim",
+                 "dense_accept:extended": "mig_reclaim"}
 
     #: each mode's launches, counted by its wrapper at the launch in the
     #: last timed run of its cell (config 4 prefers no level: K3's

@@ -5,7 +5,11 @@
 // test on the node, bind-now, device and device bind-now pools, the
 // reference's `jnp.cumsum(axis=0)` over [B, N, R] and [B, N, D] lane deltas)
 // and the commit :1779-1795 (`free - einsum(w, d_free)`, the same for the
-// device pool, `qa + einsum(w, d_qa)` and `qan`).
+// device pool, `qa + einsum(w, d_qa)` and `qan`).  The extended mode (E > 0;
+// ref :1756-1767, :1794-1795) holds the extended pool [N, E] the same way,
+// against its floor -(extended_releasing + extended_releasing_extra) - EPS,
+// from K9's extended rows: E more columns on the same entries, after the
+// device columns.
 //
 // The lanes' claims come as K9's (or K3's) rows: for each lane, the final
 // pools of the nodes it placed on.  Lane b's delta at node n is
@@ -54,6 +58,7 @@
 #define DA_THREADS 512
 #define DA_WARPS (DA_THREADS / 32)
 #define DA_MAXD 32
+#define DA_MAXE 8
 #define DA_MAXB 256
 #define DA_BLOCK 16  // XLA:CPU's cumsum block
 #define DA_NBLK (DA_MAXB / DA_BLOCK)
@@ -63,8 +68,9 @@
 
 __global__ void __launch_bounds__(256) da_zero_kernel(
     const float* __restrict__ free_, const float* __restrict__ dev,
-    const float* __restrict__ rel_floor, const float* __restrict__ dev_floor,
-    int N, int D, int track, int* __restrict__ first_bad) {
+    const float* __restrict__ ext, const float* __restrict__ rel_floor,
+    const float* __restrict__ dev_floor, const float* __restrict__ ext_floor,
+    int N, int D, int E, int track, int* __restrict__ first_bad) {
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
   bool bad = false;
@@ -73,6 +79,8 @@ __global__ void __launch_bounds__(256) da_zero_kernel(
   if (track)
     for (size_t i = gid; i < (size_t)N * D; i += stride)
       bad = bad || !(dev[i] >= dev_floor[i]);
+  for (size_t i = gid; i < (size_t)N * E; i += stride)
+    bad = bad || !(ext[i] >= ext_floor[i]);
   if (bad) atomicMin(first_bad, 0);
 }
 
@@ -83,20 +91,40 @@ __device__ __forceinline__ int da_entry(unsigned long long k) {
   return (int)(k & 0xffffffffull);
 }
 
-// the column `col` of an entry's delta (pool - row) and bind-now row
+// the columns: the node pool's 3, then the device pool's D (with the device
+// table), then the extended pool's E — an entry's row and bind-now row, a
+// node's pool and floor
 struct DaCols {
   const float* free_rows;
   const float* dev_rows;
+  const float* ext_rows;
   const float* bind_rows;
   const float* devbind_rows;
-  int D;
+  const float* extbind_rows;
+  const float* free_;
+  const float* dev;
+  const float* ext;
+  const float* rel_floor;
+  const float* dev_floor;
+  const float* ext_floor;
+  int D, E;  // D is 0 without the device table
+  __device__ __forceinline__ float at(const float* a, const float* b,
+                                      const float* c, size_t i, int col) const {
+    return col < 3       ? a[i * 3 + col]
+           : col < 3 + D ? b[i * D + col - 3]
+                         : c[i * E + col - 3 - D];
+  }
   __device__ __forceinline__ float row(int e, int col) const {
-    return col < 3 ? free_rows[(size_t)e * 3 + col]
-                   : dev_rows[(size_t)e * D + col - 3];
+    return at(free_rows, dev_rows, ext_rows, e, col);
   }
   __device__ __forceinline__ float bind(int e, int col) const {
-    return col < 3 ? bind_rows[(size_t)e * 3 + col]
-                   : devbind_rows[(size_t)e * D + col - 3];
+    return at(bind_rows, devbind_rows, extbind_rows, e, col);
+  }
+  __device__ __forceinline__ float pool(int n, int col) const {
+    return at(free_, dev, ext, n, col);
+  }
+  __device__ __forceinline__ float floor(int n, int col) const {
+    return at(rel_floor, dev_floor, ext_floor, n, col);
   }
 };
 
@@ -158,9 +186,7 @@ __device__ int da_check_serial(const unsigned long long* keys, int st,
 // earlier blocks' totals added in ascending order by shuffles, then each
 // of its lanes' claims tested
 __device__ int da_check_warp(const unsigned long long* keys, int st, int en,
-                             int n, int T, int C, int D, const float* free_,
-                             const float* dev, const float* rel_floor,
-                             const float* dev_floor, const DaCols& cols,
+                             int n, int T, int C, const DaCols& cols,
                              int* s_bound, int* s_blk, int lane_w) {
   const unsigned lt_mask = (1u << lane_w) - 1u;
   if (lane_w <= DA_NBLK)
@@ -185,10 +211,8 @@ __device__ int da_check_warp(const unsigned long long* keys, int st, int en,
     if (act) {
       lo = s_bound[s_blk[r]];
       hi = s_bound[s_blk[r] + 1];
-      pool = col < 3 ? free_[(size_t)n * 3 + col]
-                     : dev[(size_t)n * D + col - 3];
-      floor = col < 3 ? rel_floor[(size_t)n * 3 + col]
-                      : dev_floor[(size_t)n * D + col - 3];
+      pool = cols.pool(n, col);
+      floor = cols.floor(n, col);
     }
     float dv[DA_BLOCK], bv[DA_BLOCK];
     float tot_f = 0.0f, tot_b = 0.0f;
@@ -242,9 +266,12 @@ __global__ void __launch_bounds__(DA_THREADS) da_accept_kernel(
     const float* __restrict__ dev, const float* __restrict__ rel_floor,
     const float* __restrict__ dev_floor, const float* __restrict__ d_qa,
     const float* __restrict__ d_qan, const float* __restrict__ qa,
-    const float* __restrict__ qan, int B, int T, int D, int Q, int track,
-    int P, const int* __restrict__ first_bad, u8* __restrict__ take,
-    float* __restrict__ free2, float* __restrict__ dev2,
+    const float* __restrict__ qan, const float* __restrict__ ext_rows,
+    const float* __restrict__ extbind_rows, const float* __restrict__ ext,
+    const float* __restrict__ ext_floor, int B, int T, int D, int E, int Q,
+    int track, int P, const int* __restrict__ first_bad,
+    u8* __restrict__ take, float* __restrict__ free2,
+    float* __restrict__ dev2, float* __restrict__ ext2,
     float* __restrict__ qa2, float* __restrict__ qan2,
     unsigned long long* __restrict__ scratch_g) {
   // the keys [P] then the runs [P] (start << 8 | min(length, 255)): short
@@ -258,7 +285,7 @@ __global__ void __launch_bounds__(DA_THREADS) da_accept_kernel(
   int* runs = reinterpret_cast<int*>(keys + P);
   const int tid = threadIdx.x, lane_w = tid & 31, warp = tid >> 5;
   const unsigned lt_mask = (1u << lane_w) - 1u;
-  const int E = B * T;
+  const int n_ent = B * T;
   if (tid == 0) {
     s_m = s_nshort = s_nlong = 0;
     s_fb = INT_MAX;
@@ -267,11 +294,11 @@ __global__ void __launch_bounds__(DA_THREADS) da_accept_kernel(
 
   // a. the live entries — a successful lane's first slot at each node —
   // in any order (one atomic a warp), then sorted by (node, entry)
-  for (int e0 = 0; e0 < E; e0 += DA_THREADS) {
+  for (int e0 = 0; e0 < n_ent; e0 += DA_THREADS) {
     const int e = e0 + tid;
     bool live = false;
     int n = -1;
-    if (e < E) {
+    if (e < n_ent) {
       const int b = e / T;
       n = nodes_b[e];
       live = ok[b] && n >= 0;
@@ -335,25 +362,23 @@ __global__ void __launch_bounds__(DA_THREADS) da_accept_kernel(
 
   // c. each run's first failing lane: the short runs one thread a (run,
   // column), the long runs one warp a run
-  DaCols cols{free_rows, dev_rows, bind_rows, devbind_rows, D};
-  const int C = 3 + (track ? D : 0);
+  const int Dt = track ? D : 0;
+  DaCols cols{free_rows, dev_rows,  ext_rows,  bind_rows, devbind_rows,
+              extbind_rows, free_,  dev,       ext,       rel_floor,
+              dev_floor,    ext_floor, Dt,     E};
+  const int C = 3 + Dt + E;
   int run_bad = INT_MAX;
   for (int i = tid; i < nshort * C; i += DA_THREADS) {
     const int rr = runs[i / C], col = i % C;
     const int st = rr >> 8, n = da_node(keys[st]);
-    const bool nodecol = col < 3;
-    const float pool = nodecol ? free_[(size_t)n * 3 + col]
-                               : dev[(size_t)n * D + col - 3];
-    const float floor = nodecol ? rel_floor[(size_t)n * 3 + col]
-                                : dev_floor[(size_t)n * D + col - 3];
     run_bad = min(run_bad, da_check_serial(keys, st, st + (rr & 255), T,
-                                           col, pool, floor, cols));
+                                           col, cols.pool(n, col),
+                                           cols.floor(n, col), cols));
   }
   for (int i = warp; i < nlong; i += DA_WARPS) {
     const int st = runs[P - 1 - i] >> 8, n = da_node(keys[st]);
     const int en = da_run_end(keys, st, M, n, lane_w);
-    run_bad = min(run_bad, da_check_warp(keys, st, en, n, T, C, D, free_,
-                                         dev, rel_floor, dev_floor, cols,
+    run_bad = min(run_bad, da_check_warp(keys, st, en, n, T, C, cols,
                                          s_bound[warp], s_blk[warp], lane_w));
   }
   for (int off = 16; off > 0; off >>= 1)
@@ -387,9 +412,7 @@ __global__ void __launch_bounds__(DA_THREADS) da_accept_kernel(
     const int ri = i / C, col = i % C;
     const int st = (ri < nshort ? runs[ri] : runs[P - 1 - (ri - nshort)]) >> 8;
     const int n = da_node(keys[st]);
-    const bool nodecol = col < 3;
-    const float pool = nodecol ? free_[(size_t)n * 3 + col]
-                               : dev[(size_t)n * D + col - 3];
+    const float pool = cols.pool(n, col);
     float sum = 0.0f;
     bool any = false;
     for (int q = st; q < M && da_node(keys[q]) == n; ++q) {
@@ -400,10 +423,13 @@ __global__ void __launch_bounds__(DA_THREADS) da_accept_kernel(
       any = true;
     }
     if (any) {
-      if (nodecol)
-        free2[(size_t)n * 3 + col] = __fsub_rn(pool, sum);
+      const float v = __fsub_rn(pool, sum);
+      if (col < 3)
+        free2[(size_t)n * 3 + col] = v;
+      else if (col < 3 + Dt)
+        dev2[(size_t)n * D + col - 3] = v;
       else
-        dev2[(size_t)n * D + col - 3] = __fsub_rn(pool, sum);
+        ext2[(size_t)n * E + col - 3 - Dt] = v;
     }
   }
   __syncthreads();
@@ -425,12 +451,16 @@ KAI_EXPORT int kai_dense_accept(
     const float* free_rows, const float* dev_rows, const float* bind_rows,
     const float* devbind_rows, const float* free_, const float* dev,
     const float* rel_floor, const float* dev_floor, const float* d_qa,
-    const float* d_qan, const float* qa, const float* qan, int B, int T,
-    int N, int D, int Q, int track, int* first_bad, u8* take, float* free2,
-    float* dev2, float* qa2, float* qan2, unsigned long long* keys_scratch,
+    const float* d_qan, const float* qa, const float* qan,
+    const float* ext_rows, const float* extbind_rows, const float* ext,
+    const float* ext_floor, int B, int T, int N, int D, int E, int Q,
+    int track, int* first_bad, u8* take, float* free2, float* dev2,
+    float* ext2, float* qa2, float* qan2, unsigned long long* keys_scratch,
     cudaStream_t stream) {
   if (B < 1 || B > DA_MAXB || T < 1 || N < 1 || D < 0 || D > DA_MAXD ||
-      Q < 1)
+      Q < 1 || E < 0 || E > DA_MAXE)
+    return KAI_ERR_ARGS;
+  if (E > 0 && !(ext_rows && extbind_rows && ext && ext_floor && ext2))
     return KAI_ERR_ARGS;
   size_t P = 1;
   while (P < (size_t)B * T) P <<= 1;
@@ -445,17 +475,17 @@ KAI_EXPORT int kai_dense_accept(
       da_accept_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (ea != cudaSuccess) return static_cast<int>(ea);
-  const size_t work = (size_t)N * (3 + (track ? D : 0));
+  const size_t work = (size_t)N * (3 + (track ? D : 0) + E);
   const int zblocks = work > 256 * 1024 ? 1024 : (int)((work + 255) / 256);
-  da_zero_kernel<<<zblocks, 256, 0, stream>>>(free_, dev, rel_floor,
-                                              dev_floor, N, D, track,
-                                              first_bad);
+  da_zero_kernel<<<zblocks, 256, 0, stream>>>(free_, dev, ext, rel_floor,
+                                              dev_floor, ext_floor, N, D, E,
+                                              track, first_bad);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   da_accept_kernel<<<1, DA_THREADS, smem, stream>>>(
       nodes_b, ok, gate_ok, free_rows, dev_rows, bind_rows, devbind_rows,
-      free_, dev, rel_floor, dev_floor, d_qa, d_qan, qa, qan, B, T, D, Q,
-      track, (int)P, first_bad, take, free2, dev2, qa2, qan2,
-      in_smem ? nullptr : keys_scratch);
+      free_, dev, rel_floor, dev_floor, d_qa, d_qan, qa, qan, ext_rows,
+      extbind_rows, ext, ext_floor, B, T, D, E, Q, track, (int)P, first_bad,
+      take, free2, dev2, ext2, qa2, qan2, in_smem ? nullptr : keys_scratch);
   return static_cast<int>(cudaGetLastError());
 }

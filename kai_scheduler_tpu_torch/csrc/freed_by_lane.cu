@@ -12,8 +12,10 @@
 // pods) the device table [B, N, D] too: the reference's two segment sums
 // (:776-791), the fractional pods' accel_held at (lane, node, device), then
 // plus one per devices_mask bit of the whole-device pods at (lane, node),
-// lane-prefix composed as the node table is.  The extended (MIG) table is
-// not built: the port refuses `extended=True`.
+// lane-prefix composed as the node table is.  With `freed_e` (the placement
+// config's extended mode: MIG slices) the extended table [B, N, E] too
+// (:800-805): each live pod's extended row summed at (lane, node), composed
+// likewise.
 //
 // A pod belongs to at most one lane, so the sums can run in the
 // reference's order (ascending pod index from +0.0, XLA's scatter) with no
@@ -26,8 +28,10 @@
 //     own_d[lane, node, device] and a third, at each lane's first
 //     whole-device pod, counts that lane's bits per device over the node's
 //     list and adds the count (a sum of ones: exact, so the reference's
-//     per_d + per_w is per_d + count); then, with compose, the lane prefix
-//     of each of its 3 (+ D) columns in place;
+//     per_d + per_w is per_d + count); with the extended table, a walk
+//     that adds each live pod's E keys into own_e[lane, node, :]; then,
+//     with compose, the lane prefix of each of its 3 (+ D) (+ E) columns in
+//     place;
 //   - queue blocks, one per leaf queue: the queue's pods in chunks of
 //     FL_CHUNK staged in shared memory (lane id, request), then one thread
 //     per (lane, resource) adds the chunk's matching pods in order into the
@@ -40,14 +44,16 @@
 // blocks of 16 summed left to right from +0.0, scans the block totals the
 // same way and adds each block's exclusive prefix (numerics.cumsum_blocked);
 // lanes are limited to FL_MAX_LANES (two levels of totals).
-// Bound: bytes — the live pods' rows once, the [B, N, R], [B, N, D] and
-// [B, Q, R] outputs written (and, with compose, read and written again).
+// Bound: bytes — the live pods' rows once, the [B, N, R], [B, N, D],
+// [B, N, E] and [B, Q, R] outputs written (and, with compose, read and
+// written again).
 #include "kai_common.cuh"
 
 #define FL_THREADS 256
 #define FL_CHUNK 512
 #define FL_MAX_LANES 4096
 #define FL_MAX_D 32
+#define FL_MAX_E 8
 
 // jnp.cumsum order of n <= 256 floats in a local array, in place
 __device__ void fl_scan_local(float* t, int n) {
@@ -100,9 +106,10 @@ __global__ void __launch_bounds__(FL_THREADS) freed_by_lane_kernel(
     const int* __restrict__ node_off, const int* __restrict__ node_pods,
     const int* __restrict__ queue_off, const int* __restrict__ queue_pods,
     const int* __restrict__ device, const float* __restrict__ held,
-    const int* __restrict__ devices_mask, int N, int Q, int B, int D,
-    int compose, float* __restrict__ leaf, float* __restrict__ freed_n,
-    u8* __restrict__ own_incr, float* __restrict__ freed_d) {
+    const int* __restrict__ devices_mask, const float* __restrict__ ext,
+    int N, int Q, int B, int D, int E, int compose, float* __restrict__ leaf,
+    float* __restrict__ freed_n, u8* __restrict__ own_incr,
+    float* __restrict__ freed_d, float* __restrict__ freed_e) {
   const int node_blocks = (N + FL_THREADS - 1) / FL_THREADS;
   const size_t lane_stride_n = (size_t)N * 3;
   if ((int)blockIdx.x < node_blocks) {
@@ -124,6 +131,22 @@ __global__ void __launch_bounds__(FL_THREADS) freed_by_lane_kernel(
     if (compose)
       for (int r = 0; r < 3; ++r)
         fl_scan_blocked(freed_n + (size_t)n * 3 + r, B, lane_stride_n);
+    if (freed_e) {
+      // the extended keys, in ascending pod order per cell
+      const size_t lane_stride_e = (size_t)N * E;
+      float* own_e = freed_e + (size_t)n * E;
+      for (int k = node_off[n]; k < node_off[n + 1]; ++k) {
+        const int m = node_pods[k];
+        const int l = lane[m];
+        if (l < 0 || l >= B) continue;
+        float* o = own_e + (size_t)l * lane_stride_e;
+        for (int e = 0; e < E; ++e)
+          o[e] = __fadd_rn(o[e], ext[(size_t)m * E + e]);
+      }
+      if (compose)
+        for (int e = 0; e < E; ++e)
+          fl_scan_blocked(own_e + e, B, lane_stride_e);
+    }
     if (!freed_d) return;
     const size_t lane_stride_d = (size_t)N * D;
     float* own_d = freed_d + (size_t)n * D;
@@ -209,30 +232,34 @@ __global__ void freed_by_lane_rollup_kernel(const float* __restrict__ leaf,
 
 // `leaf` is a [B, Q, 3] scratch; every output is written in full.  A null
 // `freed_d` builds no device table (`device`, `held`, `devices_mask` may
-// then be null too).
+// then be null too); a null `freed_e` no extended table (`ext` may then be
+// null).
 KAI_EXPORT int kai_freed_by_lane(
     const int* lane, const float* req, const int* node_off,
     const int* node_pods, const int* queue_off, const int* queue_pods,
     const u8* chain, const int* device, const float* held,
-    const int* devices_mask, int N, int R, int Q, int B, int D, int compose,
-    float* leaf, float* freed_n, float* freed_q, u8* own_incr, float* freed_d,
-    cudaStream_t stream) {
+    const int* devices_mask, const float* ext, int N, int R, int Q, int B,
+    int D, int E, int compose, float* leaf, float* freed_n, float* freed_q,
+    u8* own_incr, float* freed_d, float* freed_e, cudaStream_t stream) {
   if (N < 1 || R != 3 || Q < 1 || B < 1 || B > FL_MAX_LANES)
     return KAI_ERR_ARGS;
   if (freed_d && (D < 1 || D > FL_MAX_D || !device || !held || !devices_mask))
     return KAI_ERR_ARGS;
+  if (freed_e && (E < 1 || E > FL_MAX_E || !ext)) return KAI_ERR_ARGS;
   cudaError_t e = cudaMemsetAsync(freed_n, 0, (size_t)B * N * 3 * sizeof(float),
                                   stream);
   if (e == cudaSuccess)
     e = cudaMemsetAsync(leaf, 0, (size_t)B * Q * 3 * sizeof(float), stream);
   if (e == cudaSuccess && freed_d)
     e = cudaMemsetAsync(freed_d, 0, (size_t)B * N * D * sizeof(float), stream);
+  if (e == cudaSuccess && freed_e)
+    e = cudaMemsetAsync(freed_e, 0, (size_t)B * N * E * sizeof(float), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (N + FL_THREADS - 1) / FL_THREADS + Q;
   freed_by_lane_kernel<<<blocks, FL_THREADS, 0, stream>>>(
       lane, req, node_off, node_pods, queue_off, queue_pods, device, held,
-      devices_mask, N, Q, B, freed_d ? D : 0, compose, leaf, freed_n,
-      own_incr, freed_d);
+      devices_mask, ext, N, Q, B, freed_d ? D : 0, freed_e ? E : 0, compose,
+      leaf, freed_n, own_incr, freed_d, freed_e);
   const size_t total = (size_t)B * Q * 3;
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

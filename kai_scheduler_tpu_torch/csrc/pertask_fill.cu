@@ -1,11 +1,11 @@
 // K9 pertask_fill — the per-task placement of every wavefront lane.
 //
 // Replaces kai_scheduler_tpu/ops/allocate.py:517 `_attempt_gang_in_domain`
-// under the allocate chunk's lane vmap (:1699), without the extended branch
-// (the port refuses it): per lane the re-push protocol's subgroup quorum and
-// eligible task set (:619-646), the hoisted queue prefix gates (:670-696),
-// anti-self domains (:586-608), then the T task steps in order, each one
-// pass over the N nodes in global memory and one over shared memory:
+// under the allocate chunk's lane vmap (:1699): per lane the re-push
+// protocol's subgroup quorum and eligible task set (:619-646), the hoisted
+// queue prefix gates (:670-696), anti-self domains (:586-608), then the T
+// task steps in order, each one pass over the N nodes in global memory and
+// one over shared memory:
 //   1. dual feasibility against the lane's LIVE pools (`feasible_nodes_dual`
 //      predicates.py:168 with the device pool check `_accel_pool_ok` :82),
 //      the anti-self mask, the block-wide min/max of the binpack/spread
@@ -80,6 +80,22 @@
 // build reads each lane's slices once (B x N x (3 + D) floats) and writes
 // B x 15 x N.  The subgroup-topology mode takes neither.
 //
+// The extended mode (E > 0: MIG and other extended scalar resources; ref
+// :570-581, :683-688, :713-719, :841-849).  Each task's g-number equivalent
+// gq = task_extended . ext_accel (a dot over E from +0.0, staged per lane)
+// joins its accel request in the queue prefix gates, (req0 + gq) before the
+// cumsum, and in the queue delta.  The node tests compare the extended pool
+// per key in the reference's operand order: idle `ext + EPS >= te`,
+// pipelined `((ext + extended_releasing) + ext_extra) + EPS >= te`.  The
+// prologue writes both left-hand sides into a second summary, [2E, N] (one
+// a lane where `ext_extra` is the lane's own, [B, N, E]), rather than have
+// every step re-add three [N, E] tables: the summary holds the same f32
+// sums the compares take, so the bits are the plain version's.  A touched
+// node's live extended row, its bind-now claims and its live sums stay in
+// shared memory with its other rows; a placement debits `te` there (and
+// claims it bind-now unless it pipelines).  `ext_rows` / `extbind_rows`
+// [B, T, E] come out as the other rows do.
+//
 // The mask mode (`lane_mask` [B, N], the affinity gates' node mask, K12):
 // each block reads its lane's row into the nodes it may use, `allowed =
 // domain_mask & ~forbidden` (ref :720 with domain_mask = n.valid & mask,
@@ -107,6 +123,7 @@
 #define PF_MAXT 64
 #define PF_MAXD 32
 #define PF_MAXS 32
+#define PF_MAXE 8
 // the dynamic shared memory a block aims to stay under (two blocks an SM)
 #define PF_SMEM_BUDGET (108 * 1024)
 // 1.0 - EPS and friends as the reference's weak-typed Python floats round
@@ -190,6 +207,19 @@ __device__ __forceinline__ void pf_summarize(
   s[PF_SMAX * stride] = sm;
 }
 
+// the extended summary of one node's row: ext + EPS and ((ext +
+// extended_releasing) + ext_extra) + EPS per key, into s[0 .. 2E)
+__device__ __forceinline__ void pf_summarize_ext(const float* ex,
+                                                 const float* erel,
+                                                 const float* exx, int E,
+                                                 float* s, int stride) {
+  for (int e = 0; e < E; ++e) {
+    s[e * stride] = __fadd_rn(ex[e], KAI_EPS);
+    s[(E + e) * stride] =
+        __fadd_rn(__fadd_rn(__fadd_rn(ex[e], erel[e]), exx[e]), KAI_EPS);
+  }
+}
+
 // the prologue: each node's summary (one thread a node); with `sum_agg`
 // the chunk-start domain aggregate too (one warp a domain: its lanes load
 // 32 of the domain's nodes at a time, and the sum takes them in ascending
@@ -202,13 +232,21 @@ __global__ void __launch_bounds__(256) pf_prologue_kernel(
     const float* __restrict__ dev_mem, int N, int D,
     float* __restrict__ summ, const int* __restrict__ dom_ptr,
     const int* __restrict__ dom_nodes, int ND, int sum_agg,
-    float* __restrict__ agg, int extra_ls, int extra_dev_ls) {
+    float* __restrict__ agg, int extra_ls, int extra_dev_ls,
+    const float* __restrict__ ext0, const float* __restrict__ ext_rel,
+    const float* __restrict__ ext_extra, int E, int ext_ls,
+    float* __restrict__ esumm) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   // one summary a lane (grid y) where the pools are the lanes' own
   const int y = blockIdx.y;
   extra += (size_t)y * extra_ls;
   extra_dev += (size_t)y * extra_dev_ls;
   summ += (size_t)y * PF_NF * N;
+  if (E > 0 && i < N) {
+    const size_t o = (size_t)i * E;
+    pf_summarize_ext(ext0 + o, ext_rel + o, ext_extra + (size_t)y * ext_ls + o,
+                     E, esumm + (size_t)y * 2 * E * N + i, N);
+  }
   if (i < N) {
     const size_t o = (size_t)i * D;
     pf_summarize(free0 + i * 3, dev0 + o, rel + i * 3, extra + i * 3,
@@ -254,6 +292,9 @@ __device__ __forceinline__ float pf_portion(float por, float mem,
 // one task step's constants, the same in every thread
 struct PfStep {
   const float* summ;        // [PF_NF, N]
+  const float* esumm;       // extended summary [2E, N] (extended mode)
+  const float* te;          // the task's extended request [E]
+  const float* tesum;       // touched nodes' live extended sums [T, 2E]
   const float* tsum;        // touched nodes' live summaries [T, PF_NLIVE]
   const int* tnode;         // touched nodes [T]
   const float* agg;         // chunk-start domain aggregate [ND + 1, 3]
@@ -266,8 +307,8 @@ struct PfStep {
   const int* sel;
   const int* topology;
   const int* forbid;
-  int N, K, L, T, ntouch, nforbid, asl, lvl_asl, lvl_pref, pref_dom, lvl_s,
-      locked, ban, res;
+  int N, K, L, T, E, ntouch, nforbid, asl, lvl_asl, lvl_pref, pref_dom,
+      lvl_s, locked, ban, res;
   bool has_asl, has_pref, has_srl, needs_pick, track, is_frac;
   float rq0, req0, req1, req2, por, mem, srem0, srem1, srem2;
 };
@@ -347,6 +388,13 @@ __device__ __forceinline__ u8 pf_eval(const PfStep& c, int n, int tj,
   if (!ok_sel) return dbit;
   bool fi = fe0 >= c.rq0 && fe1 >= c.req1 && fe2 >= c.req2;
   bool fp = ae0 >= c.rq0 && ae1 >= c.req1 && ae2 >= c.req2;
+  if (c.E > 0) {  // the extended pools, every key
+    const float* es = tj >= 0 ? c.tesum + tj * 2 * c.E : c.esumm + n;
+    for (int e = 0; e < c.E; ++e) {
+      fi = fi && es[e * st] >= c.te[e];
+      fp = fp && es[(c.E + e) * st] >= c.te[e];
+    }
+  }
   bool shared = false;
   if (c.track) {
     if (c.is_frac) {
@@ -398,19 +446,26 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
     const int* __restrict__ srl, const int* __restrict__ banned,
     const u8* __restrict__ active, const u8* __restrict__ lane_mask,
     const float* __restrict__ score_bias, const float* __restrict__ agg,
-    int T, int N, int NS, int D, int K, int L, int S, int Q,
+    // extended mode
+    const float* __restrict__ task_ext, const float* __restrict__ ext_accel,
+    const float* __restrict__ ext0, const float* __restrict__ ext_rel,
+    const float* __restrict__ ext_extra, const float* __restrict__ esumm,
+    int T, int N, int NS, int D, int K, int L, int S, int Q, int E,
     int binpack_accel, int binpack_cpu, int device_pack, int track,
-    int legacy, int extra_ls, int extra_dev_ls, int qa_ls, float jscale,
+    int legacy, int extra_ls, int extra_dev_ls, int qa_ls, int ext_ls,
+    float jscale,
     // outputs
     float* __restrict__ qa2, float* __restrict__ qan2,
     int* __restrict__ nodes_t, int* __restrict__ dev_t,
     u8* __restrict__ pipe_t, u8* __restrict__ success,
     float* __restrict__ free_rows, float* __restrict__ dev_rows,
     float* __restrict__ bind_rows, float* __restrict__ devbind_rows,
-    int* __restrict__ sub_dom_out) {
-  // dynamic shared memory: the touched nodes' rows and live summaries, the
-  // debited domains per level, then the staged nodes' soft score, density
-  // input, domain aggregate (topology) and flag byte
+    int* __restrict__ sub_dom_out, float* __restrict__ ext_rows,
+    float* __restrict__ extbind_rows) {
+  // dynamic shared memory: the touched nodes' rows and live summaries (the
+  // extended rows, claims and sums too), the debited domains per level,
+  // then the staged nodes' soft score, density input, domain aggregate
+  // (topology) and flag byte
   extern __shared__ float s_dyn[];
   const bool topo = agg != nullptr;
   int* s_tnode = reinterpret_cast<int*>(s_dyn);
@@ -419,7 +474,10 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
   float* s_tdev = s_tbind + T * 3;
   float* s_tdbind = s_tdev + T * D;
   float* s_tsum = s_tdbind + T * D;
-  int* s_dchg_n = reinterpret_cast<int*>(s_tsum + T * PF_NLIVE);
+  float* s_text = s_tsum + T * PF_NLIVE;
+  float* s_tebind = s_text + T * E;
+  float* s_tesum = s_tebind + T * E;
+  int* s_dchg_n = reinterpret_cast<int*>(s_tesum + T * 2 * E);
   int* s_dchg_id = s_dchg_n + (topo ? L : 0);
   const int nd = topo ? L * T : 0;
   float* s_dchg_a = reinterpret_cast<float*>(s_dchg_id + nd);
@@ -442,13 +500,20 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
   // device free, releasing and victim-freed rows
   __shared__ float s_nrow[10], s_ndev[3 * PF_MAXD];
   __shared__ u8 s_bf[PF_WARPS];
+  // extended mode: each task's g-number equivalent, the step's request and
+  // the chosen node's extended, releasing and victim-freed rows
+  __shared__ float s_gq[PF_MAXT], s_te[PF_MAXE], s_next[3 * PF_MAXE];
   const int b = blockIdx.x;
   if (active && !active[b]) return;  // not a retried lane: keep its output
-  // the lane's pools and queue table (a zero stride: shared), its summary
+  // the lane's pools and queue table (a zero stride: shared), its summaries
   extra += (size_t)b * extra_ls;
   extra_dev += (size_t)b * extra_dev_ls;
   qa += (size_t)b * qa_ls;
-  if (extra_ls || extra_dev_ls) summ += (size_t)b * PF_NF * N;
+  ext_extra += (size_t)b * ext_ls;
+  if (extra_ls || extra_dev_ls || ext_ls) {
+    summ += (size_t)b * PF_NF * N;
+    esumm += (size_t)b * 2 * E * N;
+  }
   const float* bias_b = score_bias ? score_bias + (size_t)b * N : nullptr;
   const int tid = threadIdx.x;
   const int lane_w = tid & 31, warp = tid >> 5;
@@ -515,6 +580,14 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
       goal += s_elig[t];
     }
     Ln.goal = goal;
+    // the g-number equivalents, a dot over E from +0.0
+    for (int t = 0; t < T; ++t) {
+      float gq = 0.0f;
+      for (int e = 0; e < E; ++e)
+        gq = __fadd_rn(gq, __fmul_rn(task_ext[((size_t)gi * T + t) * E + e],
+                                     ext_accel[e]));
+      s_gq[t] = gq;
+    }
     if (topo) {
       // each subgroup's remaining request of this attempt (task order from
       // +0.0) and its lock, seeded from the prior placements
@@ -547,8 +620,9 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
           inb[r] = 0.0f;
         }
       for (int r = 0; r < 3; ++r) {
-        const float v = s_elig[t] ? task_req[((size_t)gi * T + t) * 3 + r]
-                                  : 0.0f;
+        float v = s_elig[t] ? task_req[((size_t)gi * T + t) * 3 + r] : 0.0f;
+        // the extended mode's g-number equivalents join the accel column
+        if (E > 0 && r == 0 && s_elig[t]) v = __fadd_rn(v, s_gq[t]);
         inb[r] = __fadd_rn(inb[r], v);
         cum[t][r] = t < 16 ? inb[r] : __fadd_rn(inb[r], excl[r]);
       }
@@ -588,6 +662,10 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
 
   PfStep c;
   c.summ = summ;
+  c.esumm = esumm;
+  c.te = s_te;
+  c.tesum = s_tesum;
+  c.E = E;
   c.tsum = s_tsum;
   c.tnode = s_tnode;
   c.agg = agg;
@@ -630,6 +708,7 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
       Ln.cls = task_class[o];
       Ln.nom = task_nom[o];
       Ln.is_frac = Ln.por > 0.0f || Ln.mem > 0.0f;
+      for (int e = 0; e < E; ++e) s_te[e] = task_ext[o * E + e];
       if (topo) {
         const int st = task_sub[o];
         const int lv = srl[(size_t)Ln.gi * S + st];
@@ -847,6 +926,12 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
             s_nagg[lv * 3 + r] = agg[(size_t)did * 3 + r];
       }
       if (lane_w == 0) s_nrow[9] = summ[(size_t)PF_DMEM * N + node];
+      if (lane_w < E) {
+        const size_t o = (size_t)node * E + lane_w;
+        s_next[lane_w] = ext0[o];
+        s_next[PF_MAXE + lane_w] = ext_rel[o];
+        s_next[2 * PF_MAXE + lane_w] = ext_extra[o];
+      }
       __syncwarp();
     }
     if (tid == 0) {
@@ -873,6 +958,10 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
         for (int d = 0; d < D; ++d) {
           tdev[d] = s_ndev[d];
           tdbind[d] = 0.0f;
+        }
+        for (int e = 0; e < E; ++e) {
+          s_text[j * E + e] = s_next[e];
+          s_tebind[j * E + e] = 0.0f;
         }
       }
       const float req0 = Ln.req[0];
@@ -927,7 +1016,20 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
       for (int r = 0; r < 3; ++r) {
         tfree[r] = __fadd_rn(tfree[r], -dn[r]);
         if (!is_pipe) tbind[r] = __fadd_rn(tbind[r], dn[r]);
-        Ln.q_delta[r] = __fadd_rn(Ln.q_delta[r], Ln.req[r]);
+        // the queue ledger counts the g-number equivalents (extended mode)
+        const float dq =
+            (E > 0 && r == 0) ? __fadd_rn(Ln.req[0], s_gq[t]) : Ln.req[r];
+        Ln.q_delta[r] = __fadd_rn(Ln.q_delta[r], dq);
+      }
+      if (E > 0) {  // the extended row, its claims and its live sums
+        float* tex = s_text + j * E;
+        for (int e = 0; e < E; ++e) {
+          tex[e] = __fadd_rn(tex[e], -s_te[e]);
+          if (!is_pipe) s_tebind[j * E + e] = __fadd_rn(s_tebind[j * E + e],
+                                                       s_te[e]);
+        }
+        pf_summarize_ext(tex, s_next + PF_MAXE, s_next + 2 * PF_MAXE, E,
+                         s_tesum + j * 2 * E, 1);
       }
       // the node's live summary, read instead of the chunk-start one
       pf_summarize(tfree, tdev, nrel, nextra, ndrel, ndext, D,
@@ -989,6 +1091,10 @@ __global__ void __launch_bounds__(PF_THREADS, 2) pertask_fill_kernel(
       dev_rows[o * D + d] = j >= 0 ? s_tdev[j * D + d] : 0.0f;
       devbind_rows[o * D + d] = j >= 0 ? s_tdbind[j * D + d] : 0.0f;
     }
+    for (int e = 0; e < E; ++e) {
+      ext_rows[o * E + e] = j >= 0 ? s_text[j * E + e] : 0.0f;
+      extbind_rows[o * E + e] = j >= 0 ? s_tebind[j * E + e] : 0.0f;
+    }
   }
   const u8* anc = chain + (size_t)Ln.queue * Q;
   for (int idx = tid; idx < Q * 3; idx += PF_THREADS) {
@@ -1006,12 +1112,15 @@ static int pf_prologue(const float* free0, const float* dev0,
                        const float* dev_mem, int N, int D, float* summ,
                        const int* dom_ptr, const int* dom_nodes, int ND,
                        int sum_agg, float* agg, int lanes, int extra_ls,
-                       int extra_dev_ls, cudaStream_t stream) {
+                       int extra_dev_ls, const float* ext0,
+                       const float* ext_rel, const float* ext_extra, int E,
+                       int ext_ls, float* esumm, cudaStream_t stream) {
   const int work = sum_agg && 32 * (ND + 1) > N ? 32 * (ND + 1) : N;
   const dim3 grid((work + 255) / 256, lanes);
   pf_prologue_kernel<<<grid, 256, 0, stream>>>(
       free0, dev0, rel, extra, dev_rel, extra_dev, alloc, valid, dev_mem, N,
-      D, summ, dom_ptr, dom_nodes, ND, sum_agg, agg, extra_ls, extra_dev_ls);
+      D, summ, dom_ptr, dom_nodes, ND, sum_agg, agg, extra_ls, extra_dev_ls,
+      ext0, ext_rel, ext_extra, E, ext_ls, esumm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1026,7 +1135,8 @@ KAI_EXPORT int kai_pertask_summary(const float* free0, const float* dev0,
   if (N < 1 || D < 0 || D > PF_MAXD) return KAI_ERR_ARGS;
   return pf_prologue(free0, dev0, rel, extra, dev_rel, extra_dev, alloc,
                      valid, dev_mem, N, D, summ, nullptr, nullptr, 0, 0,
-                     nullptr, 1, 0, 0, stream);
+                     nullptr, 1, 0, 0, nullptr, nullptr, nullptr, 0, 0,
+                     nullptr, stream);
 }
 
 KAI_EXPORT int kai_pertask_fill(
@@ -1043,18 +1153,24 @@ KAI_EXPORT int kai_pertask_fill(
     const u8* chain, const int* cand, const int* prior, const int* srl,
     const int* dom_ptr, const int* dom_nodes, const int* banned,
     const u8* active, const u8* lane_mask, const float* score_bias,
-    float* agg_scratch, float* summ, int B, int T, int N, int D, int K, int X,
-    int L, int S, int Q, int G, int binpack_accel, int binpack_cpu,
+    const float* task_ext, const float* ext_accel, const float* ext0,
+    const float* ext_rel, const float* ext_extra, float* agg_scratch,
+    float* summ, float* esumm, int B, int T, int N, int D, int K, int X,
+    int L, int S, int Q, int G, int E, int binpack_accel, int binpack_cpu,
     int device_pack, int track, int agg_ready, int legacy, int extra_ls,
-    int extra_dev_ls, int qa_ls, float jscale, float* qa2, float* qan2,
-    int* nodes_t,
-    int* dev_t, u8* pipe_t, u8* success, float* free_rows, float* dev_rows,
-    float* bind_rows, float* devbind_rows, int* sub_dom,
+    int extra_dev_ls, int qa_ls, int ext_ls, float jscale, float* qa2,
+    float* qan2, int* nodes_t, int* dev_t, u8* pipe_t, u8* success,
+    float* free_rows, float* dev_rows, float* bind_rows, float* devbind_rows,
+    int* sub_dom, float* ext_rows, float* extbind_rows,
     cudaStream_t stream) {
   if (B < 1 || T < 1 || T > PF_MAXT || N < 1 || D < 0 || D > PF_MAXD ||
       K < 0 || X < 1 || L < 1 || S < 1 || S > PF_MAXS || Q < 1 || G < 1 ||
-      !summ)
+      E < 0 || E > PF_MAXE || !summ)
     return KAI_ERR_ARGS;
+  if (E > 0 && !(task_ext && ext_accel && ext0 && ext_rel && ext_extra &&
+                 esumm && ext_rows && extbind_rows))
+    return KAI_ERR_ARGS;
+  if (ext_ls && ext_ls != N * E) return KAI_ERR_ARGS;
   const bool topo = dom_ptr != nullptr;
   if (topo != (dom_nodes && agg_scratch && sub_dom) ||
       ((banned || agg_ready) && !topo))
@@ -1064,16 +1180,18 @@ KAI_EXPORT int kai_pertask_fill(
   if ((extra_ls && extra_ls != N * 3) || (extra_dev_ls && extra_dev_ls != N * D)
       || (qa_ls && qa_ls != Q * 3))
     return KAI_ERR_ARGS;
-  const int lanes = (extra_ls || extra_dev_ls) ? B : 1;
+  if (topo && ext_ls) return KAI_ERR_ARGS;
+  const int lanes = (extra_ls || extra_dev_ls || ext_ls) ? B : 1;
   int rc = pf_prologue(free0, dev0, rel, extra, dev_rel, extra_dev, alloc,
                        valid, dev_mem, N, D, summ, dom_ptr, dom_nodes,
                        topo ? N * L : 0, topo && !agg_ready, agg_scratch,
-                       lanes, extra_ls, extra_dev_ls, stream);
+                       lanes, extra_ls, extra_dev_ls, ext0, ext_rel,
+                       ext_extra, E, ext_ls, esumm, stream);
   if (rc != 0) return rc;
   // dynamic shared memory: the touched rows and live summaries, the
   // debited domains, then as many staged nodes as the budget holds
   const size_t fixed =
-      sizeof(float) * ((size_t)T * (1 + 6 + 2 * D + PF_NLIVE) +
+      sizeof(float) * ((size_t)T * (1 + 6 + 2 * D + PF_NLIVE + 4 * E) +
                        (topo ? (size_t)L * (T * 4 + 1) : 0) +
                        (size_t)L * 4);
   const size_t per_node = 9 + (topo ? 4 : 0);
@@ -1090,10 +1208,10 @@ KAI_EXPORT int kai_pertask_fill(
       anti_self, pref_level, free0, dev0, rel, extra, dev_rel, extra_dev,
       labels, fmask, soft, topology, summ, qa, qan, limit_eff, quota_eff,
       chain, cand, prior, srl, banned, active, lane_mask, score_bias,
-      topo ? agg_scratch : nullptr, T, N, (int)ns, D, K, L, S, Q,
-      binpack_accel, binpack_cpu, device_pack, track, legacy, extra_ls,
-      extra_dev_ls, qa_ls, jscale, qa2, qan2,
-      nodes_t, dev_t, pipe_t, success, free_rows, dev_rows, bind_rows,
-      devbind_rows, sub_dom);
+      topo ? agg_scratch : nullptr, task_ext, ext_accel, ext0, ext_rel,
+      ext_extra, esumm, T, N, (int)ns, D, K, L, S, Q, E, binpack_accel,
+      binpack_cpu, device_pack, track, legacy, extra_ls, extra_dev_ls, qa_ls,
+      ext_ls, jscale, qa2, qan2, nodes_t, dev_t, pipe_t, success, free_rows,
+      dev_rows, bind_rows, devbind_rows, sub_dom, ext_rows, extbind_rows);
   return static_cast<int>(cudaGetLastError());
 }

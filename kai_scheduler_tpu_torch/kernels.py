@@ -84,15 +84,16 @@ KERNELS: dict[str, KernelInfo] = {
         KernelInfo("freed_by_lane",
                    "kai_scheduler_tpu_torch/csrc/freed_by_lane.cu",
                    "kai_scheduler_tpu/ops/victims.py:738",
-                   modes=("devices",)),
+                   modes=("devices", "extended")),
         KernelInfo("pertask_fill",
                    "kai_scheduler_tpu_torch/csrc/pertask_fill.cu",
                    "kai_scheduler_tpu/ops/allocate.py:517",
-                   modes=("topology", "banned", "mask", "lanes", "legacy")),
+                   modes=("topology", "banned", "mask", "lanes", "legacy",
+                          "extended")),
         KernelInfo("dense_accept",
                    "kai_scheduler_tpu_torch/csrc/dense_accept.cu",
                    "kai_scheduler_tpu/ops/allocate.py:1730",
-                   modes=("no_devices",)),
+                   modes=("no_devices", "extended")),
         KernelInfo("topo_tables_build",
                    "kai_scheduler_tpu_torch/csrc/topo_tables.cu",
                    "kai_scheduler_tpu/ops/allocate.py:1461"),
@@ -165,10 +166,10 @@ _SIGNATURES = {
     "kai_freed_by_mask": [_P] * 12 + [_I] * 7 + [_P] * 8 + [_P],
     "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
     + [_P],
-    "kai_freed_by_lane": [_P] * 10 + [_I] * 6 + [_P] * 5 + [_P],
-    "kai_pertask_fill": [_P] * 43 + [_I] * 19 + [_F] + [_P] * 11 + [_P],
+    "kai_freed_by_lane": [_P] * 11 + [_I] * 7 + [_P] * 6 + [_P],
+    "kai_pertask_fill": [_P] * 49 + [_I] * 21 + [_F] + [_P] * 13 + [_P],
     "kai_pertask_summary": [_P] * 9 + [_I] * 2 + [_P] + [_P],
-    "kai_dense_accept": [_P] * 15 + [_I] * 6 + [_P] * 7 + [_P],
+    "kai_dense_accept": [_P] * 19 + [_I] * 7 + [_P] * 8 + [_P],
     "kai_topo_tables_build": [_P] * 5 + [_I] * 3 + [_P] * 3 + [_P],
     "kai_topo_tables_update": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_P],
     "kai_affinity_mask": [_P] * 8 + [_I] * 8 + [_P] + [_P],

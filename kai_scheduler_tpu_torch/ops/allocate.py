@@ -1,18 +1,19 @@
 """The allocate action — gang all-or-nothing placement as a wavefront.
 
 Port of ``kai_scheduler_tpu/ops/allocate.py``: the auto-tuned variants
-the reference runs on snapshots without extended resources — the
-uniform whole-gang kernel with hoisted per-type tables
-(gangs of identical replicas, no device shares, binpack) under the
+the reference runs — the uniform whole-gang kernel with hoisted per-type
+tables (gangs of identical replicas, no device shares, binpack) under the
 sparse wavefront, or under the dense one with the required topology
 level's domain tables, the preferred-level band on either; and the
 per-task path under the dense wavefront (GPU sharing: fractional and
 memory-based shares with the device table; heterogeneous gangs,
 subgroups and their required levels with the in-cycle domain retry,
 nominated nodes, anti-self domains, the preferred-level band, spread
-scoring) — both with the dynamic pop order, and both with the in-cycle
-affinity terms (cross-gang required anti-affinity, shared host ports and
-required positive affinity: the claimed-domain table ``anti_used``).
+scoring; the extended scalar resources such as MIG slices, whose
+g-number equivalents count toward the queue ledger) — both with the
+dynamic pop order, and both with the in-cycle affinity terms (cross-gang
+required anti-affinity, shared host ports and required positive
+affinity: the claimed-domain table ``anti_used``).
 
 Reference hot path (``actions/allocate/allocate.go:52-156``): pop jobs
 from the fairness heap; place each gang whole or not at all.  Here each
@@ -429,14 +430,17 @@ def check_supported(config: AllocateConfig) -> None:
     Both paths take the required and subgroup topology levels
     (``subgroup_topology``), the preferred-level band and the in-cycle
     affinity terms (``anti_groups``, ``attract_groups``); the per-task
-    path also takes the device share table (``track_devices``).  The
-    victim actions keep their own, narrower check
+    path also takes the device share table (``track_devices``) and the
+    extended scalar resources (``extended``: MIG and DRA scalars; the
+    snapshot sends them down the per-task path, as the reference's does).
+    The victim actions keep their own, narrower check
     (``victims.check_placement_ported``)."""
     if config.uniform_tasks and config.track_devices:
         raise ValueError(
             "uniform_tasks fast path requires track_devices=False")
     unsupported = [
-        (config.extended, "extended=True (MIG/DRA scalar resources)"),
+        (config.extended and config.uniform_tasks,
+         "extended=True on the uniform path"),
         (config.queue_depth is not None, "queue_depth"),
         (not config.dynamic_order, "dynamic_order=False"),
         (not config.sparse_wavefront, "sparse_wavefront=False"),
@@ -1273,6 +1277,9 @@ class TaskTables:
     anti_self: Tensor          # i32 [G]
     preferred_level: Tensor    # i32 [G]
     subgroup_required_level: Tensor  # i32 [G, S]
+    #: extended scalar requests (MIG slices) and each key's g-number
+    task_extended: Tensor      # f32 [G, T, E]
+    ext_accel: Tensor          # f32 [E]
 
     @classmethod
     def of(cls, state: ClusterState) -> "TaskTables":
@@ -1288,7 +1295,8 @@ class TaskTables:
             min_needed=g.min_needed, queue=g.queue,
             preemptible=g.preemptible, anti_self=g.anti_self_level,
             preferred_level=g.preferred_level,
-            subgroup_required_level=g.subgroup_required_level).items()})
+            subgroup_required_level=g.subgroup_required_level,
+            task_extended=g.task_extended, ext_accel=g.ext_accel).items()})
 
 
 @dataclasses.dataclass
@@ -1311,6 +1319,9 @@ class PerTaskOut:
     devbind_rows: Tensor   # f32 [B, T, D]
     #: the subgroups' locked domains (subgroup-topology mode) — i32 [B, S]
     sub_dom: Tensor | None = None
+    #: the extended pool's final rows and bind-now claims (extended mode)
+    ext_rows: Tensor | None = None      # f32 [B, T, E]
+    extbind_rows: Tensor | None = None  # f32 [B, T, E]
 
     def fields(self) -> tuple:
         return tuple(getattr(self, f.name) for f in dataclasses.fields(self)
@@ -1370,7 +1381,8 @@ def attempt_gang_in_domain_plain(
         banned: Tensor | None = None,
         lane_ids: Tensor | None = None,
         mask: Tensor | None = None, score_bias: Tensor | None = None,
-        legacy: bool = False) -> PerTaskOut:
+        legacy: bool = False, ext: Tensor | None = None,
+        ext_extra: Tensor | None = None) -> PerTaskOut:
     """Plain PyTorch version of K9: the reference's
     ``_attempt_gang_in_domain`` (``:517``) for every lane ``b`` of a chunk
     (gang ``cand[b]``, tie-break lane ``b``, prior placements ``prior[b]``),
@@ -1379,8 +1391,19 @@ def attempt_gang_in_domain_plain(
     the nominated-node, soft, preferred-topology and tie-jitter bands,
     the gpusharingorder band, ``pick_device`` for fractions, the
     whole-device rank-and-take and the bind-now / pipelined bookkeeping.
-    The extended branch stays out (``allocate`` refuses it).  Batched
-    over the B lanes; T task steps in order.
+    Batched over the B lanes; T task steps in order.
+
+    ``ext`` f32 [N, E], the chunk-start extended pool, turns on the
+    extended mode (ref ``config.extended``: ``:570-581``, ``:683-688``,
+    ``:713-719``, ``:841-849``): each task's g-number equivalent
+    ``task_extended @ ext_accel`` (a dot over E, ascending) joins its
+    accel request in the queue prefix gates and in the queue delta; a node
+    fits idle where ``ext_l + EPS >= te`` for every key and pipelined
+    where ``((ext_l + extended_releasing) + ext_extra) + EPS >= te``;
+    a placement debits ``te`` from the lane's live row (and claims it
+    bind-now unless it pipelines).  ``ext_extra`` is [N, E] shared or
+    [B, N, E] per lane (zeros when None); ``ext_rows`` and
+    ``extbind_rows`` come out as the other pools' rows do.
 
     ``topo`` turns on the subgroup-topology mode (ref ``:650-668``,
     ``:734-760``, ``:855-866``, ``:878-882``): the domain aggregate of
@@ -1503,9 +1526,25 @@ def attempt_gang_in_domain_plain(
             1, sub, torch.where(already & (prior_level >= 0), prior_sub_dom,
                                 -1).to(i32), reduce="amax")
 
+    if ext is not None:
+        # each task's MIG g-number equivalent, a dot over E from +0.0
+        task_ext = tt.task_extended[gi]                      # [B, T, E]
+        ext_gq = torch.zeros((B, T), dtype=f32, device=dv)
+        for e in range(task_ext.shape[-1]):
+            ext_gq = ext_gq + task_ext[..., e] * tt.ext_accel[e]
+        if ext_extra is None:
+            ext_extra = torch.zeros_like(ext)
+        lane_ext = ext_extra.dim() == 3
+        ext_l = ext.expand(B, N, ext.shape[1]).clone()
+        ebind = torch.zeros_like(ext_l)
+
     # queue capacity gates for every task prefix, hoisted out of the loop
     anc = chain[tt.queue[gi].long()]                         # [B, Q]
     req_valid = torch.where(eligible[..., None], task_req, 0.0)
+    if ext is not None:
+        # the prefix gates see the g-number equivalents too (ref :683-688)
+        req_valid[..., 0] = req_valid[..., 0] + torch.where(
+            eligible, ext_gq, 0.0)
     cum_req = cumsum_blocked(req_valid, 1)                   # [B, T, R]
     exempt = ~anc[:, None, :, None]
     qa_t = qa[:, None] if qa.dim() == 3 else qa              # [B, 1, Q, R]
@@ -1562,6 +1601,14 @@ def attempt_gang_in_domain_plain(
                 device_free=None, extra_releasing=ex_k,
                 extra_device_releasing=None, devices=False,
                 task_class=cls)
+        if ext is not None:
+            # the extended pools, in the reference's operand order
+            el = ext_l[ix]
+            te = task_ext[ix, t][:, None, :]                 # [k, 1, E]
+            xe = ext_extra[ix] if lane_ext else ext_extra
+            fit_idle = fit_idle & (el + EPS >= te).all(-1)
+            fit_pipe = fit_pipe & (
+                ((el + nodes.extended_releasing) + xe) + EPS >= te).all(-1)
         allowed = nodes.valid[None] & ~forbidden[ix]
         if mask is not None:
             allowed = allowed & mask[ix]
@@ -1660,7 +1707,17 @@ def attempt_gang_in_domain_plain(
         free_l[ix, node] = fl[arK, node] + (-delta_node)
         bind[ix, node] = bind[ix, node] + torch.where(
             is_pipe[:, None], 0.0, delta_node)
-        q_delta[ix] = q_delta[ix] + delta
+        delta_q = delta
+        if ext is not None:
+            ext_delta = torch.where(placed[:, None], task_ext[ix, t], 0.0)
+            ext_l[ix, node] = ext_l[ix, node] + (-ext_delta)
+            ebind[ix, node] = ebind[ix, node] + torch.where(
+                is_pipe[:, None], 0.0, ext_delta)
+            # the queue ledger counts the g-number equivalents (:846-849)
+            delta_q = delta.clone()
+            delta_q[:, 0] = delta[:, 0] + torch.where(placed, ext_gq[ix, t],
+                                                      0.0)
+        q_delta[ix] = q_delta[ix] + delta_q
         ds = doms_self[ix]
         forbidden[ix] = forbidden[ix] | ((has_asl[ix] & placed)[:, None] & (
             ds == ds.gather(1, node[:, None])))
@@ -1696,7 +1753,9 @@ def attempt_gang_in_domain_plain(
                       pipe_t=pipe_t, success=success, free_rows=rows(free_l),
                       dev_rows=rows(dev_l), bind_rows=rows(bind),
                       devbind_rows=rows(dbind),
-                      sub_dom=None if topo is None else sub_dom)
+                      sub_dom=None if topo is None else sub_dom,
+                      ext_rows=None if ext is None else rows(ext_l),
+                      extbind_rows=None if ext is None else rows(ebind))
 
 
 #: most task slots per gang, devices per node and subgroups per gang K9
@@ -1704,6 +1763,9 @@ def attempt_gang_in_domain_plain(
 PERTASK_MAX_T = 64
 PERTASK_MAX_D = 32
 PERTASK_MAX_S = 32
+#: most extended keys (MIG profiles) K9 keeps per task; an H100 80GB
+#: documents six MIG profiles
+PERTASK_MAX_E = 8
 #: widest chunk K10 takes: its lane walk reproduces XLA:CPU's blocked
 #: cumsum with one level of block totals (up to 16 blocks of 16 lanes)
 DENSE_ACCEPT_MAX_B = 256
@@ -1720,26 +1782,28 @@ def _dense_accept_keys(entries: int) -> int:
 
 
 def pertask_fill_limits(T: int, D: int, S: int,
-                        placement: PlacementConfig) -> None:
+                        placement: PlacementConfig, E: int = 0) -> None:
     """Raise ``NotImplementedError`` naming the limit K9's kernel does not
     take: more than ``PERTASK_MAX_T`` task slots, ``PERTASK_MAX_D``
-    devices a node or ``PERTASK_MAX_S`` subgroups, or a plugin tier list
-    other than ``DEFAULT_TIERS``."""
+    devices a node, ``PERTASK_MAX_S`` subgroups or ``PERTASK_MAX_E``
+    extended keys, or a plugin tier list other than ``DEFAULT_TIERS``."""
     for v, cap, what in ((T, PERTASK_MAX_T, "PERTASK_MAX_T"),
                          (D, PERTASK_MAX_D, "PERTASK_MAX_D"),
-                         (S, PERTASK_MAX_S, "PERTASK_MAX_S")):
+                         (S, PERTASK_MAX_S, "PERTASK_MAX_S"),
+                         (E, PERTASK_MAX_E, "PERTASK_MAX_E")):
         if v > cap:
             raise NotImplementedError(
                 f"pertask_fill: {v} exceeds the kernel's {what}={cap}")
     _tier_limit("pertask_fill", placement)
 
 
-def dense_accept_limits(B: int, D: int) -> None:
+def dense_accept_limits(B: int, D: int, E: int = 0) -> None:
     """Raise ``NotImplementedError`` naming the limit K10's kernel does not
-    take: more than ``DENSE_ACCEPT_MAX_B`` lanes or ``PERTASK_MAX_D``
-    devices a node."""
+    take: more than ``DENSE_ACCEPT_MAX_B`` lanes, ``PERTASK_MAX_D``
+    devices a node or ``PERTASK_MAX_E`` extended keys."""
     for v, cap, what in ((B, DENSE_ACCEPT_MAX_B, "DENSE_ACCEPT_MAX_B"),
-                         (D, PERTASK_MAX_D, "PERTASK_MAX_D")):
+                         (D, PERTASK_MAX_D, "PERTASK_MAX_D"),
+                         (E, PERTASK_MAX_E, "PERTASK_MAX_E")):
         if v > cap:
             raise NotImplementedError(
                 f"dense_accept: {v} exceeds the kernel's {what}={cap}")
@@ -1757,7 +1821,8 @@ def pertask_fill_plain(nodes: NodeState, tt: TaskTables, cand: Tensor,
                        agg: Tensor | None = None,
                        mask: Tensor | None = None,
                        score_bias: Tensor | None = None,
-                       legacy: bool = False) -> PerTaskOut:
+                       legacy: bool = False, ext: Tensor | None = None,
+                       ext_extra: Tensor | None = None) -> PerTaskOut:
     """Plain PyTorch version of K9 with the retry's lane selection (see
     :func:`pertask_fill`): :func:`attempt_gang_in_domain_plain` over every
     lane, or over the ``active`` lanes only — each with its own lane index
@@ -1767,16 +1832,19 @@ def pertask_fill_plain(nodes: NodeState, tt: TaskTables, cand: Tensor,
         return attempt_gang_in_domain_plain(
             nodes, tt, c, p, free, dev, qa, qan, extra, extra_dev, chain,
             limit_eff, quota_eff, placement=placement,
-            track_devices=track_devices, topo=topo, legacy=legacy, **kw)
+            track_devices=track_devices, topo=topo, legacy=legacy, ext=ext,
+            **kw)
     if active is None:
         return plain(cand, prior, banned=banned, mask=mask,
-                     score_bias=score_bias)
+                     score_bias=score_bias, ext_extra=ext_extra)
     ix = torch.nonzero(active).flatten()
     if ix.numel() == 0:
         return base
     sub = plain(cand[ix], prior[ix], banned=banned[ix],
                 lane_ids=ix.to(torch.int32),
-                mask=None if mask is None else mask[ix])
+                mask=None if mask is None else mask[ix],
+                ext_extra=(ext_extra[ix] if ext_extra is not None
+                           and ext_extra.dim() == 3 else ext_extra))
     merged = {}
     for f in dataclasses.fields(base):
         v = getattr(base, f.name)
@@ -1798,7 +1866,8 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                  agg: Tensor | None = None,
                  mask: Tensor | None = None,
                  score_bias: Tensor | None = None,
-                 legacy: bool = False) -> PerTaskOut:
+                 legacy: bool = False, ext: Tensor | None = None,
+                 ext_extra: Tensor | None = None) -> PerTaskOut:
     """K9 — every lane's per-task placement (see
     :func:`attempt_gang_in_domain_plain` for the contract).  CPU tensors
     run the plain version; CUDA tensors launch one block per lane or
@@ -1831,7 +1900,13 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
     reads its lane's slices.  The node summary then depends on the lane's
     pools, so the launch builds one summary a lane ([B, 15, N]): the
     per-device predicates' bits stay exact, and the summary's build reads
-    the lane slices once."""
+    the lane slices once.
+
+    ``ext`` [N, E] runs the extended mode (MIG slices; ``ext_extra``
+    [N, E], or [B, N, E] per lane in the lanes mode, zeros when None): the
+    launch also builds the extended summary, [2E, N] (one a lane with a
+    per-lane ``ext_extra``), and the output carries ``ext_rows`` and
+    ``extbind_rows``.  More than ``PERTASK_MAX_E`` keys raise."""
     if active is not None and base is None:
         raise ValueError("pertask_fill: active lanes need the base output")
     if not kernels.on_card(free):
@@ -1840,7 +1915,8 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
             chain, limit_eff, quota_eff, placement=placement,
             track_devices=track_devices, topo=topo, banned=banned,
             active=active, base=base, agg=agg, mask=mask,
-            score_bias=score_bias, legacy=legacy)
+            score_bias=score_bias, legacy=legacy, ext=ext,
+            ext_extra=ext_extra)
     B, T = prior.shape
     N, R_ = free.shape
     D = dev.shape[1]
@@ -1849,12 +1925,21 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
     X = nodes.filter_masks.shape[0]
     L = nodes.topology.shape[1]
     Q = qa.shape[-2]
-    pertask_fill_limits(T, D, S, placement)
+    E = 0 if ext is None else ext.shape[1]
+    pertask_fill_limits(T, D, S, placement, E)
     if R_ != 3:
         raise ValueError("pertask_fill: resource axis must be 3")
+    if ext is not None and ext_extra is None:
+        ext_extra = torch.zeros_like(ext)
+    lane_ext = ext_extra is not None and ext_extra.dim() == 3
+    if ext is not None and (ext.shape != (N, E) or ext_extra.shape not in (
+            (N, E), (B, N, E))):
+        raise ValueError("pertask_fill: ext must be [N, E] and ext_extra "
+                         "[N, E] or [B, N, E]")
     lane_extra, lane_dev = extra.dim() == 3, extra_dev.dim() == 3
     lane_qa = qa.dim() == 3
-    if (lane_extra or lane_dev or lane_qa or legacy) and topo is not None:
+    if (lane_extra or lane_dev or lane_qa or lane_ext
+            or legacy) and topo is not None:
         raise ValueError("pertask_fill: per-lane pools and the legacy "
                          "protocol take no subgroup topology")
     for t, shape, what in ((extra, (B, N, R_), "extra"),
@@ -1865,7 +1950,8 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                              f"{list(shape)}")
     if score_bias is not None and score_bias.shape != (B, N):
         raise ValueError("pertask_fill: score_bias must be [B, N]")
-    lanes_mode = lane_extra or lane_dev or lane_qa or score_bias is not None
+    lanes_mode = (lane_extra or lane_dev or lane_qa or lane_ext
+                  or score_bias is not None)
     f32, i32, b = torch.float32, torch.int32, torch.bool
     gang = dict(task_req=tt.task_req, task_valid=tt.task_valid,
                 task_selector=tt.task_selector, task_portion=tt.task_portion,
@@ -1898,12 +1984,19 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
                   device_memory_gib=f32, topology=i32, qa=f32, qan=f32,
                   limit_eff=f32, quota_eff=f32, chain=b, cand=i32,
                   prior=i32, dom_ptr=i32, dom_nodes=i32, banned=i32,
-                  active=b, mask=b, score_bias=f32)
+                  active=b, mask=b, score_bias=f32, task_extended=f32,
+                  ext_accel=f32, ext=f32, extended_releasing=f32,
+                  ext_extra=f32)
     ts = dict(**gang, **node, **queue, **lane,
               subgroup_required_level=tt.subgroup_required_level)
+    on = ext is not None
     opt = dict(dom_ptr=None if topo is None else topo.dom_ptr,
                dom_nodes=None if topo is None else topo.dom_nodes,
-               banned=banned, active=active, mask=mask, score_bias=score_bias)
+               banned=banned, active=active, mask=mask, score_bias=score_bias,
+               task_extended=tt.task_extended if on else None,
+               ext_accel=tt.ext_accel if on else None, ext=ext,
+               extended_releasing=nodes.extended_releasing if on else None,
+               ext_extra=ext_extra)
     dv = kernels.require_cuda("pertask_fill", dict(
         ts, **{k: v for k, v in opt.items() if v is not None}), dtypes)
     if banned is not None and (topo is None or banned.shape != (B, S)):
@@ -1927,8 +2020,13 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
             bind_rows=torch.empty((B, T, R_), dtype=f32, device=dv),
             devbind_rows=torch.empty((B, T, D), dtype=f32, device=dv),
             sub_dom=(None if topo is None else
-                     torch.empty((B, S), dtype=i32, device=dv)))
-    if (out.sub_dom is None) != (topo is None):
+                     torch.empty((B, S), dtype=i32, device=dv)),
+            ext_rows=(torch.empty((B, T, E), dtype=f32, device=dv)
+                      if on else None),
+            extbind_rows=(torch.empty((B, T, E), dtype=f32, device=dv)
+                          if on else None))
+    if ((out.sub_dom is None) != (topo is None)
+            or (out.ext_rows is None) == on):
         raise ValueError("pertask_fill: base must come from the same mode")
     # the chunk-start domain aggregate, [ND + 1, R] in global memory
     agg_ready = topo is not None and agg is not None and active is not None
@@ -1939,27 +2037,32 @@ def pertask_fill(nodes: NodeState, tt: TaskTables, cand: Tensor,
               or agg.device != free.device or not agg.is_contiguous()):
             raise ValueError(f"pertask_fill: agg must be f32 "
                              f"[{N * L + 1}, {R_}] on the card")
-    # one node summary, or one a lane where the pools are the lane's own
-    lane_summ = lane_extra or lane_dev
+    # one node summary (and extended summary), or one a lane where the
+    # pools are the lane's own
+    lane_summ = lane_extra or lane_dev or lane_ext
     summ = torch.empty(((B if lane_summ else 1) * PERTASK_SUMMARY_FIELDS, N),
                        dtype=f32, device=dv)
+    esumm = (torch.empty(((B if lane_summ else 1) * 2 * E, N), dtype=f32,
+                         device=dv) if on else None)
+
+    def p(v):
+        return None if v is None else kernels.ptr(v)
     rc = kernels.library().kai_pertask_fill(
-        *(kernels.ptr(v) for v in ts.values()),
-        *(None if v is None else kernels.ptr(v)
-          for v in (*opt.values(), agg if topo is not None else None)),
-        kernels.ptr(summ),
-        B, T, N, D, K, X, L, S, Q, G, int(placement.binpack_accel),
+        *(kernels.ptr(v) for v in ts.values()), *(p(v) for v in opt.values()),
+        p(agg if topo is not None else None), kernels.ptr(summ), p(esumm),
+        B, T, N, D, K, X, L, S, Q, G, E, int(placement.binpack_accel),
         int(placement.binpack_cpu), int(placement.device_pack),
         int(track_devices), int(agg_ready), int(legacy),
         N * R_ if lane_extra else 0, N * D if lane_dev else 0,
-        Q * R_ if lane_qa else 0, float(_jitter_scale(N)),
-        *(kernels.ptr(v) for v in out.fields()),
-        *([None] * (topo is None)), kernels.stream_of(free))
+        Q * R_ if lane_qa else 0, N * E if lane_ext else 0,
+        float(_jitter_scale(N)),
+        *(p(getattr(out, f.name)) for f in dataclasses.fields(out)),
+        kernels.stream_of(free))
     kernels.check(rc, "pertask_fill")
     kernels.count_launch("pertask_fill",
                          topology=topo is not None and banned is None,
                          banned=banned is not None, mask=mask is not None,
-                         lanes=lanes_mode, legacy=legacy)
+                         lanes=lanes_mode, legacy=legacy, extended=on)
     return out
 
 
@@ -2082,15 +2185,22 @@ def dense_accept_plain(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
                        devbind_rows: Tensor, free: Tensor, dev: Tensor,
                        rel_floor: Tensor, dev_floor: Tensor, d_qa: Tensor,
                        d_qan: Tensor, qa: Tensor, qan: Tensor, *,
-                       track_devices: bool):
+                       track_devices: bool, ext_rows: Tensor | None = None,
+                       extbind_rows: Tensor | None = None,
+                       ext: Tensor | None = None,
+                       ext_floor: Tensor | None = None):
     """Plain PyTorch version of K10 (ref ``:1728-1795``, the dense branch):
     the lanes' cumulative claims (``jnp.cumsum`` over lanes in XLA:CPU's
     blocked order) must keep every node above its releasing floor, the
     bind-now claims within the chunk-start idle pool and, with the device
     table, the same for every device; ``take = ok & gate_ok & accept``;
     the taken lanes' claims and queue deltas are committed.  ``ok`` is
-    the lanes' success, ``gate_ok`` the joint queue gates.  Returns
-    ``(take [B], free [N, R], dev [N, D], qa [Q, R], qan [Q, R])``.
+    the lanes' success, ``gate_ok`` the joint queue gates.  With ``ext``
+    [N, E] (the extended mode, ref ``:1756-1767``, ``:1794-1795``) the
+    extended pool is held the same way, against ``ext_floor`` ``-(
+    extended_releasing + extended_releasing_extra) - EPS``, from K9's
+    ``ext_rows`` / ``extbind_rows``.  Returns ``(take [B], free [N, R],
+    dev [N, D], qa [Q, R], qan [Q, R], ext [N, E] | None)``.
 
     Only the nodes some successful lane placed on carry claims: the
     reference's [B, N, *] cumulatives are built over those columns, and
@@ -2122,6 +2232,18 @@ def dense_accept_plain(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
             & (dev_u - cum_dev >= dev_floor[cols]).flatten(1).all(1) \
             & (cum_devbind <= torch.clamp(dev_u, min=0.0) + EPS
                ).flatten(1).all(1)
+    if ext is not None:
+        ext_u = ext[cols]
+        d_ext = torch.where(
+            okm, ext_u - _dense_rows(ext, nodes_u, ext_rows, cols), 0.0)
+        d_extbind = torch.where(okm, _dense_rows(
+            torch.zeros_like(ext), nodes_u, extbind_rows, cols), 0.0)
+        cum_ext = cumsum_blocked(d_ext, 0)
+        cum_extbind = cumsum_blocked(d_extbind, 0)
+        accept = accept & bool((ext >= ext_floor).all()) \
+            & (ext_u - cum_ext >= ext_floor[cols]).flatten(1).all(1) \
+            & (cum_extbind <= torch.clamp(ext_u, min=0.0) + EPS
+               ).flatten(1).all(1)
     take = ok & accept
     w = take.to(torch.float32)
     free = free.clone()
@@ -2129,8 +2251,11 @@ def dense_accept_plain(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
     if track_devices:
         dev = dev.clone()
         dev[cols] = dev_u - _lane_sum(w, d_dev)
+    if ext is not None:
+        ext = ext.clone()
+        ext[cols] = ext_u - _lane_sum(w, d_ext)
     return (take, free, dev, qa + _lane_sum(w, d_qa),
-            qan + _lane_sum(w, d_qan))
+            qan + _lane_sum(w, d_qan), ext)
 
 
 def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
@@ -2139,7 +2264,9 @@ def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
                  free: Tensor, dev: Tensor | None,
                  rel_floor: Tensor, dev_floor: Tensor | None, d_qa: Tensor,
                  d_qan: Tensor, qa: Tensor, qan: Tensor, *,
-                 track_devices: bool):
+                 track_devices: bool, ext_rows: Tensor | None = None,
+                 extbind_rows: Tensor | None = None,
+                 ext: Tensor | None = None, ext_floor: Tensor | None = None):
     """K10 — the dense accept prefix and the commit (see
     :func:`dense_accept_plain` for the contract).  CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise.  The kernel
@@ -2147,36 +2274,46 @@ def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
     lanes (K9's or K3's rows) and never builds the [B, N, R] / [B, N, D]
     cumulatives.  Without the
     device table (``track_devices=False``: the uniform lanes) the four
-    device arguments may be None and ``dev`` comes back as given."""
+    device arguments may be None and ``dev`` comes back as given.  With
+    ``ext`` (the extended mode) the extended pool's E columns ride on the
+    same entries; more than ``PERTASK_MAX_E`` keys raise."""
     args = (nodes_b, ok, gate_ok, free_rows, dev_rows, bind_rows,
             devbind_rows, free, dev, rel_floor, dev_floor, d_qa, d_qan, qa,
             qan)
+    ekw = dict(ext_rows=ext_rows, extbind_rows=extbind_rows, ext=ext,
+               ext_floor=ext_floor)
     if not kernels.on_card(free):
-        return dense_accept_plain(*args, track_devices=track_devices)
+        return dense_accept_plain(*args, track_devices=track_devices, **ekw)
     B, T = nodes_b.shape
     N, R_ = free.shape
     D = dev.shape[1] if track_devices else 0
+    E = 0 if ext is None else ext.shape[1]
     Q = qa.shape[0]
-    dense_accept_limits(B, D)
+    dense_accept_limits(B, D, E)
     if R_ != 3:
         raise ValueError("dense_accept: resource axis must be 3")
     f32, i32, b = torch.float32, torch.int32, torch.bool
     names = ("nodes_b", "ok", "gate_ok", "free_rows", "dev_rows",
              "bind_rows", "devbind_rows", "free", "dev", "rel_floor",
              "dev_floor", "d_qa", "d_qan", "qa", "qan")
-    ts = dict(zip(names, args))
+    ts = dict(zip(names, args), **ekw)
     if not track_devices:
         for k in ("dev_rows", "devbind_rows", "dev", "dev_floor"):
             ts[k] = None
+    if ext is not None and (ext_rows is None or extbind_rows is None
+                            or ext_floor is None):
+        raise ValueError("dense_accept: ext needs its rows and floor")
     dv = kernels.require_cuda("dense_accept", {
         k: v for k, v in ts.items() if v is not None}, dict(
         nodes_b=i32, ok=b, gate_ok=b, free_rows=f32, dev_rows=f32,
         bind_rows=f32, devbind_rows=f32, free=f32, dev=f32, rel_floor=f32,
-        dev_floor=f32, d_qa=f32, d_qan=f32, qa=f32, qan=f32))
+        dev_floor=f32, d_qa=f32, d_qan=f32, qa=f32, qan=f32, ext_rows=f32,
+        extbind_rows=f32, ext=f32, ext_floor=f32))
     first_bad = torch.full((1,), B, dtype=i32, device=dv)
     take = torch.empty((B,), dtype=b, device=dv)
     free2 = free.clone()
     dev2 = dev.clone() if track_devices else None
+    ext2 = None if ext is None else ext.clone()
     qa2, qan2 = torch.empty_like(qa), torch.empty_like(qan)
     # the sort's keys and run list past what shared memory holds go to
     # global memory: 8 + 4 bytes an entry
@@ -2184,16 +2321,17 @@ def dense_accept(nodes_b: Tensor, ok: Tensor, gate_ok: Tensor,
     P = _dense_accept_keys(B * T)
     if P > DENSE_ACCEPT_SMEM_KEYS:
         keys = torch.empty((P + P // 2,), dtype=torch.int64, device=dv)
+    def p(t):
+        return None if t is None else kernels.ptr(t)
     rc = kernels.library().kai_dense_accept(
-        *(None if t is None else kernels.ptr(t) for t in ts.values()),
-        B, T, N, D, Q, int(track_devices),
+        *(p(t) for t in ts.values()), B, T, N, D, E, Q, int(track_devices),
         kernels.ptr(first_bad), kernels.ptr(take), kernels.ptr(free2),
-        None if dev2 is None else kernels.ptr(dev2), kernels.ptr(qa2),
-        kernels.ptr(qan2), None if keys is None else kernels.ptr(keys),
+        p(dev2), p(ext2), kernels.ptr(qa2), kernels.ptr(qan2), p(keys),
         kernels.stream_of(free))
     kernels.check(rc, "dense_accept")
-    kernels.count_launch("dense_accept", no_devices=not track_devices)
-    return take, free2, (dev2 if track_devices else dev), qa2, qan2
+    kernels.count_launch("dense_accept", no_devices=not track_devices,
+                         extended=ext is not None)
+    return take, free2, (dev2 if track_devices else dev), qa2, qan2, ext2
 
 
 # ---------------------------------------------------------------------------
@@ -2289,17 +2427,21 @@ def attempt_gang_pertask(state: ClusterState, gi: int, free: Tensor,
                          dev: Tensor, qa: Tensor, qan: Tensor, extra: Tensor,
                          extra_dev: Tensor, *, config: AllocateConfig,
                          chain: Tensor, limit_eff: Tensor, quota_eff: Tensor,
-                         tt: TaskTables, domain_mask: Tensor | None = None):
+                         tt: TaskTables, domain_mask: Tensor | None = None,
+                         ext: Tensor | None = None,
+                         ext_extra: Tensor | None = None):
     """One gang's per-task placement with dense outputs — the reference's
     ``_attempt_gang`` (``:1208``) on the per-task path as the victim solver
     calls it: lane 0, no prior placements and no quota (the ``legacy``
     protocol), K9 with one lane.  ``domain_mask`` bool [N] (the affinity
-    gates' mask) runs K9's mask mode.
+    gates' mask) runs K9's mask mode; ``ext`` [N, E] with ``ext_extra``
+    [N, E] (the victims' extended credit) its extended mode.
 
     Returns ``(free2 [N, R], dev2 [N, D], qa2 [Q, R], qan2 [Q, R], nodes_t
-    i32 [T], dev_t i32 [T], pipe_t bool [T], success bool [])``: the pools
-    are rebuilt from K9's final rows at the nodes it placed on (``dev2`` is
-    ``dev`` without the device table)."""
+    i32 [T], dev_t i32 [T], pipe_t bool [T], success bool [], ext2 [N, E]
+    | None)``: the pools are rebuilt from K9's final rows at the nodes it
+    placed on (``dev2`` is ``dev`` without the device table; ``ext2`` is
+    None without ``ext``)."""
     n = state.nodes
     T = state.gangs.t
     dv = free.device
@@ -2311,12 +2453,14 @@ def attempt_gang_pertask(state: ClusterState, gi: int, free: Tensor,
                        extra_dev, chain, limit_eff, quota_eff,
                        placement=config.placement,
                        track_devices=config.track_devices, mask=mask,
-                       legacy=True)
+                       legacy=True, ext=ext, ext_extra=ext_extra)
     free2 = lane_rows_dense(free, out.nodes_t, out.free_rows)[0]
     dev2 = (lane_rows_dense(dev, out.nodes_t, out.dev_rows)[0]
             if config.track_devices else dev)
+    ext2 = (None if ext is None
+            else lane_rows_dense(ext, out.nodes_t, out.ext_rows)[0])
     return (free2, dev2, out.qa2[0], out.qan2[0], out.nodes_t[0],
-            out.dev_t[0], out.pipe_t[0], out.success[0])
+            out.dev_t[0], out.pipe_t[0], out.success[0], ext2)
 
 
 def lane_rows_dense(pool: Tensor, nodes_b: Tensor, rows: Tensor) -> Tensor:
@@ -2424,6 +2568,14 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
     gang_req_all = torch.where(
         (g.task_valid & remaining0[:, None])[:, :, None], g.task_req,
         0.0).sum(1)                                          # [G, R]
+    if config.extended:
+        # the at-pop queue keys see the MIG g-number equivalents (ref
+        # :1380-1385); whole counts times whole g-numbers: exact sums
+        gq_t = torch.zeros(g.task_valid.shape, dtype=f32, device=dev)
+        for e in range(g.ext_accel.shape[0]):
+            gq_t = gq_t + g.task_extended[..., e] * g.ext_accel[e]
+        gang_req_all[:, 0] = gang_req_all[:, 0] + torch.where(
+            g.task_valid & remaining0[:, None], gq_t, 0.0).sum(1)
     ord2 = ordering.lexsort((static_job_rank.to(f32), gq0.to(f32)))
     req2 = gang_req_all[ord2]
     # fractional and memory-based requests: XLA:CPU's cumsum order
@@ -2500,6 +2652,12 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
     free, qa, qan = (init.free, init.queue_allocated,
                      init.queue_allocated_nonpreemptible)
     dev_free = init.device_free
+    # the extended pool and its floor (the extended mode)
+    ext = init.extended_free
+    ext_on = config.extended
+    ext_extra = init.extended_releasing_extra if ext_on else None
+    ext_floor = (-(n.extended_releasing + ext_extra) - EPS) if ext_on \
+        else None
     gq = g.queue.long()
     sig = g.sig.long()
     lanes_b = torch.arange(B, dtype=i32, device=dev)
@@ -2536,7 +2694,7 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         need = g.min_needed[cand_c]
         quota_b = torch.where(placed_cnt < need, need - placed_cnt, 1).to(i32)
 
-        dev_rows = devbind_rows = None
+        dev_rows = devbind_rows = ext_rows = extbind_rows = None
         dmask_b = dup_b = None
         if anti:
             dmask_b = affinity_mask(state, anti_used, dom_static,
@@ -2581,12 +2739,13 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
                 free_rows, bind_rows = outs[5:]
             devt_b = None
         else:
+            ekw = dict(ext=ext if ext_on else None, ext_extra=ext_extra)
             lanes_out = pertask_fill(
                 n, tt, cand_c.to(i32), prior_b, free, dev_free, qa, qan,
                 extra, extra_dev, chain, limit_eff, quota_eff,
                 placement=config.placement,
                 track_devices=config.track_devices, topo=topo_st,
-                agg=agg_scratch, mask=dmask_b)
+                agg=agg_scratch, mask=dmask_b, **ekw)
             if topo_st is not None:
                 # in-cycle retry over the next domain (ref :1274-1289):
                 # a lane whose locked domain failed the fill is attempted
@@ -2599,7 +2758,7 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
                     placement=config.placement,
                     track_devices=config.track_devices, topo=topo_st,
                     banned=lanes_out.sub_dom, active=retry, base=lanes_out,
-                    agg=agg_scratch, mask=dmask_b)
+                    agg=agg_scratch, mask=dmask_b, **ekw)
                 retries += retry.sum()
                 retry_chunks += retry.any()
             qa2_b, qan2_b, nodes_b, pipe_b, succ_b, devt_b = (
@@ -2608,6 +2767,8 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
             free_rows, bind_rows = lanes_out.free_rows, lanes_out.bind_rows
             dev_rows = lanes_out.dev_rows
             devbind_rows = lanes_out.devbind_rows
+            ext_rows = lanes_out.ext_rows
+            extbind_rows = lanes_out.extbind_rows
         succ_b = succ_b & cand_valid
         # a deferred lane is conflict-rejected: it retries next chunk and
         # is neither done nor failed, even where its own attempt failed
@@ -2654,11 +2815,15 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
             qa = qa + (w * d_qa).sum(0)
             qan = qan + (w * d_qan).sum(0)
         else:
-            take, free, dev_free, qa, qan = dense_accept(
+            take, free, dev_free, qa, qan, ext2 = dense_accept(
                 nodes_b, succ_b, ok_qa & ok_qan, free_rows, dev_rows,
                 bind_rows, devbind_rows, free, dev_free, rel_floor,
                 dev_floor, d_qa, d_qan, qa, qan,
-                track_devices=config.track_devices)
+                track_devices=config.track_devices, ext_rows=ext_rows,
+                extbind_rows=extbind_rows, ext=ext if ext_on else None,
+                ext_floor=ext_floor)
+            if ext_on:
+                ext = ext2
 
         nodes_b = torch.where(take[:, None], nodes_b, -1)
         pipe_b = torch.where(take[:, None], pipe_b, False)
@@ -2707,6 +2872,7 @@ def allocate_counted(state: ClusterState, fair_share: Tensor, *,
         pipelined=pipelined[:G], allocated=allocated[:G],
         attempted=attempted[:G], fit_reason=fit_reason[:G], free=free,
         device_free=dev_free, queue_allocated=qa,
-        queue_allocated_nonpreemptible=qan, anti_used=anti_used)
+        queue_allocated_nonpreemptible=qan, anti_used=anti_used,
+        extended_free=ext)
     return result, AllocateCounts(chunks=chunks, retries=int(retries),
                                   retry_chunks=int(retry_chunks))

@@ -26,19 +26,21 @@ solver are hand-written CUDA kernels, each with its plain PyTorch version
 
 Each scenario attempt places the preemptor through K2 and K3 with one lane
 (:func:`.allocate.attempt_gang_dense`), or, on per-task snapshots (GPU
-sharing: fractional and memory-based shares, the device table), through
-K9 with one lane (:func:`.allocate.attempt_gang_pertask`).
+sharing: fractional and memory-based shares, the device table; MIG
+slices: the extended pool), through K9 with one lane
+(:func:`.allocate.attempt_gang_pertask`).
 
 At ``batch_size > 1`` (the default) reclaim (with ``chunk_reclaim``) and
 preempt run the chunked victim wavefront instead
 (:func:`_run_victim_action_chunked`): ``B`` preemptors per chunk, one host
 read per chunk, every lane's freed pools from **K8**
-:func:`freed_by_lane` (``csrc/freed_by_lane.cu``; with the device table on
-per-task snapshots), every lane's placement through K2 (one table row per
-lane) and K3 (per-lane queue tables and score bias) — or, per task, K9's
-lanes mode (each lane's own freed pools, queue table and score bias) —
-and the sparse accept through K4 with the lanes' freed credit, or the
-dense accept (with the device terms on per-task snapshots).
+:func:`freed_by_lane` (``csrc/freed_by_lane.cu``; with the device and
+extended tables on per-task snapshots), every lane's placement through K2
+(one table row per lane) and K3 (per-lane queue tables and score bias) —
+or, per task, K9's lanes mode (each lane's own freed pools, queue table
+and score bias) — and the sparse accept through K4 with the lanes' freed
+credit, or the dense accept (with the device and extended terms on
+per-task snapshots).
 
 With in-cycle affinity terms (``anti_groups``, ``attract_groups``) both
 engines read and extend the cycle's claimed-domain table that allocate
@@ -391,11 +393,12 @@ def _rollup_lanes(chain: Tensor, leaf: Tensor) -> Tensor:
 
 def freed_by_lane_plain(state: ClusterState, lane: Tensor, B: int,
                         chain: Tensor, *, compose: bool,
-                        devices: bool = False):
+                        devices: bool = False, extended: bool = False):
     """Plain PyTorch version of K8 (ref ``_freed_by_lane``, ``:738``):
     ``lane`` i32 [M] gives each pod the wavefront lane that consumes it
     (``B`` = none).  Returns ``(freed_nodes [B, N, R], freed_devices
-    [B, N, D] | None, freed_queues [B, Q, R], own_incr bool [B, N])``:
+    [B, N, D] | None, freed_queues [B, Q, R], own_incr bool [B, N],
+    freed_extended [B, N, E] | None)``:
     with ``compose`` lane ``b``'s pool is the union of lanes ``<= b`` (a
     cumulative sum over lanes in the reference's ``jnp.cumsum`` order),
     else its own assignment only; ``own_incr`` marks the nodes where lane
@@ -403,8 +406,10 @@ def freed_by_lane_plain(state: ClusterState, lane: Tensor, B: int,
     (the reference's ``track_devices``, ``:776-791``): the fractional
     pods' ``accel_held`` summed at (lane, node, device), plus the
     whole-device pods' ``devices_mask`` bits summed at (lane, node) — two
-    segment sums, in that order; None without it.  The extended table is
-    not built: this package refuses ``extended=True``."""
+    segment sums, in that order; None without it.  ``extended`` builds
+    the extended table (``:800-805``): each live pod's ``extended`` row
+    summed at (lane, node) in ascending pod order from +0.0, composed as
+    the node table is; None without it."""
     r, n, q = state.running, state.nodes, state.queues
     N, Q, D = n.n, q.q, n.d
     R_ = r.req.shape[1]
@@ -438,29 +443,52 @@ def freed_by_lane_plain(state: ClusterState, lane: Tensor, B: int,
         whole = bits.to(req_m.dtype) * (live & (r.device < 0))[:, None]
         own_d = per_d + seg_sum(whole, seg_n, N)
         freed_d = cumsum_blocked(own_d) if compose else own_d
+    freed_e = None
+    if extended:
+        own_e = seg_sum(torch.where(live[:, None], r.extended, 0.0), seg_n, N)
+        freed_e = cumsum_blocked(own_e) if compose else own_e
     own_sum = (own_n[..., 0] + own_n[..., 1]) + own_n[..., 2]
-    return freed_n, freed_d, _rollup_lanes(chain, leaf_cum), own_sum > EPS
+    return (freed_n, freed_d, _rollup_lanes(chain, leaf_cum), own_sum > EPS,
+            freed_e)
 
 
 #: most devices a node K8's device table takes (a devices_mask bit each)
 FREED_BY_LANE_MAX_D = 32
+#: most extended keys K8's extended table takes
+FREED_BY_LANE_MAX_E = 8
+
+
+def _out_buffer(name: str, buf: Tensor | None, shape: tuple,
+                dev) -> Tensor:
+    """An f32 output table: the caller's ``buf`` (allocated once per
+    action), checked, or a new one."""
+    if buf is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    if (buf.shape != shape or buf.dtype != torch.float32
+            or buf.device != dev or not buf.is_contiguous()):
+        raise ValueError(f"freed_by_lane: {name} must be f32 "
+                         f"{list(shape)} on the card")
+    return buf
 
 
 def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
                   *, compose: bool, devices: bool = False,
-                  pods: PodIndex | None = None,
-                  dev_out: Tensor | None = None):
+                  extended: bool = False, pods: PodIndex | None = None,
+                  dev_out: Tensor | None = None,
+                  ext_out: Tensor | None = None):
     """K8 — per-lane freed capacity from a pod-to-lane assignment (see
-    :func:`freed_by_lane_plain`, ``devices`` included).  CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise.  ``pods``
-    is the action's :class:`PodIndex` (K6's lists, reused); ``dev_out``
-    an f32 [B, N, D] buffer the device table is written into (the action
-    allocates it once; one is allocated here without it)."""
+    :func:`freed_by_lane_plain`, ``devices`` and ``extended`` included).
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  ``pods`` is the action's :class:`PodIndex` (K6's lists,
+    reused); ``dev_out`` and ``ext_out`` the f32 [B, N, D] and [B, N, E]
+    buffers the device and extended tables are written into (the action
+    allocates them once; they are allocated here without them)."""
     if not kernels.on_card(lane):
         return freed_by_lane_plain(state, lane, B, chain, compose=compose,
-                                   devices=devices)
+                                   devices=devices, extended=extended)
     r, n, q = state.running, state.nodes, state.queues
     N, Q, M, D = n.n, q.q, r.m, n.d
+    E = r.extended.shape[1]
     R_ = r.req.shape[1]
     if pods is None:
         pods = PodIndex.of(state)
@@ -478,6 +506,13 @@ def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
         ts.update(device=r.device, held=r.accel_held,
                   devices_mask=r.devices_mask)
         dts.update(device=i32, held=f32, devices_mask=i32)
+    if extended:
+        if E > FREED_BY_LANE_MAX_E:
+            raise NotImplementedError(
+                f"freed_by_lane: {E} exceeds the kernel's "
+                f"FREED_BY_LANE_MAX_E={FREED_BY_LANE_MAX_E}")
+        ts.update(extended=r.extended)
+        dts.update(extended=f32)
     dev = kernels.require_cuda("freed_by_lane", ts, dts)
     if lane.shape != (M,) or chain.shape != (Q, Q) or R_ != 3:
         raise ValueError("freed_by_lane: lane must be [M], chain [Q, Q], "
@@ -486,28 +521,25 @@ def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
     freed_n = torch.empty((B, N, R_), dtype=f32, device=dev)
     freed_q = torch.empty((B, Q, R_), dtype=f32, device=dev)
     own_incr = torch.empty((B, N), dtype=b, device=dev)
-    freed_d = None
-    if devices:
-        freed_d = dev_out
-        if freed_d is None:
-            freed_d = torch.empty((B, N, D), dtype=f32, device=dev)
-        elif (freed_d.shape != (B, N, D) or freed_d.dtype != f32
-              or freed_d.device != dev or not freed_d.is_contiguous()):
-            raise ValueError(f"freed_by_lane: dev_out must be f32 "
-                             f"[{B}, {N}, {D}] on the card")
+    freed_d = (_out_buffer("dev_out", dev_out, (B, N, D), dev)
+               if devices else None)
+    freed_e = (_out_buffer("ext_out", ext_out, (B, N, E), dev)
+               if extended else None)
     dev_ptrs = ((kernels.ptr(r.device), kernels.ptr(r.accel_held),
                  kernels.ptr(r.devices_mask)) if devices else (None,) * 3)
     rc = kernels.library().kai_freed_by_lane(
         *(kernels.ptr(ts[k]) for k in ("lane", "req", "node_off",
                                         "node_pods", "queue_off",
                                         "queue_pods", "chain")),
-        *dev_ptrs, N, R_, Q, B, D, int(compose),
+        *dev_ptrs, kernels.ptr(r.extended) if extended else None,
+        N, R_, Q, B, D, E if extended else 0, int(compose),
         *(kernels.ptr(t) for t in (leaf, freed_n, freed_q, own_incr)),
         None if freed_d is None else kernels.ptr(freed_d),
+        None if freed_e is None else kernels.ptr(freed_e),
         kernels.stream_of(lane))
     kernels.check(rc, "freed_by_lane")
-    kernels.count_launch("freed_by_lane", devices=devices)
-    return freed_n, freed_d, freed_q, own_incr
+    kernels.count_launch("freed_by_lane", devices=devices, extended=extended)
+    return freed_n, freed_d, freed_q, own_incr, freed_e
 
 
 # ---------------------------------------------------------------------------
@@ -843,6 +875,7 @@ def solve_for_preemptor(state: ClusterState, gi: int,
         extra_dev_eff = extra_dev + freed_dev
         ext_extra_eff = ext_extra + freed_ext
         qa_eff = qa if consolidate else qa - freed_q
+        ext2 = result.extended_free
         if cfg.uniform_tasks:
             free2, qa2, qan2, nodes_t, pipe_t, success = attempt_gang_dense(
                 state, gi, free, qa_eff, qan, extra_eff, config=cfg,
@@ -851,13 +884,18 @@ def solve_for_preemptor(state: ClusterState, gi: int,
                 domain_mask=domain_mask)
             dev2, dev_t = result.device_free, None
         else:
-            (free2, dev2, qa2, qan2, nodes_t, dev_t, pipe_t,
-             success) = attempt_gang_pertask(
+            # the attempt's extended pool, from K9's extended mode (ref
+            # :532-539): consolidation re-places its victims against it
+            (free2, dev2, qa2, qan2, nodes_t, dev_t, pipe_t, success,
+             e2) = attempt_gang_pertask(
                 state, gi, free, result.device_free, qa_eff, qan, extra_eff,
                 extra_dev_eff, config=cfg, chain=chain,
                 limit_eff=act.limit_eff, quota_eff=act.quota_eff,
-                tt=act.tasks, domain_mask=domain_mask)
-        ext2 = result.extended_free
+                tt=act.tasks, domain_mask=domain_mask,
+                ext=ext2 if cfg.extended else None,
+                ext_extra=ext_extra_eff if cfg.extended else None)
+            if cfg.extended:
+                ext2 = e2
         moves = None
         if reclaim:
             success = success & _ancestor_gate(
@@ -1098,13 +1136,19 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
     pcfg = config.placement
     uniform = pcfg.uniform_tasks
     track_dev = pcfg.track_devices
+    track_ext = pcfg.extended
     # the chunk's two [B, N, D] tables (the freed devices and the lanes'
-    # releasing device pools), allocated once per action
-    freed_d_buf = xdev_buf = None
+    # releasing device pools) and, in the extended mode, two [B, N, E] (the
+    # same of the extended pool), allocated once per action
+    freed_d_buf = xdev_buf = freed_e_buf = xext_buf = None
     if track_dev and kernels.on_card(n.valid):
         freed_d_buf = torch.empty((B, N, n.d), dtype=torch.float32,
                                   device=dev)
         xdev_buf = torch.empty_like(freed_d_buf)
+    if track_ext and kernels.on_card(n.valid):
+        freed_e_buf = torch.empty((B, N, r.extended.shape[1]),
+                                  dtype=torch.float32, device=dev)
+        xext_buf = torch.empty_like(freed_e_buf)
     depth = (config.queue_depth_preempt
              if not reclaim and config.queue_depth_preempt is not None
              else config.queue_depth)
@@ -1194,6 +1238,7 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
             res.queue_allocated_nonpreemptible
         extra = res.releasing_extra
         dev_free, extra_dev = res.device_free, res.device_releasing_extra
+        ext, ext_extra = res.extended_free, res.extended_releasing_extra
 
         # ---- lanes: first B remaining gangs in frozen order -------------
         flags = remaining[:G][order0]
@@ -1344,14 +1389,20 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
             lane_of_pod = torch.where(
                 live0, torch.where(cand_lane, lanes[None, :], B).amin(1), B)
         lane_of_pod = lane_of_pod.to(i32)
-        freed_n_b, freed_d_b, freed_q_b, own_incr_b = freed_by_lane(
-            state, lane_of_pod, B, chain, compose=not tb.sparse,
-            devices=track_dev, pods=act.pods, dev_out=freed_d_buf)
+        freed_n_b, freed_d_b, freed_q_b, own_incr_b, freed_e_b = \
+            freed_by_lane(state, lane_of_pod, B, chain, compose=not tb.sparse,
+                          devices=track_dev, extended=track_ext,
+                          pods=act.pods, dev_out=freed_d_buf,
+                          ext_out=freed_e_buf)
         extra_b = extra[None] + freed_n_b                        # [B, N, R]
         extra_dev_b = extra_dev
         if track_dev:
             extra_dev_b = torch.add(extra_dev[None], freed_d_b,
                                     out=xdev_buf)                # [B, N, D]
+        ext_extra_b = ext_extra
+        if track_ext:
+            ext_extra_b = torch.add(ext_extra[None], freed_e_b,
+                                    out=xext_buf)                # [B, N, E]
         qa_eff_b = qa[None] - freed_q_b                          # [B, Q, R]
         if reclaim:
             gate_b = gate_b & _ancestor_gate_lanes(
@@ -1397,7 +1448,9 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
                 dev_free, qa_eff_b, qan, extra_b, extra_dev_b, chain,
                 limit_eff_q, quota_eff_q, placement=pcfg.placement,
                 track_devices=track_dev, mask=dmask_b if anti else None,
-                score_bias=bias_b.contiguous(), legacy=True)
+                score_bias=bias_b.contiguous(), legacy=True,
+                ext=ext if track_ext else None,
+                ext_extra=ext_extra_b if track_ext else None)
             qa2_b, qan2_b, nodes_b, pipe_b, devt_b = (
                 lanes_out.qa2, lanes_out.qan2, lanes_out.nodes_t,
                 lanes_out.pipe_t, lanes_out.dev_t)
@@ -1490,6 +1543,26 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
                     cumsum_blocked(d_devbind)
                     <= torch.clamp(dev_free[None], min=0.0) + EPS
                 ).flatten(1).all(1)
+            if track_ext:
+                # the extended pools (ref :1478-1492), the same terms
+                ext2_b = lane_rows_dense(ext, nodes_b, lanes_out.ext_rows)
+                d_ext = torch.where(okm, ext[None] - ext2_b, 0.0)
+                cum_ext = cumsum_blocked(d_ext)
+                if not reclaim:
+                    own_e = freed_e_b - torch.cat(
+                        [torch.zeros_like(freed_e_b[:1]), freed_e_b[:-1]])
+                    leftover_b = leftover_b | (
+                        own_e - d_ext > EPS).flatten(1).any(1)
+                accept = accept & (
+                    ext[None] - cum_ext
+                    >= -(n.extended_releasing[None] + ext_extra_b) - EPS
+                ).flatten(1).all(1)
+                accept = accept & (
+                    cumsum_blocked(torch.where(okm, lane_rows_dense(
+                        torch.zeros_like(ext), nodes_b,
+                        lanes_out.extbind_rows), 0.0))
+                    <= torch.clamp(ext[None], min=0.0) + EPS
+                ).flatten(1).all(1)
         ok_qa = ((qa_comp <= limit_eff_q[None] + EPS)
                  | (cum_qa <= EPS)).flatten(1).all(1)
         ok_qan = ((qan[None] + cum_qan <= quota_eff_q[None] + EPS)
@@ -1557,9 +1630,17 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
             new_dev = dev_free - _lane_sum(w, d_dev)
             new_extra_dev = torch.where(any_take, extra_dev_b[star][0],
                                         extra_dev)
+        new_ext, new_ext_extra = ext, ext_extra
+        if track_ext:
+            # ref :1594-1601: the taken lanes' extended claims, the star
+            # lane's composed extended credit
+            new_ext = ext - _lane_sum(w, d_ext)
+            new_ext_extra = torch.where(any_take, ext_extra_b[star][0],
+                                        ext_extra)
         res = dataclasses.replace(
             res, free=new_free, releasing_extra=new_extra,
             device_free=new_dev, device_releasing_extra=new_extra_dev,
+            extended_free=new_ext, extended_releasing_extra=new_ext_extra,
             queue_allocated=new_qa,
             queue_allocated_nonpreemptible=qan + _lane_sum(w, d_qan),
             victim=res.victim | victims)
@@ -1617,12 +1698,12 @@ def _run_victim_action_chunked(state: ClusterState, fair_share: Tensor,
 
 def check_placement_ported(placement: AllocateConfig) -> None:
     """Raise ``NotImplementedError`` naming the first placement setting the
-    victim actions have not ported: on top of allocate's refusals (the
-    extended MIG/DRA table among them), topology — the required and
-    subgroup levels (the solver's per-lane domain pick, ref
-    ``:1055-1076``; the dense wavefront has none) and the uniform path's
-    preferred band.  The per-task path with the device share table and the
-    in-cycle affinity terms run."""
+    victim actions have not ported: on top of allocate's refusals,
+    topology — the required and subgroup levels (the solver's per-lane
+    domain pick, ref ``:1055-1076``; the dense wavefront has none) and the
+    uniform path's preferred band.  The per-task path with the device share
+    table, the extended scalar resources (MIG: K8's extended table, K9's
+    extended mode) and the in-cycle affinity terms run."""
     for bad, what in (
             (placement.subgroup_topology,
              "subgroup_topology=True (subgroup / required topology)"),

@@ -239,6 +239,160 @@ def sharing_reclaim_objects(apis, *, num_nodes: int, training: int,
     return nodes, queues, groups, pods
 
 
+#: the H100 80GB MIG profiles of the mixed-strategy fleet (NVIDIA MIG User
+#: Guide): key, slices a GPU, g-number
+MIG_PROFILES = (("nvidia.com/mig-1g.10gb", 7, 1),
+                ("nvidia.com/mig-2g.20gb", 3, 2),
+                ("nvidia.com/mig-3g.40gb", 2, 3))
+
+
+def mig_node_kind(i: int) -> int:
+    """Node ``i``'s MIG layout under the device plugin's ``mixed``
+    strategy: 0-2 (every GPU split into that profile of
+    :data:`MIG_PROFILES`) or 3 (eight whole GPUs), in the proportion
+    3 : 3 : 1 : 3."""
+    return (0, 0, 0, 1, 1, 1, 2, 3, 3, 3)[i % 10]
+
+
+def mig_reclaim_objects(apis, *, num_nodes: int, inference: int, pairs: int,
+                        training: int, urgent: int = 0, stale: int = 0,
+                        held: float = 0.8, pool_nodes: float = 0.02,
+                        node_accel: int = 8, seed: int = 0,
+                        now: float = 1000.0):
+    """An H100 fleet partitioned with MIG beside whole-GPU training,
+    built with the object API.  Nodes of ``node_accel`` GPUs (64 CPU,
+    256 GiB) under the ``mixed`` MIG strategy (:func:`mig_node_kind`): 30 %
+    split every GPU into 7 x ``mig-1g.10gb``, 30 % into 3 x ``mig-2g.20gb``,
+    10 % into 2 x ``mig-3g.40gb`` (no whole GPU left: allocatable accel 0)
+    and 30 % keep their GPUs whole.  Two departments of two leaf queues;
+    each leaf's accel quota is a quarter of the fleet's g-number
+    equivalents (whole GPUs plus each slice's g-number, the snapshot's
+    queue accounting).  The last ``pool_nodes`` of the nodes are an
+    inference pool, tainted ``dedicated=inference:NoSchedule`` and empty.
+
+    Running, in the first two leaves (alternating; over their fair share),
+    created kind by kind (the whole nodes', then the 1g, 2g and 3g nodes'):
+    a gang of ``node_accel`` whole-GPU pods (priority 1) on ``held`` of
+    the whole nodes; ``held`` of every other node's slices as one-pod
+    inference gangs of one slice (priority 0, tolerating the pool's
+    taint), whose CPU leaves one core of the node free — the free slices
+    are stranded, except on every 256th node, whose pods take half the
+    CPU.  The first ``stale`` 2g nodes' first gang declares a quorum of
+    2 with its one pod left, stale since ``now - 120`` s.
+
+    Pending, in the other two leaves, interleaved in creation order with
+    priorities 0-2 drawn from ``seed``: ``inference`` non-preemptible
+    one-slice gangs (1g : 2g : 3g = 4 : 2 : 1; 2 CPU, 8 GiB),
+    ``pairs`` preemptible gangs of two 3g pods and ``training``
+    preemptible gangs of ``node_accel`` whole GPUs (4 CPU, 16 GiB); then
+    ``urgent`` non-preemptible one-slice 1g gangs at priority 2 in the
+    first two leaves, which preempt their own priority-0 pods.  Returns
+    ``(nodes, queues, groups, pods, now)``."""
+    rng = np.random.default_rng(seed)
+    n_pool = max(1, int(round(num_nodes * pool_nodes)))
+    nodes, equiv = [], 0.0
+    for i in range(num_nodes):
+        kind = mig_node_kind(i)
+        ext, accel = {}, float(node_accel)
+        if kind < 3:
+            key, per_gpu, g = MIG_PROFILES[kind]
+            ext, accel = {key: float(per_gpu * node_accel)}, 0.0
+            equiv += per_gpu * node_accel * g
+        else:
+            equiv += node_accel
+        nodes.append(apis.Node(
+            f"node-{i}", apis.ResourceVec(accel, 64.0, 256.0),
+            labels={"kubernetes.io/hostname": f"node-{i}"},
+            accel_memory_gib=80.0, extended=ext))
+    for nd in nodes[num_nodes - n_pool:]:
+        nd.taints = [apis.Taint(key="dedicated", value="inference")]
+    quota = equiv / 4
+    queues = [apis.Queue(f"dept-{d}",
+                         accel=apis.QueueResource(quota=2 * quota),
+                         creation_timestamp=float(d)) for d in range(2)]
+    leaves = [f"queue-{d}-{j}" for d in range(2) for j in range(2)]
+    queues += [apis.Queue(q, parent=f"dept-{k // 2}",
+                          accel=apis.QueueResource(quota=quota),
+                          creation_timestamp=float(k))
+               for k, q in enumerate(leaves)]
+    tol = [apis.Toleration(key="dedicated", value="inference")]
+    groups, pods = [], []
+    k = 0
+
+    def gang(name, queue, prio, specs, node, **kw):
+        nonlocal k
+        groups.append(apis.PodGroup(name, queue=queue, priority=prio,
+                                    creation_timestamp=float(k),
+                                    last_start_timestamp=0.0,
+                                    min_member=kw.pop("min_member",
+                                                      len(specs)), **kw))
+        pods.extend(apis.Pod(f"{name}-{t}", name, creation_timestamp=float(k),
+                             status=apis.PodStatus.RUNNING, node=node, **spec)
+                    for t, spec in enumerate(specs))
+        k += 1
+    n_stale = 0
+    # created kind by kind — the training gangs, then the 1g, 2g and 3g
+    # slices — so that the newest victims (the victim order's first) are
+    # the largest slices
+    run_order = sorted(range(num_nodes - n_pool),
+                       key=lambda i: ((mig_node_kind(i) + 1) % 4, i))
+    for i in run_order:
+        node, kind = f"node-{i}", mig_node_kind(i)
+        if kind == 3:
+            if (i // 10) % 10 < round(held * 10):
+                gang(f"train-{i}", leaves[k % 2], 1, [
+                    dict(resources=apis.ResourceVec(1.0, 4.0, 16.0))
+                    for _ in range(node_accel)], node)
+            continue
+        key, per_gpu, _ = MIG_PROFILES[kind]
+        n_run = int(per_gpu * node_accel * held)
+        cpu = (32.0 if i % 256 == 5 else 63.0) / n_run
+        for j in range(n_run):
+            spec = dict(resources=apis.ResourceVec(0.0, cpu, 4.0),
+                        extended={key: 1.0}, tolerations=tol)
+            kw = {}
+            if kind == 1 and j == 0 and n_stale < stale:
+                kw = dict(min_member=2, stale_since=now - 120.0)
+                n_stale += 1
+            gang(f"infer-{i}-{j}", leaves[k % 2], 0, [spec], node, **kw)
+    counts = {"inference": inference, "pair": pairs, "training": training}
+    order = sorted(
+        (((j + 0.5) / n, kd) for kd, n in counts.items() for j in range(n)))
+    t0 = float(k)
+    slice_kind = (0, 0, 0, 0, 1, 1, 2)
+    for g, (_, kind) in enumerate(order):
+        name = f"want-{kind}-{g}"
+        if kind == "inference":
+            key = MIG_PROFILES[slice_kind[g % 7]][0]
+            specs = [dict(resources=apis.ResourceVec(0.0, 2.0, 8.0),
+                          extended={key: 1.0})]
+        elif kind == "pair":
+            specs = [dict(resources=apis.ResourceVec(0.0, 2.0, 8.0),
+                          extended={MIG_PROFILES[2][0]: 1.0})] * 2
+        else:
+            specs = [dict(resources=apis.ResourceVec(1.0, 4.0, 16.0))] * \
+                node_accel
+        groups.append(apis.PodGroup(
+            name, queue=leaves[2 + g % 2], min_member=len(specs),
+            priority=int(rng.integers(0, 3)), creation_timestamp=t0 + g,
+            preemptibility=(apis.Preemptibility.NON_PREEMPTIBLE
+                            if kind == "inference"
+                            else apis.Preemptibility.PREEMPTIBLE)))
+        pods += [apis.Pod(f"{name}-{t}", name, creation_timestamp=t0 + g,
+                          **spec) for t, spec in enumerate(specs)]
+    t0 += len(order)
+    for u in range(urgent):
+        name = f"urgent-{u}"
+        groups.append(apis.PodGroup(
+            name, queue=leaves[u % 2], min_member=1, priority=2,
+            creation_timestamp=t0 + u,
+            preemptibility=apis.Preemptibility.NON_PREEMPTIBLE))
+        pods.append(apis.Pod(f"{name}-0", name, creation_timestamp=t0 + u,
+                             resources=apis.ResourceVec(0.0, 2.0, 8.0),
+                             extended={MIG_PROFILES[0][0]: 1.0}))
+    return nodes, queues, groups, pods, now
+
+
 def topology_subgroup_objects(apis, make_cluster, *, num_nodes: int,
                               levels: tuple, gangs: int, seed: int = 0):
     """A topology fleet with mixed and multi-subgroup gangs, built with

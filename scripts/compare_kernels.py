@@ -7,7 +7,9 @@ one checkout on the inputs another run captured, on one NVIDIA GPU.
         --inputs build/kernel_inputs.pt --label <name>
 
 ``chip_smoke.py`` saves the first captured call of every K3, K6, K9 and
-K10 mode, and of K8's device mode, on its main path to
+K10 mode, and of K8's device and extended modes (K9's and K10's extended
+modes too: ``pertask_fill:extended``, ``:lanes_extended``,
+``:legacy_extended``, ``dense_accept:extended``), on its main path to
 ``build/kernel_inputs.pt``.  This script loads them into whichever
 ``kai_scheduler_tpu_torch`` comes first on ``sys.path`` (so it times an
 older checkout's kernels on the same inputs), holds each kernel against
@@ -18,8 +20,8 @@ mode's median of 50 calls (CUDA events around each call, as
 checkout's path.  A checkout whose K6 has no queue-only mode runs the
 whole kernel for that call (what its reclaim ran) and is held on the
 queue tables; a mode whose arguments the checkout's wrapper does not take
-(K8's device table, K9's lanes and legacy modes before they existed) is
-listed under ``missing``.  ``scripts/chip_proof.sh run``
+(K8's device table, K9's lanes and legacy modes before they existed, the
+extended modes before they existed) is listed under ``missing``.  ``scripts/chip_proof.sh run``
 alternates it between the parent commit and the change (parent, change,
 change, parent).
 """
@@ -107,7 +109,9 @@ def main() -> int:
     out = dict(label=a.label, package=kai_scheduler_tpu_torch.__file__,
                card=card.strip(), modes={}, missing=[])
     for mode, (args, kw) in saved.items():
-        kw = {k: v for k, v in kw.items() if k != "agg"}
+        # a keyword left at None is the wrapper's default: an older
+        # checkout whose wrapper lacks it runs the same call
+        kw = {k: v for k, v in kw.items() if k != "agg" and v is not None}
         wrapper = {"freed_by_mask": V.freed_by_mask,
                    "freed_by_lane": V.freed_by_lane,
                    "pertask_fill": A.pertask_fill,

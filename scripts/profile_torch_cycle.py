@@ -4,7 +4,7 @@ GPU.
     python3 scripts/profile_torch_cycle.py [--shape headline|contended|
         sharing|topology|topology_subgroups|saturated|
         saturated_sequential|preempt_many_queues|fragmented|
-        sharing_reclaim|affinity|
+        sharing_reclaim|mig_reclaim|affinity|
         affinity_reclaim|affinity_reclaim_sequential|affinity_sharing|
         repack_racks|resident_churn]
 
@@ -15,7 +15,8 @@ under ``torch.profiler`` (CPU and CUDA activities), and prints:
   per-op cost inflates the profiled one) and its phases
   (``CycleResult.phase_seconds``); for the victim cells (``saturated``,
   ``saturated_sequential``, ``preempt_many_queues``, ``fragmented``,
-  ``sharing_reclaim``, as ``chip_smoke.py`` configures them) the
+  ``sharing_reclaim``, ``mig_reclaim``, as ``chip_smoke.py`` configures
+  them) the
   per-action seconds, steps
   (wavefront chunks for a chunked action), scenario attempts (lanes) and
   syncs;
@@ -170,7 +171,8 @@ def main() -> int:
         shape = {"saturated": chip_smoke.SATURATED,
                  "preempt_many_queues": chip_smoke.PREEMPT_MANY,
                  "fragmented": chip_smoke.FRAGMENTED,
-                 "sharing_reclaim": chip_smoke.SHARING_RECLAIM}[
+                 "sharing_reclaim": chip_smoke.SHARING_RECLAIM,
+                 "mig_reclaim": chip_smoke.MIG_RECLAIM}[
                      chip_smoke.VICTIM_CELLS[args.shape][0]]
         _, _, warm = chip_smoke.run_victim_cycle(args.shape, "cuda")
         cluster = chip_smoke.victim_cluster(args.shape)

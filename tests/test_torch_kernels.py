@@ -1984,3 +1984,259 @@ def test_stale_pass_device_table_matches_plain(cuda):
         if isinstance(b, torch.Tensor):
             assert torch.equal(a.cpu(), b), f.name
     assert float(want.device_releasing_extra.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# MIG and other extended scalar resources: K8, K9 and K10's extended modes
+# ---------------------------------------------------------------------------
+
+def _mig_session(cuda, num_nodes=400, **kw):
+    objs = fleets.mig_reclaim_objects(
+        apis, num_nodes=num_nodes, **dict(dict(
+            inference=96, pairs=16, training=8, urgent=8, stale=2), **kw))
+    nodes, queues, groups, pods, now = objs
+    cluster = Cluster.from_objects(nodes, queues, groups, pods)
+    cluster.now = now
+    return cluster, Session.open(nodes, queues, groups, pods, device=cuda,
+                                 now=now)
+
+
+def _widen_ext(st, E: int, rng):
+    """The snapshot's extended tables ([N, 3] node pools, [G, T, 3]
+    requests, [3] g-numbers) cut to one key or padded to ``E`` with more
+    keys: whole slice counts with g-numbers 1-4, and fractional non-MIG
+    keys (g-number 0) of 0.25 / 0.5 shares.  Returns ``(nodes, tt, ext,
+    ext_rel)``."""
+    n, g = st.nodes, st.gangs
+    dv = n.free.device
+    ext, rel = n.extended_free.cpu().numpy(), n.extended_releasing.cpu().numpy()
+    te, acc = g.task_extended.cpu().numpy(), g.ext_accel.cpu().numpy()
+    if E <= 3:
+        ext, rel, te, acc = ext[:, :E], rel[:, :E], te[..., :E], acc[:E]
+    else:
+        k = E - 3
+        N, (G, T) = ext.shape[0], te.shape[:2]
+        frac = np.arange(k) % 2 == 1
+        cap = np.where(frac, rng.choice([0.0, 0.5, 1.5], (N, k)),
+                       rng.integers(0, 5, (N, k))).astype(np.float32)
+        ext = np.concatenate([ext, cap], 1)
+        rel = np.concatenate([rel, np.where(rng.random((N, k)) < 0.2, 1.0,
+                                            0.0).astype(np.float32)], 1)
+        req = np.where(frac, rng.choice([0.25, 0.5], (G, T, k)), 1.0)
+        req = np.where((rng.random((G, T, k)) < 0.15)
+                       & g.task_valid.cpu().numpy()[..., None], req, 0.0)
+        te = np.concatenate([te, req.astype(np.float32)], 2)
+        acc = np.concatenate([acc, np.where(frac, 0.0, np.arange(k) % 4 + 1)
+                              .astype(np.float32)])
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dv)
+    tt = dataclasses.replace(A.TaskTables.of(st), task_extended=t(te),
+                             ext_accel=t(acc))
+    return (dataclasses.replace(n, extended_releasing=t(rel)), tt, t(ext),
+            t(rel))
+
+
+def _mig_lanes(cuda, *, B: int, E: int, mode: str, seed: int = 0):
+    """K9's arguments in the extended mode on the MIG fleet (nodes with
+    accel 0 beside whole-GPU nodes), ``E`` keys: ``allocate`` (prior
+    placements, a shared extended credit), ``lanes`` (per-lane node, queue
+    and extended credit, score bias, the legacy protocol) or ``legacy``
+    (the solver's one-lane call, shared pools)."""
+    from kai_scheduler_tpu_torch.ops.scoring import W_OWN_FREED
+    _, ses = _mig_session(cuda)
+    st = ses.state
+    rng = np.random.default_rng(seed + E)
+    nodes, tt, ext, _ = _widen_ext(st, E, rng)
+    g, q = st.gangs, st.queues
+    N, T = nodes.n, g.t
+    ng = len(ses.index.gang_names)
+    nn = len(ses.index.node_names)
+    # lanes of the pending gangs (the running gangs place nothing)
+    pending = np.nonzero(g.task_valid.any(-1).cpu().numpy()[:ng])[0]
+    cand = rng.choice(pending, B).astype(np.int32)
+    prior = np.full((B, T), -1, np.int32)
+    if mode == "allocate":
+        # a prior placement on the first task of every third multi-task lane
+        multi = g.task_valid.sum(-1).cpu().numpy()[cand] > 1
+        pick = np.nonzero(multi & (np.arange(B) % 3 == 0))[0]
+        prior[pick, 0] = rng.integers(0, nn, len(pick))
+    xe = np.zeros((N, E), np.float32)
+    xe[rng.choice(nn, 8, replace=False)] = 1.0
+    inf = float("inf")
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    # the cpu and memory the running slices hold are free again, so the
+    # extended pools decide the fits
+    free = torch.cat([nodes.free[:, :1], nodes.allocatable[:, 1:]], 1)
+    dev = nodes.device_free
+    qa, extra = q.allocated, torch.zeros_like(free)
+    extra_dev = torch.zeros_like(dev)
+    kw = dict(placement=PlacementConfig(), track_devices=True, ext=ext,
+              ext_extra=t(xe))
+    if mode == "lanes":
+        xb = np.repeat(xe[None], B, 0)
+        bias = np.zeros((B, N), np.float32)
+        ex = np.zeros((B,) + tuple(free.shape), np.float32)
+        for b in range(B):
+            pick = rng.choice(nn, 3, replace=False)
+            xb[b, pick] += np.float32(rng.choice([1.0, 2.0]))
+            ex[b, pick] += np.float32([0.0, 8.0, 32.0])
+            bias[b, pick] = W_OWN_FREED
+        qa_b = q.allocated.cpu().numpy()[None].repeat(B, 0)
+        qa = t((qa_b * rng.uniform(0.8, 1.0, qa_b.shape)).astype(np.float32))
+        extra = t(ex)
+        extra_dev = extra_dev[None].expand(B, *dev.shape).contiguous()
+        kw.update(ext_extra=t(xb), score_bias=t(bias), legacy=True)
+    elif mode == "legacy":
+        kw.update(legacy=True)
+    args = (nodes, tt, t(cand), t(prior), free, dev, qa,
+            q.allocated_nonpreemptible, extra, extra_dev,
+            A._chain_membership(q.parent, ses.config.num_levels),
+            torch.where(q.limit <= -0.5, inf, q.limit),
+            torch.where(q.quota <= -0.5, inf, q.quota))
+    return args, kw
+
+
+@pytest.mark.parametrize("mode", ["allocate", "lanes", "legacy"])
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("E", [1, 3, 8])
+def test_pertask_fill_extended_mode_matches_plain(cuda, E, B, mode):
+    """K9's extended mode byte-equal to its plain version at 1, 3 and 8
+    keys (whole slices and fractional non-MIG keys), on a fleet whose MIG
+    nodes have no whole device, in the allocate lanes, the victim lanes
+    (per-lane extended credit) and the legacy protocol."""
+    args, kw = _mig_lanes(cuda, B=1 if mode == "legacy" else B, E=E,
+                          mode=mode, seed=B)
+    kernels.reset_launch_counts()
+    out = A.pertask_fill(*args, **kw)
+    c = kernels.launch_counts()
+    assert (c["pertask_fill"], c["pertask_fill:extended"]) == (1, 1)
+    assert c["pertask_fill:lanes"] == (mode == "lanes")
+    want = A.attempt_gang_in_domain_plain(*args, **kw)
+    assert_same(out.fields(), want.fields())
+    assert out.ext_rows.shape == (args[2].shape[0], args[3].shape[1], E)
+    if mode != "legacy" and B > 1:
+        placed = out.nodes_t >= 0
+        assert bool(placed.any())
+        assert bool((out.extbind_rows.sum(-1) > 0).any() | out.pipe_t.any())
+
+
+@pytest.mark.parametrize("B", [1, 256])
+def test_dense_accept_extended_mode_matches_plain(cuda, B):
+    """K10 with the extended pool's columns (E = 3, whole and fractional
+    claims, some bind-now) byte-equal to its plain version, with and
+    without the device table."""
+    dargs = _dense_inputs(cuda, B=B, T=4, seed=B)
+    rng = np.random.default_rng(B + 1)
+    nodes_b = dargs[0].cpu().numpy()
+    N, E = dargs[7].shape[0], 3
+    ext = rng.choice(np.float32([0.0, 1.0, 4.0, 300.0]), (N, E))
+    ext_floor = (-rng.choice(np.float32([0.0, 1.0]), (N, E))
+                 - np.float32(1e-6)).astype(np.float32)
+    claim = rng.choice(np.float32([0.0, 0.5, 1.0]), (B, 4, E))
+    nb = np.clip(nodes_b, 0, None)
+    rows = np.where((nodes_b >= 0)[..., None], ext[nb] - claim, 0.0)
+    bind = np.where((nodes_b >= 0)[..., None] & (rng.random((B, 4, 1))
+                                                 < 0.5), claim, 0.0)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda)
+    ekw = dict(ext_rows=t(rows), extbind_rows=t(bind), ext=t(ext),
+               ext_floor=t(ext_floor))
+    for track in (True, False):
+        kernels.reset_launch_counts()
+        out = A.dense_accept(*dargs, track_devices=track, **ekw)
+        assert kernels.launch_counts()["dense_accept:extended"] == 1
+        assert_same(out, A.dense_accept_plain(*dargs, track_devices=track,
+                                              **ekw))
+    assert out[5].shape == (N, E)
+
+
+@pytest.mark.parametrize("compose", [True, False])
+@pytest.mark.parametrize("case", ["random", "empty"])
+def test_freed_by_lane_extended_table_matches_plain(cuda, case, compose):
+    """K8's extended table byte-equal to its plain version on the MIG
+    fleet's running slices: an empty lane assignment and a random one,
+    composed and not."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    _, ses = _mig_session(cuda)
+    st = ses.state
+    chain = A._chain_membership(st.queues.parent, ses.config.num_levels)
+    rng = np.random.default_rng(len(case) + compose)
+    M, B = st.running.m, 64
+    lane = np.where(rng.random(M) < 0.7, rng.integers(0, B, M), B)
+    if case == "empty":
+        lane[:] = B
+    lane = torch.from_numpy(lane.astype(np.int32)).to(cuda)
+    kernels.reset_launch_counts()
+    got = V.freed_by_lane(st, lane, B, chain, compose=compose, extended=True)
+    c = kernels.launch_counts()
+    assert (c["freed_by_lane"], c["freed_by_lane:extended"]) == (1, 1)
+    want = V.freed_by_lane_plain(_cpu_state(st), lane.cpu(), B, chain.cpu(),
+                                 compose=compose, extended=True)
+    assert_same(got, want)
+    assert (float(got[4].sum()) > 0) == (case != "empty")
+
+
+def test_extended_limits_raise(cuda):
+    """Past ``PERTASK_MAX_E`` (and K8's ``FREED_BY_LANE_MAX_E``) extended
+    keys, each wrapper raises ``NotImplementedError`` naming the limit."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    args, kw = _mig_lanes(cuda, B=4, E=A.PERTASK_MAX_E + 1, mode="allocate")
+    with pytest.raises(NotImplementedError, match="PERTASK_MAX_E"):
+        A.pertask_fill(*args, **kw)
+    dargs = _dense_inputs(cuda, B=4, T=2)
+    E = A.PERTASK_MAX_E + 1
+    N = dargs[7].shape[0]
+    z = torch.zeros((N, E), device=cuda)
+    with pytest.raises(NotImplementedError, match="PERTASK_MAX_E"):
+        A.dense_accept(*dargs, track_devices=True,
+                       ext_rows=torch.zeros((4, 2, E), device=cuda),
+                       extbind_rows=torch.zeros((4, 2, E), device=cuda),
+                       ext=z, ext_floor=z)
+    _, ses = _mig_session(cuda, num_nodes=40)
+    st = ses.state
+    r = st.running
+    wide = dataclasses.replace(st, running=dataclasses.replace(
+        r, extended=torch.zeros((r.m, V.FREED_BY_LANE_MAX_E + 1),
+                                device=cuda)))
+    lane = torch.zeros((r.m,), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="FREED_BY_LANE_MAX_E"):
+        V.freed_by_lane(wide, lane, 4, A._chain_membership(
+            st.queues.parent, 2), compose=True, extended=True)
+
+
+@pytest.mark.parametrize("batch_size", [1, 64])
+def test_cuda_mig_reclaim_cycle_equals_cpu_cycle(cuda, batch_size):
+    """The mig_reclaim cell at 200 nodes through the five default actions
+    on the card and on the CPU: packed commit, BindRequests, evictions and
+    move rebinds equal; allocate went through K9 and K10's extended modes,
+    the victim actions through K9's extended legacy mode and K7 (and, when
+    chunked, K8's extended table and K9's extended lanes mode)."""
+    from kai_scheduler_tpu_torch.framework.scheduler import SchedulerConfig
+    from kai_scheduler_tpu_torch.framework.session import SessionConfig
+    from kai_scheduler_tpu_torch.ops.victims import VictimConfig
+    out, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        cluster, _ = _mig_session(cuda, num_nodes=200, inference=48,
+                                  pairs=8, training=4)
+        kernels.reset_launch_counts()
+        out[device] = Scheduler(SchedulerConfig(
+            incremental=False, session=SessionConfig(victims=VictimConfig(
+                batch_size=batch_size))), device=device).run_once(cluster)
+        counts[device] = kernels.launch_counts()
+    c = counts["cuda"]
+    for k in ("pertask_fill:extended", "dense_accept:extended",
+              "pertask_fill:legacy", "replace_victims"):
+        assert c[k] > 0, (k, c)
+    if batch_size > 1:
+        assert c["freed_by_lane:extended"] > 0, c
+        assert c["pertask_fill:lanes"] > 0, c
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.evictions
+    assert gpu.packed.tobytes() == cpu.packed.tobytes()
+    for field in ("bind_requests", "evictions", "move_bind_requests"):
+        assert [dataclasses.astuple(b) for b in getattr(gpu, field)] == \
+            [dataclasses.astuple(b) for b in getattr(cpu, field)], field

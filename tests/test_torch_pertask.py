@@ -438,7 +438,7 @@ def test_dense_accept_bit_equal(B, placement):
             .flatten(1).all(1))
     assert_bits(ref[5], gate.numpy(), "queue gates")
     pn = ln.port_state.nodes
-    take, free, dev, qa, qan = A.dense_accept_plain(
+    take, free, dev, qa, qan, _ = A.dense_accept_plain(
         got.nodes_t, okt, gate, got.free_rows, got.dev_rows, got.bind_rows,
         got.devbind_rows, t["free"], t["dev"],
         -(pn.releasing + t["extra"]) - A.EPS,

@@ -219,7 +219,7 @@ def test_five_action_cycle_matches_reference_or_is_refused(
     the default config): on the per-task path the victim actions run with
     the device share table; the commit, the BindRequests (devices
     included), the evictions and the move rebinds equal the reference's,
-    or the port refuses by name (MIG, subgroup or required topology, the
+    or the port refuses by name (subgroup or required topology, the
     uniform preferred band)."""
     ref_cluster = _build(CASES[name])
     cluster = _port_cluster(ref_cluster)
@@ -246,10 +246,10 @@ def test_five_action_cycle_matches_reference_or_is_refused(
 
 
 def test_five_action_refusals():
-    """What the five-action cycle still refuses on the catalogs: MIG
-    (``extended=True``), subgroup / required topology and the uniform
-    preferred band, 15 of the 113 cases; no case is refused for the
-    per-task path or the device share table."""
+    """What the five-action cycle still refuses on the catalogs: subgroup /
+    required topology and the uniform preferred band, 6 of the 113 cases;
+    no case is refused for the per-task path, the device share table or
+    MIG (``extended=True``)."""
     refused = {}
     for m in (*CATALOGS, test_victim_scenarios):
         for case in m.CASES:
@@ -265,9 +265,8 @@ def test_five_action_refusals():
                 auto.victims.placement, check_placement_ported))
             if reason is not None:
                 refused[case.name] = reason
-    assert len(refused) == 15, sorted(refused)
-    assert all(("extended=True" in r or "topology" in r)
-               for r in refused.values()), refused
+    assert len(refused) == 6, sorted(refused)
+    assert all("topology" in r for r in refused.values()), refused
 
 
 def test_catalog_cases_run_on_the_port():
@@ -291,12 +290,12 @@ def _auto_config(case):
 
 
 def test_per_task_catalog_cases_run_on_the_port():
-    """The per-task path runs the sharing catalog's fractional and
-    memory-based cases, the hierarchy catalog's fractional reclaim cases
-    and the topology catalog's subgroup-quorum cases; the topology
-    catalog's required-level cases run on the uniform path with its
-    domain tables, and its preferred-level case with the uniform
-    preferred band; MIG (extended) stays refused."""
+    """The per-task path runs the sharing catalog's fractional,
+    memory-based and MIG (extended) cases, the hierarchy catalog's
+    fractional and MIG reclaim cases and the topology catalog's
+    subgroup-quorum cases; the topology catalog's required-level cases run
+    on the uniform path with its domain tables, and its preferred-level
+    case with the uniform preferred band; allocate refuses none."""
     runs, uniform, refused = set(), {}, {}
     for case in CASES.values():
         cfg = _auto_config(case)
@@ -310,14 +309,14 @@ def test_per_task_catalog_cases_run_on_the_port():
     sharing = {c.name for c in test_sharing_scenarios.CASES}
     topology = {c.name for c in test_topology_scenarios.CASES}
     hierarchy = {c.name for c in test_hierarchy_order_scenarios.CASES}
-    assert len(runs & sharing) == 9
-    assert len(runs & hierarchy) == 3
+    assert len(runs & sharing) == 13
+    assert len(runs & hierarchy) == 5
     assert runs & topology == {
         "subgroups_quorum_both_sides",
         "subgroup_quorum_unsatisfiable_fails_whole_gang",
         "multiple_subgroup_jobs", "unbalanced_subgroup_hierarchy"}
-    assert all("extended=True" in refused[n] for n in sharing - runs)
-    assert not set(refused) & topology
+    assert sharing <= runs
+    assert not refused, refused
     required = {n for n in topology if n in uniform
                 and uniform[n].subgroup_topology}
     assert required == {"required_rack_confines_gang",
@@ -334,7 +333,7 @@ def test_victim_cycle_on_per_task_snapshot_matches_reference(name, pad32):
     five-action cycle at the default victim config runs the victim
     actions' per-task solver and wavefront (K9 with one lane, K9's lanes
     mode and the dense accept), equal to the reference's — or, where the
-    snapshot carries a setting the port still refuses (MIG, subgroup or
+    snapshot carries a setting the port still refuses (subgroup or
     required topology), refuses by name on both paths."""
     case = VICTIM_CASES[name]
     ref_cluster = _build(case)
@@ -358,7 +357,7 @@ def test_victim_cycle_on_per_task_snapshot_matches_reference(name, pad32):
     reason = (_refusal(pad32["config"])
               or _refusal(pad32["victims"].placement, check_placement_ported))
     if reason is not None:
-        assert "extended=True" in reason or "topology" in reason, reason
+        assert "topology" in reason, reason
         with pytest.raises(NotImplementedError, match=re.escape(reason)):
             sched.run_once(cluster)
         return
@@ -370,14 +369,12 @@ def test_victim_cycle_on_per_task_snapshot_matches_reference(name, pad32):
 
 
 def test_dra_and_deletion_catalogs_run_on_the_port():
-    """Allocate runs every DRA case and the deletion/mixed catalog's cases
-    but its three MIG ones, which it refuses by name (``extended=True``):
-    the parity test above compares the rest byte for byte."""
-    for catalog, refused_n in ((test_dra_scenarios, 0),
-                               (test_deletion_mixed_scenarios, 3)):
+    """Allocate runs every DRA case and every deletion/mixed case, its
+    three MIG ones (``extended=True``) among them: the parity test above
+    compares them byte for byte."""
+    for catalog in (test_dra_scenarios, test_deletion_mixed_scenarios):
         reasons = [_refusal(_auto_config(c)) for c in catalog.CASES]
         refused = [r for r in reasons if r is not None]
-        assert len(refused) == refused_n, refused
-        assert all("extended=True" in r for r in refused)
+        assert not refused, refused
     assert len(test_dra_scenarios.CASES) == 17
     assert len(test_deletion_mixed_scenarios.CASES) == 16

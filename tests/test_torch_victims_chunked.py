@@ -249,7 +249,7 @@ def test_freed_by_lane_bit_equal(compose, B):
     want_n, _, want_q, _, want_own = _ref_freed_by_lane(
         s.ref, jnp.asarray(lane), B=B, chain=rchain, compose=compose,
         track_devices=False, extended=False)
-    got_n, got_d, got_q, got_own = V.freed_by_lane(
+    got_n, got_d, got_q, got_own, _ = V.freed_by_lane(
         s.port, torch.from_numpy(lane), B, chain, compose=compose)
     assert got_d is None
     assert_same(want_n, got_n, "freed_nodes")
