@@ -112,8 +112,11 @@ mismatch:
    modes of K2-K4 (per-lane pools, per-lane queue tables and score bias,
    the freed credit), K8's device and extended modes, K9's lanes, legacy
    and extended modes and K10's extended mode (with mig_reclaim's K6 and
-   K7 calls) are held against their plain versions on the captured
-   inputs and timed;
+   K7 calls, and sharing_reclaim's K7 calls) are held against their plain
+   versions on the captured inputs and timed; then K8 (every mode) and K7
+   on ``state.kernel_edges``' inputs (1 to 4,096 lanes, node 0's padding
+   rows, tied scores, a victim that fits nowhere, ...) are held against
+   their plain versions, tolerance 0;
 8. runs the four affinity cells (in-cycle affinity terms: cross-gang
    required anti-affinity, anchors with dependers, shared host ports) the
    same way — a profiled warm-up with the inputs captured, timed runs on
@@ -194,7 +197,8 @@ last cell).  The log also goes, line by line,
 to ``chiprun_out/chip_smoke.log``.  Longer output
 (the compiler's register/spill report, per-phase numbers) goes to
 ``chiprun_out/chip_smoke.json``, and the first captured call of every
-K3, K6, K9 and K10 mode (and K8's device mode) to
+K3, K6, K9 and K10 mode, of K8's three modes and of K7 (its call with the
+most victims on fragmented and on sharing_reclaim) to
 ``build/kernel_inputs.pt``
 (``scripts/compare_kernels.py`` times another checkout's kernels on
 them).  Imports nothing of JAX.
@@ -2539,30 +2543,80 @@ def victim_kernel_checks(caps: dict) -> dict:
         shape=f"M={r.m} masked={nm} N={N} Q={Q} ({cell})")
 
     # K7 — the node pools once, the victims' rows, the outputs once; per
-    # victim and node ~(3R + 3D + 2E + 12) operations for the fit test
-    errs, rec = [], None
-    for args, kw in caps["fragmented"].calls.get("replace_victims", []):
-        got = caps["fragmented"]._orig["replace_victims"](*args, **kw)
-        cst = _cpu_state(args[0])
-        errs.append(_max_abs_err(_to_cpu(got), V.replace_victims_plain(
-            cst, *_to_cpu(args[1:]), **kw)))
-        if rec is None or int(args[1].sum()) > int(rec[0][1].sum()):
-            rec = (args, kw)
-    args, kw = rec
-    state, mask = args[0], args[1]
-    k_ms = _time_ms(lambda: V.replace_victims(*args, **kw))
-    p_ms = _time_ms(lambda: V.replace_victims_plain(*args, **kw), 5)
-    r, n = state.running, state.nodes
-    N, D, E, R_ = n.n, n.d, r.extended.shape[1], r.req.shape[1]
-    nv = min(int(mask.sum()), max(1, min(r.m, args[-1])))
-    pools = N * (2 * R_ + 2 * D + 2 * E + 1) * 4 + N * 2
-    nbytes = pools + r.m + nv * (28 + 4 * E) + N * (R_ + D + E) * 4 + r.m * 4
-    b, by = bound(nbytes, nv * N * (3 * R_ + 3 * D + 2 * E + 12))
-    out["replace_victims"] = dict(
-        max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
-        bound_by=by, nearest_library_ms=None, nearest_library=None,
-        shape=f"victims={nv} N={N} D={D}")
+    # victim and node ~(3R + 3D + 2E + 12) operations for the fit test;
+    # held on the fragmented and sharing_reclaim calls, timed on each
+    # cell's call with the most victims (saved for compare_kernels.py)
+    errs, recs = [], {}
+    for cell in ("fragmented", "sharing_reclaim"):
+        for args, kw in caps[cell].calls.get("replace_victims", []):
+            got = caps[cell]._orig["replace_victims"](*args, **kw)
+            cst = _cpu_state(args[0])
+            errs.append(_max_abs_err(_to_cpu(got), V.replace_victims_plain(
+                cst, *_to_cpu(args[1:]), **kw)))
+            if (cell not in recs
+                    or int(args[1].sum()) > int(recs[cell][0][1].sum())):
+                recs[cell] = (args, kw)
+
+    def k7_row(cell, args, kw):
+        KERNEL_INPUTS[f"replace_victims:{cell}"] = (args, kw)
+        state, mask = args[0], args[1]
+        k_ms = _time_ms(lambda: V.replace_victims(*args, **kw))
+        p_ms = _time_ms(lambda: V.replace_victims_plain(*args, **kw), 5)
+        r, n = state.running, state.nodes
+        N, D, E, R_ = n.n, n.d, r.extended.shape[1], r.req.shape[1]
+        nv = min(int(mask.sum()), max(1, min(r.m, args[-1])))
+        pools = N * (2 * R_ + 2 * D + 2 * E + 1) * 4 + N * 2
+        nbytes = (pools + r.m + nv * (28 + 4 * E) + N * (R_ + D + E) * 4
+                  + r.m * 4)
+        b, by = bound(nbytes, nv * N * (3 * R_ + 3 * D + 2 * E + 12))
+        return dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms,
+                    bound_ms=b, bound_by=by, nearest_library_ms=None,
+                    nearest_library=None,
+                    shape=f"victims={nv} N={N} D={D} ({cell})",
+                    checked=len(errs))
+    rows = {cell: k7_row(cell, *rec) for cell, rec in recs.items()}
+    out["replace_victims"] = dict(rows["fragmented"],
+                                  sharing_reclaim=rows["sharing_reclaim"])
     return out
+
+
+def victim_edge_checks() -> dict:
+    """K8 (every mode, composed and not, at 1, 17, 256 and 300 lanes, and
+    at 4,096 lanes with the device and extended tables both on: one node a
+    block, its columns in slabs) and K7 (ties, a victim that fits nowhere,
+    more victims than ``max_pods``, fractional, memory-based and
+    whole-device victims, extended keys, a mix) on
+    ``state.kernel_edges``' inputs — those the CPU parity tests hold the
+    plain versions to the reference on — vs their plain versions on CPU
+    copies, tolerance 0.  Returns the calls held per kernel."""
+    from kai_scheduler_tpu_torch.ops import allocate as A
+    from kai_scheduler_tpu_torch.ops import victims as V
+    from kai_scheduler_tpu_torch.state import kernel_edges as KE
+    from kai_scheduler_tpu_torch.state import state_from_numpy
+    held = {"freed_by_lane": 0, "replace_victims": 0}
+    for B in KE.K8_LANES + (4096,):
+        lv, lane = KE.k8_case(B)
+        st, cst = state_from_numpy(lv, "cuda"), state_from_numpy(lv, "cpu")
+        chain = A._chain_membership(cst.queues.parent, KE.NUM_LEVELS)
+        lane = torch.from_numpy(lane)
+        runs = ([(True, "slab")] if B == 4096 else
+                [(c, m) for c in (True, False) for m in KE.K8_MODES])
+        for compose, mode in runs:
+            kw = dict(compose=compose, devices=mode in ("devices", "slab"),
+                      extended=mode in ("extended", "slab"))
+            got = V.freed_by_lane(st, lane.cuda(), B, chain.cuda(), **kw)
+            _max_abs_err(_to_cpu(got), V.freed_by_lane_plain(
+                cst, lane, B, chain, **kw))
+            held["freed_by_lane"] += 1
+    for case in KE.K7_CASES:
+        lv, mask, *pools, max_pods = KE.k7_case(case)
+        st, cst = state_from_numpy(lv, "cuda"), state_from_numpy(lv, "cpu")
+        args = (torch.from_numpy(mask), *map(torch.from_numpy, pools))
+        got = V.replace_victims(st, *(a.cuda() for a in args), max_pods)
+        _max_abs_err(_to_cpu(got), V.replace_victims_plain(cst, *args,
+                                                           max_pods))
+        held["replace_victims"] += 1
+    return held
 
 
 
@@ -2608,9 +2662,8 @@ def lane_kernel_checks(caps: dict) -> dict:
         cell, (state, lane, B, chain), kw = max(
             recs, key=lambda rc: (rc[1][2] * rc[1][0].nodes.n,
                                   int((rc[1][1] < rc[1][2]).sum())))
-        if devices:
-            KERNEL_INPUTS["freed_by_lane:devices"] = ((state, lane, B,
-                                                       chain), kw)
+        KERNEL_INPUTS["freed_by_lane:devices" if devices
+                      else "freed_by_lane"] = ((state, lane, B, chain), kw)
         pods = V.PodIndex.of(state)
         k_ms = _time_ms(lambda: V.freed_by_lane(state, lane, B, chain,
                                                 pods=pods, **kw))
@@ -2897,7 +2950,16 @@ def mig_kernel_checks(cap: Capture) -> dict:
     M, N, Q = r.m, n.n, q.q
     D = n.d if kw.get("devices") else 0
     E = r.extended.shape[1]
-    n_live = int((lane < B).sum())
+    live = lane < B
+    n_live = int(live.sum())
+    seg = (torch.where(live, lane, B).long() * (N + 1)
+           + torch.where(live, torch.clamp(r.node, min=0), N).long())
+    ext_m = torch.where(live[:, None], r.extended, 0.0)
+
+    def library():
+        torch.zeros(((B + 1) * (N + 1), E),
+                    device=lane.device).index_add_(0, seg, ext_m)
+    lib_ms = _time_ms(library)
     nbytes = (M * 4 + n_live * (12 + 4 * E + (12 if D else 0))
               + (N + 1 + M + Q + 1 + M) * 4 + Q * Q
               + B * N * (12 + 4 * D + 4 * E) + B * Q * 12 + B * N)
@@ -2907,8 +2969,10 @@ def mig_kernel_checks(cap: Capture) -> dict:
     b, by = bound(nbytes, ops)
     out["freed_by_lane:extended"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b,
-        bound_by=by, checked=len(errs), nearest_library_ms=None,
-        nearest_library=None,
+        bound_by=by, checked=len(errs), nearest_library_ms=lib_ms,
+        nearest_library="index_add_ of the live pods' extended rows into "
+                        "the [B (N + 1), E] lane-node table only (atomic "
+                        "order)",
         shape=f"B={B} N={N} E={E} D={D} Q={Q} M={M} live={n_live} "
               f"compose={kw['compose']}")
 
@@ -3181,6 +3245,10 @@ def run(oracles: dict) -> int:
     log(f"mig_reclaim: K6 and K7 on its calls == plain "
         f"{sr_checks['freed_by_lane:extended']['k6_k7']}")
     del caps
+    report["victim_edges"] = victim_edge_checks()
+    log(f"K8 and K7 on kernel_edges' inputs == plain (tolerance 0): "
+        f"{report['victim_edges']} calls; elapsed "
+        f"{time.perf_counter() - t_start:.0f} s")
     log(f"victim kernels checked; elapsed {time.perf_counter() - t_start:.0f}"
         f" s")
 

@@ -164,9 +164,9 @@ _SIGNATURES = {
     "kai_sparse_accept": [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P],
     "kai_cumsum_ds": [_P, _I, _I, _P, _P, _P],
     "kai_freed_by_mask": [_P] * 12 + [_I] * 7 + [_P] * 8 + [_P],
-    "kai_replace_victims": [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P] * 5
+    "kai_replace_victims": [_P, _P, _I] + [_P] * 15 + [_I] * 5 + [_P] * 6
     + [_P],
-    "kai_freed_by_lane": [_P] * 11 + [_I] * 7 + [_P] * 6 + [_P],
+    "kai_freed_by_lane": [_P] * 12 + [_I] * 8 + [_P] * 7 + [_P],
     "kai_pertask_fill": [_P] * 49 + [_I] * 21 + [_F] + [_P] * 13 + [_P],
     "kai_pertask_summary": [_P] * 9 + [_I] * 2 + [_P] + [_P],
     "kai_dense_accept": [_P] * 19 + [_I] * 7 + [_P] * 8 + [_P],

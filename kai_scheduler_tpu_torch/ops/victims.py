@@ -331,7 +331,7 @@ def replace_victims(state: ClusterState, mask: Tensor, free: Tensor,
                     ext_releasing: Tensor, max_pods: int):
     """K7 — the consolidation validator's greedy re-placement (see
     :func:`replace_victims_plain`).  CPU tensors run the plain version;
-    CUDA tensors launch one block or raise."""
+    CUDA tensors launch one thread-block cluster or raise."""
     if not kernels.on_card(mask):
         return replace_victims_plain(state, mask, free, device_free,
                                      releasing, device_releasing, ext_free,
@@ -350,27 +350,37 @@ def replace_victims(state: ClusterState, mask: Tensor, free: Tensor,
     idxs = torch.zeros((K + 1,), dtype=i32, device=dev)
     idxs.scatter_(0, dest, torch.arange(M, dtype=i32, device=dev))
     n_vic = m32.sum(dtype=i32).reshape(1)
-    free_o = free.contiguous().clone()
-    dev_o = device_free.contiguous().clone()
-    ext_o = ext_free.contiguous().clone()
-    moves = torch.full((M,), -1, dtype=i32, device=dev)
+    free_o = torch.empty((N, R_), dtype=f32, device=dev)
+    dev_o = torch.empty((N, D), dtype=f32, device=dev)
+    ext_o = torch.empty((N, E), dtype=f32, device=dev)
+    moves = torch.empty((M,), dtype=i32, device=dev)
     all_ok = torch.empty((), dtype=b, device=dev)
+    # node rows the cluster's shared memory cannot hold (RV_SMEM)
+    cache = torch.empty((N * ((R_ + E + 5) | 1),), dtype=f32, device=dev)
     ts = dict(idxs=idxs, n_vic=n_vic, req=r.req, device=r.device,
               accel_mem=r.accel_mem, held=r.accel_held,
               filter_class=r.filter_class, extended=r.extended,
               dev_mem=n.device_memory_gib, valid=n.valid,
               fmask=n.filter_masks, releasing=releasing.contiguous(),
               dev_releasing=device_releasing.contiguous(),
-              ext_releasing=ext_releasing.contiguous(), free=free_o,
-              dev=dev_o, ext=ext_o, moves=moves, all_ok=all_ok)
+              ext_releasing=ext_releasing.contiguous(),
+              free_in=free.contiguous(), dev_in=device_free.contiguous(),
+              ext_in=ext_free.contiguous(), free=free_o, dev=dev_o,
+              ext=ext_o, moves=moves, all_ok=all_ok, cache=cache)
     kernels.require_cuda("replace_victims", ts, dict(
         idxs=i32, n_vic=i32, req=f32, device=i32, accel_mem=f32, held=f32,
         filter_class=i32, extended=f32, dev_mem=f32, valid=b, fmask=b,
-        releasing=f32, dev_releasing=f32, ext_releasing=f32, free=f32,
-        dev=f32, ext=f32, moves=i32, all_ok=b))
+        releasing=f32, dev_releasing=f32, ext_releasing=f32, free_in=f32,
+        dev_in=f32, ext_in=f32, free=f32, dev=f32, ext=f32, moves=i32,
+        all_ok=b, cache=f32))
+    for key, t, shape in (("free", free, (N, R_)),
+                          ("device_free", device_free, (N, D)),
+                          ("ext_free", ext_free, (N, E))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"replace_victims: {key} must be {list(shape)}")
     p = [kernels.ptr(t) for t in ts.values()]
     rc = kernels.library().kai_replace_victims(
-        p[0], p[1], K, *p[2:14], N, R_, D, E, *p[14:],
+        p[0], p[1], K, *p[2:17], N, M, R_, D, E, *p[17:],
         kernels.stream_of(mask))
     kernels.check(rc, "replace_victims")
     kernels.count_launch("replace_victims")
@@ -456,6 +466,8 @@ def freed_by_lane_plain(state: ClusterState, lane: Tensor, B: int,
 FREED_BY_LANE_MAX_D = 32
 #: most extended keys K8's extended table takes
 FREED_BY_LANE_MAX_E = 8
+#: queue-list entries a block of K8's live-pod compaction reads (FL_SEG)
+_FREED_LANE_SEG = 1024
 
 
 def _out_buffer(name: str, buf: Tensor | None, shape: tuple,
@@ -493,11 +505,11 @@ def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
     if pods is None:
         pods = PodIndex.of(state)
     f32, i32, b = torch.float32, torch.int32, torch.bool
-    ts = dict(lane=lane, req=r.req, node_off=pods.node_off,
+    ts = dict(lane=lane, node=r.node, req=r.req, node_off=pods.node_off,
               node_pods=pods.node_pods, queue_off=pods.queue_off,
               queue_pods=pods.queue_pods, chain=chain)
-    dts = dict(lane=i32, req=f32, node_off=i32, node_pods=i32, queue_off=i32,
-               queue_pods=i32, chain=b)
+    dts = dict(lane=i32, node=i32, req=f32, node_off=i32, node_pods=i32,
+               queue_off=i32, queue_pods=i32, chain=b)
     if devices:
         if D > FREED_BY_LANE_MAX_D:
             raise NotImplementedError(
@@ -518,6 +530,11 @@ def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
         raise ValueError("freed_by_lane: lane must be [M], chain [Q, Q], "
                          "R 3")
     leaf = torch.empty((B, Q, R_), dtype=f32, device=dev)
+    # segment counts, compacted queue offsets, compacted live pods, node
+    # tile flags, the tiles with a live pod and their count
+    scratch = torch.empty(
+        (max(1, -(-M // _FREED_LANE_SEG)) + Q + 1 + M + 2 * N + 1,),
+        dtype=i32, device=dev)
     freed_n = torch.empty((B, N, R_), dtype=f32, device=dev)
     freed_q = torch.empty((B, Q, R_), dtype=f32, device=dev)
     own_incr = torch.empty((B, N), dtype=b, device=dev)
@@ -528,12 +545,13 @@ def freed_by_lane(state: ClusterState, lane: Tensor, B: int, chain: Tensor,
     dev_ptrs = ((kernels.ptr(r.device), kernels.ptr(r.accel_held),
                  kernels.ptr(r.devices_mask)) if devices else (None,) * 3)
     rc = kernels.library().kai_freed_by_lane(
-        *(kernels.ptr(ts[k]) for k in ("lane", "req", "node_off",
+        *(kernels.ptr(ts[k]) for k in ("lane", "node", "req", "node_off",
                                         "node_pods", "queue_off",
                                         "queue_pods", "chain")),
         *dev_ptrs, kernels.ptr(r.extended) if extended else None,
-        N, R_, Q, B, D, E if extended else 0, int(compose),
-        *(kernels.ptr(t) for t in (leaf, freed_n, freed_q, own_incr)),
+        N, R_, Q, B, D, E if extended else 0, M, int(compose),
+        *(kernels.ptr(t) for t in (leaf, scratch, freed_n, freed_q,
+                                   own_incr)),
         None if freed_d is None else kernels.ptr(freed_d),
         None if freed_e is None else kernels.ptr(freed_e),
         kernels.stream_of(lane))

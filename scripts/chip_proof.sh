@@ -1,8 +1,9 @@
 #!/bin/sh
-# Runs chip_smoke.py, the mig_reclaim cycle profile and the card tests
-# from exactly the files git would commit, unpacked into chip_proof/
-# (listed in .gitignore), so that nothing built or left behind in the
-# working tree is used; then times K3, K6, K8, K9 and K10 of the parent
+# Runs chip_smoke.py, the mig_reclaim and sharing_reclaim cycle profiles
+# and the card tests from exactly the files git would commit, unpacked
+# into chip_proof/ (listed in .gitignore), so that nothing built or left
+# behind in the working tree is used; then times K3, K6, K7, K8, K9 and
+# K10 of the parent
 # commit, unpacked into chip_parent/ (listed too), against the change's on
 # the inputs chip_smoke.py captured, in turns (parent, change, change,
 # parent); the modes the parent lacks are listed as missing.
@@ -13,8 +14,8 @@
 #
 # `run` (on the GPU machine) builds and runs from chip_proof/ and copies the
 # reports to chiprun_out/proof/: chip_smoke.json, chip_smoke.log,
-# profile_mig_reclaim_summary.json, card_tests.log and
-# compare_kernels.jsonl (one line a turn).
+# profile_mig_reclaim_summary.json, profile_sharing_reclaim_summary.json,
+# card_tests.log and compare_kernels.jsonl (one line a turn).
 set -e
 cd "$(dirname "$0")/.."
 case "$1" in
@@ -34,8 +35,10 @@ run)
     nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     python3 chip_smoke.py
     python3 scripts/profile_torch_cycle.py --shape mig_reclaim
+    python3 scripts/profile_torch_cycle.py --shape sharing_reclaim
     cp chiprun_out/chip_smoke.json chiprun_out/chip_smoke.log \
         chiprun_out/profile_mig_reclaim_summary.json \
+        chiprun_out/profile_sharing_reclaim_summary.json \
         ../chiprun_out/proof/
     python3 -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels.py -q > ../chiprun_out/proof/card_tests.log

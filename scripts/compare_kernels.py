@@ -1,29 +1,32 @@
-"""Time K3 (``uniform_fill``), K6 (``freed_by_mask``), K8
-(``freed_by_lane``), K9 (``pertask_fill``) and K10 (``dense_accept``) of
-one checkout on the inputs another run captured, on one NVIDIA GPU.
+"""Time K3 (``uniform_fill``), K6 (``freed_by_mask``), K7
+(``replace_victims``), K8 (``freed_by_lane``), K9 (``pertask_fill``) and
+K10 (``dense_accept``) of one checkout on the inputs another run captured,
+on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # writes build/kernel_inputs.pt
     PYTHONPATH=<checkout> python3 scripts/compare_kernels.py \\
         --inputs build/kernel_inputs.pt --label <name>
 
 ``chip_smoke.py`` saves the first captured call of every K3, K6, K9 and
-K10 mode, and of K8's device and extended modes (K9's and K10's extended
+K10 mode, and of K8's three modes (K9's and K10's extended
 modes too: ``pertask_fill:extended``, ``:lanes_extended``,
-``:legacy_extended``, ``dense_accept:extended``), on its main path to
-``build/kernel_inputs.pt``.  This script loads them into whichever
+``:legacy_extended``, ``dense_accept:extended``), and K7's call with the
+most victims on fragmented and on sharing_reclaim
+(``replace_victims:fragmented``, ``:sharing_reclaim``), on its main path
+to ``build/kernel_inputs.pt``.  This script loads them into whichever
 ``kai_scheduler_tpu_torch`` comes first on ``sys.path`` (so it times an
 older checkout's kernels on the same inputs), holds each kernel against
-that checkout's plain version (tolerance 0; K6's and K8's on CPU copies,
-whose ``index_add_`` adds in order), and prints one JSON line: each
-mode's median of 50 calls (CUDA events around each call, as
-``chip_smoke.py`` times them), the card's name and power limit, and the
-checkout's path.  A checkout whose K6 has no queue-only mode runs the
-whole kernel for that call (what its reclaim ran) and is held on the
+that checkout's plain version (tolerance 0; K6's, K7's and K8's on CPU
+copies, K6's and K8's ``index_add_`` adding in order there), and prints
+one JSON line: each mode's median of 50 calls (CUDA events around each
+call, as ``chip_smoke.py`` times them), the card's name and power limit,
+and the checkout's path.  A checkout whose K6 has no queue-only mode runs
+the whole kernel for that call (what its reclaim ran) and is held on the
 queue tables; a mode whose arguments the checkout's wrapper does not take
 (K8's device table, K9's lanes and legacy modes before they existed, the
-extended modes before they existed) is listed under ``missing``.  ``scripts/chip_proof.sh run``
-alternates it between the parent commit and the change (parent, change,
-change, parent).
+extended modes before they existed) is listed under ``missing``.
+``scripts/chip_proof.sh run`` alternates it between the parent commit and
+the change (parent, change, change, parent).
 """
 from __future__ import annotations
 
@@ -106,6 +109,16 @@ def main() -> int:
             chain.cpu(), **kw)
         return call, [t.cpu() for t in _flat(call())], _flat(plain)
 
+    def replaced(args, kw):
+        """K7's call, its outputs and its plain version's, on CPU copies."""
+        def call():
+            return V.replace_victims(*args, **kw)
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+               for a in args[1:]]
+        plain = V.replace_victims_plain(
+            state_from_numpy(state_to_numpy(args[0]), "cpu"), *cpu, **kw)
+        return call, [t.cpu() for t in _flat(call())], _flat(plain)
+
     out = dict(label=a.label, package=kai_scheduler_tpu_torch.__file__,
                card=card.strip(), modes={}, missing=[])
     for mode, (args, kw) in saved.items():
@@ -114,6 +127,7 @@ def main() -> int:
         kw = {k: v for k, v in kw.items() if k != "agg" and v is not None}
         wrapper = {"freed_by_mask": V.freed_by_mask,
                    "freed_by_lane": V.freed_by_lane,
+                   "replace_victims": V.replace_victims,
                    "pertask_fill": A.pertask_fill,
                    "dense_accept": A.dense_accept,
                    "uniform_fill": A.uniform_fill}[mode.split(":")[0]]
@@ -124,6 +138,8 @@ def main() -> int:
             call, got, want = freed(args, kw)
         elif mode.startswith("freed_by_lane"):
             call, got, want = lane_freed(args, kw)
+        elif mode.startswith("replace_victims"):
+            call, got, want = replaced(args, kw)
         else:
             fn, plain = {"pertask_fill": (A.pertask_fill,
                                           A.pertask_fill_plain),

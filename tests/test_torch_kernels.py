@@ -17,6 +17,7 @@ from kai_scheduler_tpu_torch.ops import drf
 from kai_scheduler_tpu_torch.ops.scoring import PlacementConfig
 from kai_scheduler_tpu_torch.runtime.cluster import Cluster
 from kai_scheduler_tpu_torch.state import fleets, make_cluster
+from kai_scheduler_tpu_torch.state import kernel_edges as KE
 
 pytestmark = pytest.mark.cuda
 
@@ -1754,17 +1755,19 @@ def test_freed_by_mask_edges_match_plain(cuda, case):
 # and legacy modes, the stale pass's K6 device table, whole cycles
 # ---------------------------------------------------------------------------
 
-def _device_state(cuda, D: int, seed: int):
+def _device_state(cuda, D: int, seed: int, **shape):
     """A running cluster on the card with ``D`` devices a node (the
     snapshot takes 31 at most: at 32 the node device tables gain a 32nd
     column): fractional shares (0.5, 24 GiB of 80 and random) on random
     devices, whole-device pods with random ``devices_mask`` bits over every
     device (bit 31 included at 32 devices), so fractional and whole-device
-    pods meet on one device; a few pods on no node."""
+    pods meet on one device; a few pods on no node.  ``shape`` overrides
+    the cluster's size."""
     from kai_scheduler_tpu_torch.state import state_from_numpy, state_to_numpy
-    ses = _session(cuda, num_nodes=200, node_accel=float(min(D, 31)),
-                   num_gangs=300, tasks_per_gang=4, running_fraction=0.8,
-                   num_departments=3, queues_per_department=3)
+    ses = _session(cuda, **dict(dict(
+        num_nodes=200, node_accel=float(min(D, 31)), num_gangs=300,
+        tasks_per_gang=4, running_fraction=0.8, num_departments=3,
+        queues_per_department=3), **shape))
     lv = state_to_numpy(ses.state)
     for k in ("nodes.device_free", "nodes.device_releasing"):
         lv[k] = np.pad(lv[k], ((0, 0), (0, D - lv[k].shape[1])))
@@ -2240,3 +2243,103 @@ def test_cuda_mig_reclaim_cycle_equals_cpu_cycle(cuda, batch_size):
     for field in ("bind_requests", "evictions", "move_bind_requests"):
         assert [dataclasses.astuple(b) for b in getattr(gpu, field)] == \
             [dataclasses.astuple(b) for b in getattr(cpu, field)], field
+
+
+# ---------------------------------------------------------------------------
+# K8 and K7 at their edges (state.kernel_edges, the inputs the CPU parity
+# tests hold the plain versions to the reference on) and at full width
+# ---------------------------------------------------------------------------
+
+#: every K8 mode at every edge width, composed and not; and 4,096 lanes
+#: with the device and extended tables both on (43 columns: one node a
+#: block, its columns in slabs)
+K8_EDGES = [(B, compose, mode) for B in KE.K8_LANES
+            for compose in (True, False) for mode in KE.K8_MODES] + [
+                (4096, True, "slab")]
+
+
+@pytest.mark.parametrize("B,compose,mode", K8_EDGES)
+def test_freed_by_lane_edges_match_plain(cuda, B, compose, mode):
+    """K8 byte-equal to its plain version on ``kernel_edges.k8_case``:
+    37 nodes with 32 devices and 8 extended keys, node 0's padding rows
+    with one live row, empty nodes, a leaf queue with no live pod, pods of
+    queue -1."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    from kai_scheduler_tpu_torch.state import state_from_numpy
+    lv, lane = KE.k8_case(B)
+    st = state_from_numpy(lv, cuda)
+    chain = A._chain_membership(st.queues.parent, KE.NUM_LEVELS)
+    kw = dict(compose=compose, devices=mode in ("devices", "slab"),
+              extended=mode in ("extended", "slab"))
+    lane_t = torch.from_numpy(lane).to(cuda)
+    kernels.reset_launch_counts()
+    got = V.freed_by_lane(st, lane_t, B, chain, **kw)
+    c = kernels.launch_counts()
+    assert (c["freed_by_lane"], c["freed_by_lane:devices"],
+            c["freed_by_lane:extended"]) == (1, int(kw["devices"]),
+                                             int(kw["extended"]))
+    want = V.freed_by_lane_plain(_cpu_state(st), lane_t.cpu(), B,
+                                 chain.cpu(), **kw)
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("case", KE.K7_CASES)
+def test_replace_victims_edges_match_plain(cuda, case):
+    """K7 byte-equal to its plain version on ``kernel_edges.k7_case``:
+    ties, a victim that fits nowhere, more victims than ``max_pods``,
+    fractional, memory-based and whole-device victims, extended keys, a
+    mix; 37 nodes (no multiple of the cluster's slice)."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    from kai_scheduler_tpu_torch.state import state_from_numpy
+    lv, mask, *pools, max_pods = KE.k7_case(case)
+    st = state_from_numpy(lv, cuda)
+    args = (torch.from_numpy(mask).to(cuda),
+            *(torch.from_numpy(p).to(cuda) for p in pools), max_pods)
+    kernels.reset_launch_counts()
+    got = V.replace_victims(st, *args)
+    assert kernels.launch_counts()["replace_victims"] == 1
+    want = V.replace_victims_plain(_cpu_state(st), *(
+        a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    assert_same(got, want)
+
+
+def test_victim_kernels_full_width_match_plain(cuda):
+    """K8's device mode at 10,000 nodes x 8 devices and 256 lanes (composed
+    and not), its extended mode on the MIG fleet at 10,000 nodes (E 3) and
+    64 lanes, and K7 at 10,000 nodes x 8 devices with 12 victims, each
+    byte-equal to its plain version."""
+    from kai_scheduler_tpu_torch.ops import victims as V
+    st, ses = _device_state(cuda, 8, seed=5, num_nodes=10_000,
+                            node_accel=8.0, num_gangs=12_000)
+    cst = _cpu_state(st)
+    rng = np.random.default_rng(13)
+    M = st.running.m
+    chain = A._chain_membership(st.queues.parent, ses.config.num_levels)
+    lane = np.where(rng.random(M) < 0.05, rng.integers(0, 256, M), 256)
+    lane = torch.from_numpy(lane.astype(np.int32)).to(cuda)
+    for compose in (True, False):
+        got = V.freed_by_lane(st, lane, 256, chain, compose=compose,
+                              devices=True)
+        assert_same(got, V.freed_by_lane_plain(
+            cst, lane.cpu(), 256, chain.cpu(), compose=compose,
+            devices=True))
+    n = st.nodes
+    mask = torch.zeros((M,), dtype=torch.bool)
+    mask[torch.from_numpy(rng.choice(M, 12, replace=False))] = True
+    args = (mask.to(cuda), n.free, n.device_free, n.releasing,
+            n.device_releasing, n.extended_free, n.extended_releasing, 512)
+    got = V.replace_victims(st, *args)
+    assert_same(got, V.replace_victims_plain(cst, *(
+        a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
+    assert bool(got[4]) and int((got[3] >= 0).sum()) == 12
+    _, ses = _mig_session(cuda, num_nodes=10_000)
+    st = ses.state
+    M = st.running.m
+    chain = A._chain_membership(st.queues.parent, ses.config.num_levels)
+    lane = np.where(rng.random(M) < 0.02, rng.integers(0, 64, M), 64)
+    lane = torch.from_numpy(lane.astype(np.int32)).to(cuda)
+    got = V.freed_by_lane(st, lane, 64, chain, compose=True, extended=True)
+    assert got[4].shape == (64, 10_000, 3)
+    assert_same(got, V.freed_by_lane_plain(
+        _cpu_state(st), lane.cpu(), 64, chain.cpu(), compose=True,
+        extended=True))
