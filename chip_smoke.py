@@ -113,10 +113,11 @@ mismatch:
    the freed credit), K8's device and extended modes, K9's lanes, legacy
    and extended modes and K10's extended mode (with mig_reclaim's K6 and
    K7 calls, and sharing_reclaim's K7 calls) are held against their plain
-   versions on the captured inputs and timed; then K8 (every mode) and K7
-   on ``state.kernel_edges``' inputs (1 to 4,096 lanes, node 0's padding
-   rows, tied scores, a victim that fits nowhere, ...) are held against
-   their plain versions, tolerance 0;
+   versions on the captured inputs and timed; then K8 (every mode), K7,
+   K5 and K12 on ``state.kernel_edges``' inputs (1 to 4,096 lanes, node
+   0's padding rows, tied scores, a victim that fits nowhere, K5's tile
+   and root-chunk edges, K12 at 37 nodes, ...) are held against their
+   plain versions, tolerance 0;
 8. runs the four affinity cells (in-cycle affinity terms: cross-gang
    required anti-affinity, anchors with dependers, shared host ports) the
    same way — a profiled warm-up with the inputs captured, timed runs on
@@ -188,12 +189,13 @@ mismatch:
    and last ``{"ok":
    true, "device": {...}}``.
 
-The CPU oracles of the sharing and affinity cells (the slowest) run in
-one spawned child process beside the card's work, on half the cores, and
-resident_churn's, then sharing_reclaim's and mig_reclaim's, in a second
-one on a quarter of them, all submitted when the script starts; each cell
-is compared with its oracle when the result arrives (sharing after the
-last cell).  The log also goes, line by line,
+The CPU oracles of the affinity and sharing cells (the slowest), then
+those of saturated, saturated_sequential, preempt_many_queues and
+fragmented, run in one spawned child process beside the card's work, on
+half the cores, and resident_churn's, then sharing_reclaim's and
+mig_reclaim's, in a second one on a quarter of them, all submitted when the script starts; each cell is compared with
+its oracle when the result arrives (sharing and the victim cells after
+the last cell).  The log also goes, line by line,
 to ``chiprun_out/chip_smoke.log``.  Longer output
 (the compiler's register/spill report, per-phase numbers) goes to
 ``chiprun_out/chip_smoke.json``, and the first captured call of every
@@ -363,7 +365,7 @@ def _global_names(source: str) -> list[str]:
 SOURCE_FUNCTIONS = {
     "topo_tables_build": ("tt_counts_kernel", "tt_domains_kernel"),
     "topo_tables_update": ("tt_update_kernel",),
-    "affinity_mask": ("affinity_mask_kernel",),
+    "affinity_mask": ("affinity_mask_nodes_kernel",),
     "anti_mark": ("anti_mark_kernel",)}
 
 
@@ -637,26 +639,32 @@ CELL_ACTIONS = {"preempt_many_queues": ("preempt",)}
 _LANES = {"freed_by_lane": (0, 1, 2), "type_tables:lanes": (0, 1, 2),
           "uniform_fill:lanes": (0, 1, 2), "sparse_accept:credit": (0, 1)}
 VICTIM_KEEP = {
-    "saturated": dict(_LANES),
+    "saturated": dict(_LANES, cumsum_ds=(0, 1, 2, 3)),
     "saturated_sequential": {"cumsum_ds": (0, 1), "freed_by_mask": (0, 3)},
-    "preempt_many_queues": dict(_LANES),
+    "preempt_many_queues": dict(_LANES, cumsum_ds=(0,)),
     "fragmented": {"cumsum_ds": (0,), "freed_by_mask": (1, 40),
                    "replace_victims": (0, 20)},
     # consolidation's one-lane legacy fills (K9 through the solver) come
     # first, then reclaim's and preempt's chunks
-    "sharing_reclaim": {"freed_by_lane": (0, 1, 2, 30),
+    "sharing_reclaim": {"cumsum_ds": (0, 1, 5, 11),
+                        "freed_by_lane": (0, 1, 2, 30),
                         "pertask_fill:lanes": (0, 1, 2, 30),
                         "pertask_fill": (0, 5, 40),
                         "replace_victims": (0, 5, 40)},
     # allocate's per-task chunks and consolidation's one-lane legacy fills
     # (K9 through the solver) share the allocate module's K9 site
-    "mig_reclaim": {"freed_by_lane": (0, 1, 2, 20),
+    "mig_reclaim": {"cumsum_ds": (0, 1, 5, 10, 19),
+                    "freed_by_lane": (0, 1, 2, 20),
                     "pertask_fill:lanes": (0, 1, 2, 20),
                     "pertask_fill": (0, 1, 2, 6, 10, 14, 18, 22),
                     "dense_accept": (0, 1, 2),
                     "freed_by_mask": (0, 1, 5, 30),
                     "replace_victims": (0, 5, 20)},
 }
+#: the victim cells whose calls of K5 are captured and held (the affinity
+#: and resident cells' calls are held only through their cycles' oracles)
+K5_CELLS = ("saturated", "saturated_sequential", "preempt_many_queues",
+            "fragmented", "sharing_reclaim", "mig_reclaim")
 #: the kernels each victim cell must launch
 VICTIM_NEED = {
     "saturated": ("cumsum_ds", "freed_by_mask", "freed_by_lane",
@@ -2209,7 +2217,11 @@ def affinity_kernel_checks(caps: dict) -> dict:
         if i == 1:
             need_rows.update(rows[on].unique().tolist())
     fn = caps[c]._orig[k]
+    KERNEL_INPUTS["affinity_mask"] = (args, kw)
     ms = _time_ms(lambda: fn(*args, **kw))
+    one = [r for r in recs if r[2][3].numel() == 1]
+    if one:
+        KERNEL_INPUTS["affinity_mask:one_lane"] = one[0][2:]
     plain_ms = _time_ms(lambda: A.affinity_mask_plain(*args, **kw))
     nb = (N * (len(pairs) + 4 * len(levels) + len(need_rows) + 1)
           + _nbytes(cand) + B * (KT + KP) * 4 + B * N)
@@ -2483,24 +2495,35 @@ def victim_kernel_checks(caps: dict) -> dict:
     out = {}
 
     # K5 — read each element once, write once; ~20 f32 operations each
-    # (a combine per up-sweep pair, one per even prefix, the final add)
-    errs, big = [], None
-    for cell in ("saturated_sequential", "fragmented"):
+    # (a combine per up-sweep pair, one per even prefix, the final add);
+    # held on every captured call of the cells that launch it, timed on
+    # the largest (and each cell's largest saved for compare_kernels.py)
+    errs, big, shapes, per_cell = [], None, {}, {}
+    for cell in K5_CELLS:
         for args, kw in caps[cell].calls.get("cumsum_ds", []):
             x = args[0]
             got = caps[cell]._orig["cumsum_ds"](x, **kw)
-            errs.append(_max_abs_err(got.cpu(), NU.cumsum_ds_plain(x.cpu())))
-            if big is None or x.numel() > big.numel():
-                big = x
-    k_ms = _time_ms(lambda: NU.cumsum_ds(big))
-    p_ms = _time_ms(lambda: NU.cumsum_ds_plain(big), 5)
-    lib_ms = _time_ms(lambda: torch.cumsum(big, 0))
-    b, by = bound(2 * big.numel() * 4, 20 * big.numel())
+            errs.append(_max_abs_err(got.cpu(), NU.cumsum_ds(x.cpu(), **kw)))
+            U = x.shape[kw.get("axis", 0)]
+            shapes.setdefault(cell, []).append(f"U={U} C={x.numel() // U}")
+            if cell not in per_cell or x.numel() > per_cell[cell][0].numel():
+                per_cell[cell] = (x, kw)
+            if big is None or x.numel() > big[0].numel():
+                big = (x, kw)
+    for cell, (x, kw) in per_cell.items():
+        KERNEL_INPUTS[f"cumsum_ds:{cell}"] = ((x,), kw)
+    x, kw = big
+    k_ms = _time_ms(lambda: NU.cumsum_ds(x, **kw))
+    p_ms = _time_ms(lambda: NU.cumsum_ds_plain(x.movedim(kw.get("axis", 0),
+                                                         0)), 5)
+    lib_ms = _time_ms(lambda: torch.cumsum(x, kw.get("axis", 0)))
+    b, by = bound(2 * x.numel() * 4, 20 * x.numel())
+    U = x.shape[kw.get("axis", 0)]
     out["cumsum_ds"] = dict(
         max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b,
         bound_by=by, nearest_library_ms=lib_ms,
         nearest_library="torch.cumsum (plain f32, not compensated)",
-        shape=f"U={big.shape[0]} C={big[0].numel()}")
+        shape=f"U={U} C={x.numel() // U}", checked=len(errs), shapes=shapes)
 
     # K6 — the mask, the masked pods' rows and the five outputs once each;
     # a few adds per masked pod plus the chain roll-up
@@ -2585,15 +2608,21 @@ def victim_edge_checks() -> dict:
     at 4,096 lanes with the device and extended tables both on: one node a
     block, its columns in slabs) and K7 (ties, a victim that fits nowhere,
     more victims than ``max_pods``, fractional, memory-based and
-    whole-device victims, extended keys, a mix) on
-    ``state.kernel_edges``' inputs — those the CPU parity tests hold the
-    plain versions to the reference on — vs their plain versions on CPU
-    copies, tolerance 0.  Returns the calls held per kernel."""
+    whole-device victims, extended keys, a mix), K5 (around its 256-row
+    tile and its chunk of roots, 216,001 rows, column counts off its
+    8-column group, a [U, Q, R] table) and K12 (37, 48 and 100 nodes,
+    both node vectors, gangs with no and with every slot used, junk lanes,
+    attract on and off) on ``state.kernel_edges``' inputs — those the CPU
+    parity tests hold the plain versions to the reference on — vs their
+    plain versions on CPU copies, tolerance 0.  Returns the calls held per
+    kernel."""
     from kai_scheduler_tpu_torch.ops import allocate as A
     from kai_scheduler_tpu_torch.ops import victims as V
     from kai_scheduler_tpu_torch.state import kernel_edges as KE
     from kai_scheduler_tpu_torch.state import state_from_numpy
-    held = {"freed_by_lane": 0, "replace_victims": 0}
+    from kai_scheduler_tpu_torch.utils import numerics as NU
+    held = {"freed_by_lane": 0, "replace_victims": 0, "cumsum_ds": 0,
+            "affinity_mask": 0}
     for B in KE.K8_LANES + (4096,):
         lv, lane = KE.k8_case(B)
         st, cst = state_from_numpy(lv, "cuda"), state_from_numpy(lv, "cpu")
@@ -2616,6 +2645,21 @@ def victim_edge_checks() -> dict:
         _max_abs_err(_to_cpu(got), V.replace_victims_plain(cst, *args,
                                                            max_pods))
         held["replace_victims"] += 1
+    for case in KE.K5_CASES:
+        x = torch.from_numpy(KE.k5_case(case))
+        got = NU.cumsum_ds(x.cuda()).cpu()
+        if not torch.equal(got.view(torch.int32),
+                           NU.cumsum_ds_plain(x).view(torch.int32)):
+            raise AssertionError(f"cumsum_ds differs from its plain version "
+                                 f"on edge case {case}")
+        held["cumsum_ds"] += 1
+    for case in KE.K12_CASES:
+        st, used, dom, cand, attract = KE.k12_inputs(case, "cuda")
+        got = A.affinity_mask(st, used, dom, cand, attract=attract)
+        cst, *rest = KE.k12_inputs(case)
+        _max_abs_err(got.cpu(), A.affinity_mask_plain(cst, *rest[:3],
+                                                      attract=attract))
+        held["affinity_mask"] += 1
     return held
 
 
@@ -3018,22 +3062,33 @@ def main() -> int:
     _LOG_FILE = open(os.path.join(OUT_DIR, "chip_smoke.log"), "w")
     # two child processes (spawned: they never touch CUDA) compute the
     # slowest CPU oracles beside the card's work: one the affinity and
-    # sharing cells', in the order the card needs them, the other
-    # resident_churn's, whose cold cycle alone (25,000 pods placed in
-    # ~2,400 allocate chunks) takes some 400 s on the CPU, then the two
-    # per-task victim cells'; both are stopped on any exit
+    # sharing cells', in the order the card needs them, then four victim
+    # cells'; the other resident_churn's, whose cold cycle alone (25,000
+    # pods placed in ~2,400 allocate chunks) takes some 400-550 s on the
+    # CPU, then the two per-task victim cells'; both are stopped on any
+    # exit
     spawn = multiprocessing.get_context("spawn")
     pools = [concurrent.futures.ProcessPoolExecutor(
         max_workers=1, mp_context=spawn, initializer=init)
         for init in (_oracle_process_init, _resident_oracle_init)]
     try:
+        # the card's own thread sets the script's time (962 s on an
+        # NVIDIA H100 machine with a slow host, with the four uniform
+        # victim cells' oracles in it, ~60 s together): they follow the
+        # sharing oracle in the first process and their cells compare
+        # with them at the end.  (The first process's affinity oracle,
+        # ~350 s, is then ready about when the card reaches the affinity
+        # cells, so moving topology_subgroups' oracle out of the card's
+        # thread too would only wait for it.)
         oracles = {"resident_churn": pools[1].submit(run_resident_oracle)}
         oracles.update({cell: pools[0].submit(run_affinity_cycle, cell, "cpu")
                         for cell in AFFINITY_CELLS})
         oracles["sharing"] = pools[0].submit(run_sharing_cycle, "cpu")
-        # the two victim cells' oracles (~46 s each) follow
-        # resident_churn's (~610 s) in the second process: the first one's
-        # affinity and sharing oracles (~860 s) set the script's time
+        for cell in ("saturated", "saturated_sequential",
+                     "preempt_many_queues", "fragmented"):
+            oracles[cell] = pools[0].submit(run_victim_cycle, cell, "cpu")
+        # the two per-task victim cells' oracles (~70 s each) follow
+        # resident_churn's in the second process
         for cell in ("sharing_reclaim", "mig_reclaim"):
             oracles[cell] = pools[1].submit(run_victim_cycle, cell, "cpu")
         return run(oracles)
@@ -3047,9 +3102,10 @@ def main() -> int:
 
 
 def run(oracles: dict) -> int:
-    """The phases above; ``oracles`` holds the oracle process's futures of
-    the sharing and affinity cells' CPU oracle runs (each ``(result,
-    cluster, seconds)``)."""
+    """The phases above; ``oracles`` holds the oracle processes' futures
+    of the CPU oracle runs that do not run on the card's thread (each
+    ``(result, cluster, seconds)``; resident_churn's ``(records,
+    seconds)``)."""
     from kai_scheduler_tpu_torch import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3222,19 +3278,11 @@ def run(oracles: dict) -> int:
         res, cluster, secs = run_victim_cycle(cell, "cuda")
         counts = kernels.launch_counts()
         caps[cell] = cap
-        if cell in oracles:
-            # its CPU oracle runs in the oracle process: compared at the end
-            deferred[cell] = (res, cluster, secs, counts, in_cycle)
-            log(f"{cell}: {secs:.3f} s cycle run, launches {counts}; "
-                f"compared with its oracle at the end; elapsed "
-                f"{time.perf_counter() - t_start:.0f} s")
-            continue
-        cpu, _, cpu_s = run_victim_cycle(cell, "cpu")
-        rec = check_victim_cycle(cell, (res, secs), cpu, cluster, counts)
-        rec.update(cpu_oracle_seconds=cpu_s, in_cycle_ms=in_cycle)
-        report[cell] = rec
-        log_victim_cell(cell, rec, res, secs, counts, cpu_s, in_cycle)
-        log(f"  elapsed {time.perf_counter() - t_start:.0f} s")
+        # its CPU oracle runs in an oracle process: compared at the end
+        deferred[cell] = (res, cluster, secs, counts, in_cycle)
+        log(f"{cell}: {secs:.3f} s cycle run, launches {counts}; "
+            f"compared with its oracle at the end; elapsed "
+            f"{time.perf_counter() - t_start:.0f} s")
     checks.update(victim_kernel_checks(caps))
     lane_checks = lane_kernel_checks(caps)
     checks["freed_by_lane"] = lane_checks.pop("freed_by_lane")
@@ -3246,7 +3294,8 @@ def run(oracles: dict) -> int:
         f"{sr_checks['freed_by_lane:extended']['k6_k7']}")
     del caps
     report["victim_edges"] = victim_edge_checks()
-    log(f"K8 and K7 on kernel_edges' inputs == plain (tolerance 0): "
+    log(f"K8, K7, K5 and K12 on kernel_edges' inputs == plain "
+        f"(tolerance 0): "
         f"{report['victim_edges']} calls; elapsed "
         f"{time.perf_counter() - t_start:.0f} s")
     log(f"victim kernels checked; elapsed {time.perf_counter() - t_start:.0f}"
@@ -3539,6 +3588,8 @@ def run(oracles: dict) -> int:
                    nearest_library_ms=c.get("nearest_library_ms"),
                    in_cycle_ms={v: report[v]["in_cycle_ms"][name]["ms"]
                                 for v in PROFILED_CELLS})
+        if "shapes" in c:
+            row["shapes"] = c["shapes"]
         mode = f"{name}:lanes" if f"{name}:lanes" in lane_checks else \
             f"{name}:credit"
         if mode in lane_checks:

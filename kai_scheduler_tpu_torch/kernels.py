@@ -162,7 +162,7 @@ _SIGNATURES = {
     "kai_type_tables": [_P] * 10 + [_I] * 8 + [_P] * 5 + [_P],
     "kai_uniform_fill": [_P] * 31 + [_I] * 13 + [_F] + [_P] * 7 + [_P],
     "kai_sparse_accept": [_P] * 7 + [_I] * 4 + [_P] * 4 + [_P],
-    "kai_cumsum_ds": [_P, _I, _I, _P, _P, _P],
+    "kai_cumsum_ds": [_P, _I, _I, _P, _P, _P, _P],
     "kai_freed_by_mask": [_P] * 12 + [_I] * 7 + [_P] * 8 + [_P],
     "kai_replace_victims": [_P, _P, _I] + [_P] * 15 + [_I] * 5 + [_P] * 6
     + [_P],

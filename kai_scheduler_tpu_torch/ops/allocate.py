@@ -56,8 +56,10 @@ plain version only for CPU tensors):
 - **K12** :func:`affinity_mask` (``csrc/affinity.cu``) — each lane's node
   mask from the claimed-domain table: no avoid row has claimed the node's
   domain, every need row has; replaces ``anti_forbid_nodes`` +
-  ``attract_allow_nodes`` (ref ``:171``, ``:232``) under the lane axis.
-  K3 and K9 take it as their mask mode.
+  ``attract_allow_nodes`` (ref ``:171``, ``:232``) under the lane axis:
+  a block a lane and 2,048 nodes, the lane's used slots listed once in
+  shared memory, 16 nodes a thread in 16-byte vectors.  K3 and K9 take
+  it as their mask mode.
 - **K13** :func:`anti_mark` (same source) — the taken lanes' placements
   claimed in their mark rows, in place on the action's copy of the table;
   replaces ``anti_mark_placements`` (ref ``:189``).
@@ -321,8 +323,9 @@ def affinity_mask_plain(state: ClusterState, anti_used: Tensor,
 def affinity_mask(state: ClusterState, anti_used: Tensor, dom_static: Tensor,
                   cand: Tensor, *, attract: bool) -> Tensor:
     """K12 — every lane's node mask (see :func:`affinity_mask_plain`).  CPU
-    tensors run the plain version; CUDA tensors launch one thread per
-    (lane, node) or raise."""
+    tensors run the plain version; CUDA tensors launch one block per (lane,
+    2,048 nodes), which lists the lane's used slots once and gives each
+    thread 16 nodes, or raise."""
     if not kernels.on_card(anti_used):
         return affinity_mask_plain(state, anti_used, dom_static, cand,
                                    attract=attract)

@@ -1,8 +1,10 @@
-"""Seeded edge inputs of K8 (``ops.victims.freed_by_lane``) and K7
-(``ops.victims.replace_victims``): the shapes the card kernels' node tiles,
-column slabs, lane prefix and thread-block clusters must survive, as
-numpy leaves of a small snapshot (``state_from_numpy`` turns them into a
-``ClusterState`` on any device).
+"""Seeded edge inputs of K8 (``ops.victims.freed_by_lane``), K7
+(``ops.victims.replace_victims``), K5 (``utils.numerics.cumsum_ds``) and
+K12 (``ops.allocate.affinity_mask``): the shapes the card kernels' node
+tiles, column slabs, lane prefix, thread-block clusters, row tiles and
+node vectors must survive, as numpy leaves of a small snapshot
+(``state_from_numpy`` turns them into a ``ClusterState`` on any device)
+or as plain numpy arrays.
 
 Shared by the CPU parity tests (each case through the reference's
 ``_freed_by_lane`` / ``_replace_victims`` and the port's plain versions),
@@ -24,9 +26,23 @@ of JAX.
   fractional and memory-based shares tied between devices, whole-device
   pods taking the first free devices, extended keys, and a mix with
   invalid nodes, filter classes and releasing capacity.
+- :func:`k5_case` — a ``[U, C]`` (or ``[U, Q, R]``) f32 table per case of
+  ``K5_CASES``: U of 1, 2, 3 and around K5's 256-row tile (255, 256, 257,
+  513: a last tile of one row), around its 256-tile chunk of roots (65,535
+  to 65,793) and 216,001 rows (the MIG fleet's running pods); C of 1, 3,
+  5, 11 (no multiple of K5's 8-column group) and 24; values 1e-3 to 1e9
+  of both signs with +0.0 and -0.0.
+- :func:`k12_case` — K12's inputs per case of ``K12_CASES``: 37 nodes (no
+  multiple of K12's 4- or 16-node vectors), 48 and 100; a two-level
+  topology with nodes lacking a level's label and invalid nodes; term rows
+  at each topology level and at the per-node level; gangs with no used
+  slot, every slot used, -1 slots in the middle of a list, and need rows
+  claimed statically; junk lanes at gang G and lane -1; ``attract`` on and
+  off; lane counts on both sides of K12's 4/16-node switch.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -213,3 +229,147 @@ def k7_case(case: str):
     mask = np.zeros(M, bool)
     mask[victims] = True
     return (lv, mask, free, dev, rel, dev_rel, ext, ext_rel, max_pods)
+
+
+# ---------------------------------------------------------------------------
+# K5 cumsum_ds
+# ---------------------------------------------------------------------------
+
+#: (U, trailing shape) of each K5 case
+K5_CASES = {
+    "u1": (1, (3,)), "u2": (2, (24,)), "u3": (3, (1,)),
+    "u255": (255, (5,)), "u256": (256, (24,)), "u257": (257, (3,)),
+    "u513_c11": (513, (11,)), "u4097_c1": (4097, (1,)),
+    "u65535": (65_535, (3,)), "u65536": (65_536, (5,)),
+    "u65537": (65_537, (24,)), "u65793": (65_793, (1,)),
+    "u216001": (216_001, (3,)), "uqr": (1_000, (7, 3)),
+}
+
+
+def k5_case(case: str) -> np.ndarray:
+    """The f32 table of a K5 case (see the module docstring)."""
+    U, tail = K5_CASES[case]
+    rng = np.random.default_rng(list(K5_CASES).index(case))
+    shape = (U,) + tail
+    x = (rng.uniform(1, 10, shape) * 10 ** rng.uniform(-3, 9, shape)
+         * rng.choice([-1, 1], shape)).astype(np.float32)
+    x[rng.random(shape) < 0.03] = 0.0
+    x[rng.random(shape) < 0.03] = -0.0
+    x.flat[0] = -0.0
+    return x
+
+
+# ---------------------------------------------------------------------------
+# K12 affinity_mask
+# ---------------------------------------------------------------------------
+
+#: (nodes, lanes, attract) of each K12 case: 37 nodes take byte loads, 48
+#: and 100 K12's 16- and 4-node vectors; 300 lanes at 37 nodes and 264 at
+#: 48 give K12 16 nodes a thread, 40 lanes 4
+K12_CASES = {
+    "n37": (37, 40, False), "n37_attract": (37, 40, True),
+    "n37_wide": (37, 300, True), "n48_wide": (48, 264, False),
+    "n48_wide_attract": (48, 264, True), "n100": (100, 40, True),
+    "n100_avoid": (100, 40, False), "n100_one_lane": (100, 1, True),
+}
+#: topology levels, term rows, gangs, avoid slots and need slots of every
+#: K12 case
+K12_LEVELS, K12_TERMS, K12_GANGS, K12_KT, K12_KP = 2, 9, 12, 6, 3
+
+
+def k12_case(case: str) -> dict:
+    """K12's inputs for one case, as numpy arrays: the nodes' ``valid`` and
+    ``topology`` (domain ids of two levels, -1 where a node lacks the
+    level's label), the gangs' ``anti_avoids``, ``attract_needs``,
+    ``anti_term_level`` and ``attract_static``, the claimed-domain table
+    ``anti_used`` [TA + 1, N L + N + 1], the lanes' gangs ``cand`` and
+    ``attract``."""
+    N, B, attract = K12_CASES[case]
+    rng = np.random.default_rng(list(K12_CASES).index(case))
+    L, TA, G, KT, KP = (K12_LEVELS, K12_TERMS, K12_GANGS, K12_KT, K12_KP)
+    valid = rng.random(N) < 0.85
+    valid[:32] = True                       # runs of 16 consecutive cells
+    valid[33] = False
+    # level 0: 3 blocks (ids 0..2), level 1: 6 racks (ids 3..8); some nodes
+    # lack the rack label, a few the block label
+    topo = np.stack([np.arange(N) % 3, 3 + np.arange(N) % 6], 1)
+    topo[rng.random(N) < 0.15, 1] = -1
+    topo[rng.random(N) < 0.05, 0] = -1
+    # term rows at the block level, the rack level and the per-node level
+    # (L), one past it (clamped to L) and one below 0 (clamped to 0)
+    term_level = np.array([0, 1, 2, 1, 0, 2, 3, -1, 1], np.int32)
+    avoids = rng.integers(0, TA, (G, KT)).astype(np.int32)
+    avoids[rng.random((G, KT)) < 0.4] = -1
+    avoids[0] = -1                          # no used avoid slot
+    avoids[1] = np.arange(KT) % TA          # every slot used
+    avoids[2] = [-1, 3, -1, -1, 5, -1]      # -1 in the middle
+    avoids[3, 2] = TA + 4                   # past the table: clamped
+    needs = rng.integers(0, TA, (G, KP)).astype(np.int32)
+    needs[rng.random((G, KP)) < 0.4] = -1
+    needs[0] = -1
+    needs[1] = [0, 2, 6]
+    needs[2] = [-1, 1, -1]
+    needs[4] = [2, -1, 2]
+    AD1 = N * L + N + 1
+    used = rng.random((TA + 1, AD1)) < 0.35
+    used[:, AD1 - 1] = rng.random(TA + 1) < 0.5   # the junk column
+    static = rng.random((TA, N)) < 0.3
+    static[0] = False
+    cand = rng.integers(0, G, B).astype(np.int32)
+    cand[:min(B, 6)] = np.arange(min(B, 6))
+    if B > 8:
+        cand[6] = G                         # a junk lane: clamped to G - 1
+        cand[7] = -1                        # clamped to 0
+    return dict(valid=valid, topology=topo.astype(np.int32),
+                anti_avoids=avoids, attract_needs=needs,
+                anti_term_level=term_level, attract_static=static,
+                anti_used=used, cand=cand, attract=attract)
+
+
+@dataclasses.dataclass
+class K12Nodes:
+    """The node fields K12 reads (``valid``, ``topology``, ``n``)."""
+    valid: object
+    topology: object
+
+    @property
+    def n(self) -> int:
+        return self.valid.shape[0]
+
+
+@dataclasses.dataclass
+class K12Gangs:
+    """The gang fields K12 reads."""
+    anti_avoids: object
+    attract_needs: object
+    anti_term_level: object
+    attract_static: object
+
+    @property
+    def g(self) -> int:
+        return self.anti_avoids.shape[0]
+
+
+@dataclasses.dataclass
+class K12State:
+    """The part of a ``ClusterState`` K12 and its plain version read."""
+    nodes: K12Nodes
+    gangs: K12Gangs
+
+
+def k12_inputs(case: str, device="cpu"):
+    """``(state, anti_used, dom_static, cand, attract)`` of a K12 case as
+    port tensors on ``device`` (``dom_static`` from the port's
+    ``anti_domain_tables``), ready for ``affinity_mask`` and its plain
+    version."""
+    import torch
+
+    from ..ops.allocate import anti_domain_tables
+    c = k12_case(case)
+    t = {k: torch.from_numpy(v).to(device) for k, v in c.items()
+         if isinstance(v, np.ndarray)}
+    st = K12State(K12Nodes(t["valid"], t["topology"]),
+                  K12Gangs(t["anti_avoids"], t["attract_needs"],
+                           t["anti_term_level"], t["attract_static"]))
+    return st, t["anti_used"], anti_domain_tables(st), t["cand"], \
+        c["attract"]

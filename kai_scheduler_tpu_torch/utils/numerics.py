@@ -10,13 +10,17 @@ The reference runs the scan through ``jax.lax.associative_scan``, whose
 bits depend on that function's fixed recursion tree: combine adjacent
 pairs, scan the half-length result recursively, then combine each odd
 prefix with the next even element.  Both versions here run exactly that
-tree, level by level:
+tree:
 
-- :func:`cumsum_ds_plain` — strided slices in PyTorch (the CPU path and
-  the kernel's oracle);
-- **K5** (``csrc/cumsum_ds.cu``) — one block per column, the levels'
-  ``(s, e)`` pairs in a global scratch of ``2·U`` floats per column,
-  ``__syncthreads()`` between levels.
+- :func:`cumsum_ds_plain` — level by level, strided slices in PyTorch
+  (the CPU path and the kernel's oracle);
+- **K5** (``csrc/cumsum_ds.cu``) — the same tree in tiles of 256 rows (a
+  subtree each, one warp a tile and column: 8 rows a lane in registers,
+  the upper levels through lane shuffles): the tiles' roots, the
+  recursion over those roots by the last block of a column group, then
+  each tile's down-sweep seeded by its root's result and the previous
+  tile's.  Two launches (one below 256 rows); coalesced loads and stores
+  through shared memory.
 
 A left-to-right compensated sum (or ``torch.cumsum``) differs from the
 reference in the last bit, so neither stands in for the other.
@@ -84,7 +88,8 @@ def cumsum_ds_plain(x: Tensor) -> Tensor:
 def cumsum_ds(x: Tensor, axis: int = 0) -> Tensor:
     """K5 — the compensated cumulative sum of f32 ``x`` along ``axis``.
     CPU tensors run :func:`cumsum_ds_plain`; CUDA tensors launch the
-    kernel (one block per column of the trailing axes) or raise."""
+    kernel (256-row tiles of up to 8 columns of the trailing axes) or
+    raise."""
     if axis != 0:
         x = x.movedim(axis, 0)
     if not kernels.on_card(x):
@@ -128,6 +133,39 @@ def cumsum_blocked(x: Tensor, axis: int = 0) -> Tensor:
     return out.reshape((nb * SCAN_BLOCK,) + x.shape[1:])[:n]
 
 
+#: K5's tile of rows (one warp's chunk) and columns a block (its warps)
+CUMSUM_DS_CHUNK = 256
+CUMSUM_DS_GROUP = 8
+
+
+def _roots_floats(U: int, C: int) -> int:
+    """Floats of K5's scratch: the tile roots' levels (``U // 256`` pairs a
+    column, then a level of every full chunk of 256 of them while a level
+    exceeds one chunk)."""
+    total, n = 0, U // CUMSUM_DS_CHUNK
+    while True:
+        total += n * C
+        if n <= CUMSUM_DS_CHUNK:
+            return 2 * total
+        n //= CUMSUM_DS_CHUNK
+
+
+#: K5's column-group tickets, a zeroed buffer a (device, stream): a
+#: group's last block of the first launch resets its ticket
+_TICKETS: dict = {}
+
+
+def _tickets(x: Tensor, groups: int) -> Tensor:
+    """The tickets of a K5 launch over ``groups`` column groups."""
+    key = (x.device, kernels.stream_of(x).value)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < groups:
+        buf = torch.zeros((max(groups, 64),), dtype=torch.int32,
+                          device=x.device)
+        _TICKETS[key] = buf
+    return buf
+
+
 def _cumsum_ds_cuda(x: Tensor) -> Tensor:
     if x.dtype != torch.float32:
         raise ValueError(f"cumsum_ds: dtype {x.dtype}, want float32")
@@ -138,10 +176,12 @@ def _cumsum_ds_cuda(x: Tensor) -> Tensor:
     if U == 0 or C == 0:
         return out
     dev = kernels.require_cuda("cumsum_ds", dict(x=x))
-    scratch = torch.empty((C, 2 * U), dtype=torch.float32, device=dev)
+    scratch = torch.empty((max(_roots_floats(U, C), 2),),
+                          dtype=torch.float32, device=dev)
+    tickets = _tickets(x, -(-C // min(C, CUMSUM_DS_GROUP)))
     rc = kernels.library().kai_cumsum_ds(
-        kernels.ptr(x), U, C, kernels.ptr(scratch), kernels.ptr(out),
-        kernels.stream_of(x))
+        kernels.ptr(x), U, C, kernels.ptr(scratch), kernels.ptr(tickets),
+        kernels.ptr(out), kernels.stream_of(x))
     kernels.check(rc, "cumsum_ds")
     kernels.count_launch("cumsum_ds")
     return out

@@ -2,8 +2,8 @@
 # Runs chip_smoke.py, the mig_reclaim and sharing_reclaim cycle profiles
 # and the card tests from exactly the files git would commit, unpacked
 # into chip_proof/ (listed in .gitignore), so that nothing built or left
-# behind in the working tree is used; then times K3, K6, K7, K8, K9 and
-# K10 of the parent
+# behind in the working tree is used; then times K3, K5, K6, K7, K8, K9,
+# K10 and K12 of the parent
 # commit, unpacked into chip_parent/ (listed too), against the change's on
 # the inputs chip_smoke.py captured, in turns (parent, change, change,
 # parent); the modes the parent lacks are listed as missing.

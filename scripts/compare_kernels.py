@@ -1,7 +1,7 @@
-"""Time K3 (``uniform_fill``), K6 (``freed_by_mask``), K7
-(``replace_victims``), K8 (``freed_by_lane``), K9 (``pertask_fill``) and
-K10 (``dense_accept``) of one checkout on the inputs another run captured,
-on one NVIDIA GPU.
+"""Time K3 (``uniform_fill``), K5 (``cumsum_ds``), K6 (``freed_by_mask``),
+K7 (``replace_victims``), K8 (``freed_by_lane``), K9 (``pertask_fill``),
+K10 (``dense_accept``) and K12 (``affinity_mask``) of one checkout on the
+inputs another run captured, on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # writes build/kernel_inputs.pt
     PYTHONPATH=<checkout> python3 scripts/compare_kernels.py \\
@@ -12,14 +12,22 @@ K10 mode, and of K8's three modes (K9's and K10's extended
 modes too: ``pertask_fill:extended``, ``:lanes_extended``,
 ``:legacy_extended``, ``dense_accept:extended``), and K7's call with the
 most victims on fragmented and on sharing_reclaim
-(``replace_victims:fragmented``, ``:sharing_reclaim``), on its main path
-to ``build/kernel_inputs.pt``.  This script loads them into whichever
-``kai_scheduler_tpu_torch`` comes first on ``sys.path`` (so it times an
+(``replace_victims:fragmented``, ``:sharing_reclaim``), K5's largest call
+of each victim cell that launches it (``cumsum_ds:saturated``,
+``:saturated_sequential``, ``:preempt_many_queues``, ``:fragmented``,
+``:sharing_reclaim``, ``:mig_reclaim``) and K12's largest call and
+one-lane call (``affinity_mask``, ``affinity_mask:one_lane``), on its
+main path to ``build/kernel_inputs.pt``.  This script loads them into
+whichever ``kai_scheduler_tpu_torch`` comes first on ``sys.path`` (so it times an
 older checkout's kernels on the same inputs), holds each kernel against
 that checkout's plain version (tolerance 0; K6's, K7's and K8's on CPU
 copies, K6's and K8's ``index_add_`` adding in order there), and prints
 one JSON line: each mode's median of 50 calls (CUDA events around each
-call, as ``chip_smoke.py`` times them), the card's name and power limit,
+call, as ``chip_smoke.py`` times them, the host's launch included), its
+device time a call (``device_ms``: the profiler's device time of every
+kernel the 50 calls launched, over 50; null when the profiler recorded
+some kernel of a call fewer or more than 50 times), the card's name and
+power limit,
 and the checkout's path.  A checkout whose K6 has no queue-only mode runs
 the whole kernel for that call (what its reclaim ran) and is held on the
 queue tables; a mode whose arguments the checkout's wrapper does not take
@@ -56,7 +64,41 @@ def _time_ms(fn) -> float:
     return statistics.median(times)
 
 
+def _kernel_totals(fn, calls: int) -> dict[str, tuple[int, float]]:
+    """``{kernel: (launches, device us)}`` the profiler recorded over
+    ``calls`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        us = us if us is not None else getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            out[e.key] = (e.count, us)
+    return out
+
+
+def _device_ms(fn) -> float | None:
+    """Device milliseconds a call: every kernel ``REPEATS`` calls launch,
+    from the profiler's device activity; None when the profiler did not
+    record each kernel of one call ``REPEATS`` times (a call whose kernels
+    went unrecorded would count as no time)."""
+    fn()
+    torch.cuda.synchronize()
+    one = _kernel_totals(fn, 1)
+    many = _kernel_totals(fn, REPEATS)
+    if {k: c for k, (c, _) in many.items()} != {
+            k: c * REPEATS for k, (c, _) in one.items()}:
+        return None
+    return sum(us for _, us in many.values()) / REPEATS / 1e3
+
+
 def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
     if hasattr(out, "fields"):
         return list(out.fields())
     return [t for t in out if t is not None]
@@ -74,6 +116,7 @@ def main() -> int:
     from kai_scheduler_tpu_torch.ops import victims as V
     from kai_scheduler_tpu_torch.state import (state_from_numpy,
                                                state_to_numpy)
+    from kai_scheduler_tpu_torch.utils import numerics as NU
     saved = torch.load(a.inputs, map_location="cuda", weights_only=False)
     has_queues_only = "queues_only" in inspect.signature(
         V.freed_by_mask).parameters
@@ -120,7 +163,7 @@ def main() -> int:
         return call, [t.cpu() for t in _flat(call())], _flat(plain)
 
     out = dict(label=a.label, package=kai_scheduler_tpu_torch.__file__,
-               card=card.strip(), modes={}, missing=[])
+               card=card.strip(), modes={}, device_ms={}, missing=[])
     for mode, (args, kw) in saved.items():
         # a keyword left at None is the wrapper's default: an older
         # checkout whose wrapper lacks it runs the same call
@@ -130,7 +173,9 @@ def main() -> int:
                    "replace_victims": V.replace_victims,
                    "pertask_fill": A.pertask_fill,
                    "dense_accept": A.dense_accept,
-                   "uniform_fill": A.uniform_fill}[mode.split(":")[0]]
+                   "uniform_fill": A.uniform_fill,
+                   "cumsum_ds": NU.cumsum_ds,
+                   "affinity_mask": A.affinity_mask}[mode.split(":")[0]]
         if not set(kw) <= set(inspect.signature(wrapper).parameters):
             out["missing"].append(mode)
             continue
@@ -140,13 +185,21 @@ def main() -> int:
             call, got, want = lane_freed(args, kw)
         elif mode.startswith("replace_victims"):
             call, got, want = replaced(args, kw)
+        elif mode.startswith("cumsum_ds"):
+            def call(args=args, kw=kw):
+                return NU.cumsum_ds(*args, **kw)
+            # its plain version on a CPU copy (the wrapper takes it there)
+            got = [call().cpu().view(torch.int32)]
+            want = [NU.cumsum_ds(args[0].cpu(), **kw).view(torch.int32)]
         else:
             fn, plain = {"pertask_fill": (A.pertask_fill,
                                           A.pertask_fill_plain),
                          "dense_accept": (A.dense_accept,
                                           A.dense_accept_plain),
                          "uniform_fill": (A.uniform_fill,
-                                          A.uniform_fill_plain)}[
+                                          A.uniform_fill_plain),
+                         "affinity_mask": (A.affinity_mask,
+                                           A.affinity_mask_plain)}[
                 mode.split(":")[0]]
 
             def call(fn=fn, args=args, kw=kw):
@@ -157,6 +210,7 @@ def main() -> int:
             raise AssertionError(f"{a.label} {mode}: kernel and plain "
                                  f"version differ")
         out["modes"][mode] = _time_ms(call)
+        out["device_ms"][mode] = _device_ms(call)
     print(json.dumps(out))
     return 0
 

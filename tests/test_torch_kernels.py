@@ -2343,3 +2343,39 @@ def test_victim_kernels_full_width_match_plain(cuda):
     assert_same(got, V.freed_by_lane_plain(
         _cpu_state(st), lane.cpu(), 64, chain.cpu(), compose=True,
         extended=True))
+
+
+# ---------------------------------------------------------------------------
+# K5 and K12 at their edges (state.kernel_edges, the inputs the CPU parity
+# tests hold the plain versions to the reference on)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", list(KE.K5_CASES))
+def test_cumsum_ds_edges_match_plain(cuda, case):
+    """K5 byte-equal to its plain version on ``kernel_edges.k5_case``:
+    around its 256-row tile and its 256-tile chunk of roots, 216,001 rows,
+    column counts that are no multiple of its 8-column group, a
+    ``[U, Q, R]`` table, +0.0 and -0.0; one launch a call."""
+    from kai_scheduler_tpu_torch.utils.numerics import (cumsum_ds,
+                                                        cumsum_ds_plain)
+    x = torch.from_numpy(KE.k5_case(case))
+    kernels.reset_launch_counts()
+    got = cumsum_ds(x.to(cuda))
+    assert kernels.launch_counts()["cumsum_ds"] == 1
+    assert_same(got.view(torch.int32), cumsum_ds_plain(x).view(torch.int32))
+
+
+@pytest.mark.parametrize("case", list(KE.K12_CASES))
+def test_affinity_mask_edges_match_plain(cuda, case):
+    """K12 byte-equal to its plain version on ``kernel_edges.k12_case``:
+    37 nodes (byte loads), 48 and 100 (16- and 4-node vectors), lanes on
+    both sides of its 4/16-node switch, gangs with no used slot and with
+    every slot used, -1 slots in the middle of a list, junk lanes, rows at
+    each level and at the per-node level, nodes lacking a label, invalid
+    nodes, ``attract`` on and off."""
+    st, used, dom, cand, attract = KE.k12_inputs(case, cuda)
+    kernels.reset_launch_counts()
+    got = A.affinity_mask(st, used, dom, cand, attract=attract)
+    assert kernels.launch_counts()["affinity_mask"] == 1
+    cst, *rest = KE.k12_inputs(case)
+    assert_same(got, A.affinity_mask_plain(cst, *rest[:3], attract=attract))
